@@ -1,0 +1,212 @@
+"""The port's facade (engine="blockmax") vs the reference facade.
+
+Same corpus, same seed, same operations on both; the reference serves
+with its Pallas kernel in interpret mode, the port on the CPU through the
+plain version of its kernel.  Payloads and scores must be equal.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from vectorchord_bm25_tpu.index.bm25index import (  # noqa: E402
+    Bm25Index as RefIndex,
+)
+from vectorchord_bm25_tpu.index.storage import load_index, save_index  # noqa: E402
+from vectorchord_bm25_tpu.text.intern import Document, Query, random_seed  # noqa: E402
+from vectorchord_bm25_tpu.text.tokenizer import tsvector  # noqa: E402
+from vectorchord_bm25_tpu.utils.options import SessionConfig  # noqa: E402
+from vectorchord_bm25_tpu_torch import Bm25Index  # noqa: E402
+
+from test_sealed import make_docs  # noqa: E402
+from test_tokenizer import TOY_CORPUS  # noqa: E402
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_DOCS, VOCAB = 2048, 300
+# chunk=4: several pruning rounds per batch on this corpus (16 ranges).
+PORT_OPTS = {"chunk": 4}
+REF_OPTS = {"use_pallas": "interpret", **PORT_OPTS}
+
+
+def hits_of(results):
+    """[[(score, payload), ...], ...] of search_batch / search results."""
+    return [[(h.score, h.payload) for h in hits] for hits in results]
+
+
+@pytest.fixture
+def corpus(rng):
+    docs = make_docs(rng, N_DOCS, vocab=VOCAB)
+    payloads = (np.arange(N_DOCS, dtype=np.int64) * 3 + 11).tolist()
+    queries = [
+        Query.from_int_ids(rng.integers(0, VOCAB, size=int(n)).tolist())
+        for n in rng.integers(1, 6, size=64)
+    ]
+    return docs, payloads, queries
+
+
+@pytest.fixture
+def pair(corpus):
+    docs, payloads, queries = corpus
+    seed = random_seed()
+    ref = RefIndex.build(
+        docs, payloads=payloads, seed=seed, engine="blockmax",
+        engine_options=REF_OPTS,
+    )
+    port = Bm25Index.build(
+        docs, payloads=payloads, seed=seed, engine="blockmax",
+        engine_options=PORT_OPTS, device="cpu",
+    )
+    return ref, port, queries
+
+
+def assert_batch_equal(ref, port, queries, k=10, **kw):
+    want = hits_of(ref.search_batch(queries, k, **kw))
+    got = hits_of(port.search_batch(queries, k, **kw))
+    assert got == want
+    assert sum(map(len, got)) > 0
+    return got
+
+
+def test_search_batch(pair):
+    ref, port, queries = pair
+    assert_batch_equal(ref, port, queries)
+    assert_batch_equal(ref, port, queries, k=3)
+
+
+def test_search_single(pair):
+    ref, port, queries = pair
+    for q in queries[:8]:
+        assert hits_of([port.search(q, k=10)]) == hits_of([ref.search(q, k=10)])
+
+
+def test_bulkdelete(pair):
+    ref, port, queries = pair
+
+    def pred(p):
+        return p % 7 == 0
+
+    assert port.bulkdelete(pred) == ref.bulkdelete(pred) > 0
+    got = assert_batch_equal(ref, port, queries)
+    assert all(p % 7 for hits in got for _, p in hits)
+
+
+def test_prefilter(pair):
+    ref, port, queries = pair
+    sess = SessionConfig(prefilter=True)
+
+    def keep(p):
+        return p % 2 == 1
+
+    got = assert_batch_equal(ref, port, queries, filter_fn=keep, session=sess)
+    assert all(p % 2 for hits in got for _, p in hits)
+
+
+def test_insert_maintain_search_batch(pair, rng):
+    ref, port, queries = pair
+    new = make_docs(rng, 40, vocab=VOCAB)
+    for i, doc in enumerate(new):
+        ref.insert(doc, 100_000 + i)
+        port.insert(doc, 100_000 + i)
+    # Growing docs are served on the host by single-query search.
+    for q in queries[:4]:
+        assert hits_of([port.search(q, k=10)]) == hits_of([ref.search(q, k=10)])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.search_batch(queries, 10)
+    ref.bulkdelete(lambda p: p % 5 == 0)
+    port.bulkdelete(lambda p: p % 5 == 0)
+    ref.maintain()
+    port.maintain()
+    got = assert_batch_equal(ref, port, queries)
+    assert any(p >= 100_000 for hits in got for _, p in hits)
+
+
+def test_readme_toy_anchor():
+    seed = random_seed()
+    docs = [Document.from_token_counts(seed, tsvector(t)) for t in TOY_CORPUS]
+    index = Bm25Index.build(
+        docs, payloads=list(range(1, 11)), engine="blockmax", device="cpu"
+    )
+    q = Query.from_tokens(seed, tsvector("PostgreSQL").keys())
+    assert [h.payload for h in index.search(q, k=10)] == [8, 9, 4, 1, 7, 2]
+    assert [h.payload for h in index.search_batch([q], k=10)[0]] == [
+        8, 9, 4, 1, 7, 2,
+    ]
+
+
+def test_from_reference_checkpoint(pair, rng, tmp_path):
+    ref, _, queries = pair
+    ref.bulkdelete(lambda p: p % 3 == 0)
+    for i, doc in enumerate(make_docs(rng, 10, vocab=VOCAB)):
+        ref.insert(doc, 200_000 + i)
+    ref.bulkdelete(lambda p: p == 200_003)
+    save_index(ref, str(tmp_path / "idx"))
+    loaded = load_index(str(tmp_path / "idx"))
+    port = Bm25Index.from_reference(
+        loaded, device="cpu", engine_options=PORT_OPTS
+    )
+    for q in queries[:6]:
+        assert hits_of([port.search(q, k=10)]) == hits_of([ref.search(q, k=10)])
+    ref.maintain()
+    port.maintain()
+    assert_batch_equal(ref, port, queries)
+
+
+@pytest.mark.parametrize("engine", ["stream", "exact", "hybrid"])
+def test_unported_engines_raise(corpus, engine):
+    docs, payloads, queries = corpus
+    index = Bm25Index.build(docs[:50], engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        index.search_batch(queries[:2], 5)
+
+
+def test_no_cpu_fallback(corpus, monkeypatch):
+    # The facade defaults to the card; without one it raises rather than
+    # serve on the CPU.
+    docs, _, queries = corpus
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    index = Bm25Index.build(docs[:50], engine="blockmax")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        index.search_batch(queries[:2], 5)
+
+
+def test_port_runs_without_jax():
+    # A CUDA install need not have jax: the port and the reference host code
+    # it imports must build and serve the slice with jax blocked.
+    script = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        from vectorchord_bm25_tpu_torch import Bm25Index, Query
+        from test_sealed import make_docs
+
+        rng = np.random.default_rng(7)
+        index = Bm25Index.build(make_docs(rng, 300, vocab=40),
+                                engine="blockmax", device="cpu")
+        qs = [Query.from_int_ids([1, 2, 3]), Query.from_int_ids([5])]
+        hits = index.search_batch(qs, k=5)
+        assert all(len(h) == 5 for h in hits), hits
+        loaded = sorted(m for m, v in sys.modules.items()
+                        if v is not None and m.split(".")[0] in ("jax", "jaxlib"))
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")]
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok")
