@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's Block-Max slice once on one GPU.
+"""Drive the PyTorch/CUDA port once on one GPU: the Block-Max engine and
+the served default, the stream engine with a growing segment.
 
     python3 chip_smoke.py [--docs N] [--seed S]
 
@@ -8,7 +9,8 @@ not 0 and no result line is printed):
 
   (a) the card's ``name, power.limit``, torch and CUDA versions;
   (b) build the CUDA kernel library from ``vectorchord_bm25_tpu_torch/csrc``
-      with nvcc for sm_90a;
+      with nvcc for sm_90a, one nvcc per source at once, and print ptxas'
+      register and shared-memory lines;
   (c) the kernel against its plain PyTorch version on the card, on the
       windows the engine hands it at the slice's shapes (Q=4096, T=4,
       C=32, RS=128 at the default size; must be equal) and on random
@@ -21,9 +23,26 @@ not 0 and no result line is printed):
   (e) correctness at that size: 256 sampled queries equal the same
       engine on the CPU (plain kernel), also after deleting 1% of the
       payloads and under a prefilter; recall@10 = 1.0 against the
-      float64 oracle, excusing f32 boundary ties as bench.py does.
+      float64 oracle, excusing f32 boundary ties as bench.py does;
+  (f) the served default: ``Bm25Index(seg, seed, IndexOptions(),
+      device="cuda")`` (engine "stream", dense below 2^21 docs) on the same
+      corpus.  On every dispatch the engine hands its kernels, S1
+      (``stream_dense_accumulate``) and S2 (``dense_topk``) must equal
+      their plain versions (``torch.equal``); both and their plain
+      versions are timed with CUDA events on the first dispatch.  Then 5
+      batches of 4,096 queries at k=10, QPS each; both launch counts must
+      grow;
+  (g) 256 sampled queries equal the same facade on the CPU (plain
+      versions), also after deleting 1% and under a prefilter; recall@10
+      = 1.0 against the float64 oracle; ``memory_report()["total"]``
+      equals the bytes of the stream's host arrays;
+  (h) 1,024 inserted docs (the term counts of corpus docs, so every term
+      is known) served by ``search_batch`` through the growing segment's
+      stream engine on the card: equal to the CPU, and its S1 launches
+      grow.
 
-The last line of stdout is ``{"ok": true, "device": {...}}``.
+The ``kernels`` line lists P1, S1 and S2; the last line of stdout is
+``{"ok": true, "device": {...}}``.
 Needs torch with CUDA and nvcc; imports no jax.
 """
 
@@ -62,10 +81,12 @@ def hits_of(results):
     return [[(h.score, h.payload) for h in hits] for hits in results]
 
 
-def recall_vs_oracle(seg, queries, results, k, oracle_scores, oracle_topk):
+def recall_vs_oracle(seg, queries, results, k):
     """recall@k of payload results vs the float64 oracle (bench.py's
     audit: a missing doc whose f64 score is within 2 f32 ulps of the kth
     score is an f32-resolution boundary tie, not a miss)."""
+    from vectorchord_bm25_tpu_torch import oracle_scores, oracle_topk
+
     slot_of = {int(p): i for i, p in enumerate(seg.doc_payload)}
     hits = total = ties = 0
     for query, res in zip(queries, results):
@@ -86,6 +107,206 @@ def recall_vs_oracle(seg, queries, results, k, oracle_scores, oracle_topk):
     return (hits / total if total else 1.0), total, ties
 
 
+def doomed(p):
+    """The 1% of payloads the audits delete."""
+    return (np.asarray(p) * 2654435761) % 100 == 0
+
+
+def keep(p):
+    """The audits' prefilter."""
+    return np.asarray(p) % 3 != 0
+
+
+def audit(index, cpu, seg, sample):
+    """Hold the card's index against the same index on the CPU (plain
+    versions) on the sampled queries, check recall@K against the float64
+    oracle, then delete 1% of the payloads on both and compare again, with
+    and without a prefilter.  Raises on any difference; returns (recall,
+    oracle hits, ties excused, docs deleted)."""
+    from vectorchord_bm25_tpu_torch import SessionConfig
+
+    gpu_hits = index.search_batch(sample, K)
+    if hits_of(gpu_hits) != hits_of(cpu.search_batch(sample, K)):
+        raise AssertionError("GPU results differ from the CPU-plain run")
+    recall, total, ties = recall_vs_oracle(seg, sample, hits_of(gpu_hits), K)
+    if recall != 1.0:
+        raise AssertionError(f"recall@{K} vs oracle {recall} != 1.0")
+    n_del = index.bulkdelete(doomed)
+    if cpu.bulkdelete(doomed) != n_del or not n_del:
+        raise AssertionError("bulkdelete counts differ or deleted nothing")
+    for kw in ({}, {"filter_fn": keep, "session": SessionConfig(prefilter=True)}):
+        got = hits_of(index.search_batch(sample, K, **kw))
+        if got != hits_of(cpu.search_batch(sample, K, **kw)):
+            raise AssertionError(f"GPU != CPU-plain after deletes {kw and '+ prefilter'}")
+        bad = [p for hits in got for _, p in hits if doomed(p) or (kw and not keep(p))]
+        if bad:
+            raise AssertionError(f"deleted or filtered payloads returned: {bad[:5]}")
+    return recall, total, ties, n_del
+
+
+def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label):
+    """Phases (f)-(h): the served default engine with a growing segment.
+    Returns the kernels-line entries of S1 and S2."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch import (
+        Bm25Index,
+        Document,
+        IndexOptions,
+    )
+    from vectorchord_bm25_tpu_torch.ops import stream_kernel, topk
+    from vectorchord_bm25_tpu_torch.search import stream as port_stream
+
+    # (f) the served default on the card
+    t0 = time.perf_counter()
+    index = Bm25Index(seg, seed, IndexOptions(), device="cuda")
+    engine = index.engine()
+    si = engine.stream
+    if index.engine_kind != "stream" or type(engine) is not port_stream.StreamEngine:
+        raise AssertionError(f"default engine is {index.engine_kind}: {engine!r}")
+    print(
+        f"(f) stream index: {si.n_windows} windows, {si.n_postings} postings, "
+        f"{si.words.nbytes} B of stream words; host build "
+        f"{time.perf_counter() - t0:.1f} s; device index "
+        f"{engine.memory_report()['total']} B"
+    )
+    dispatches = []
+    launch = port_stream.stream_dense_accumulate
+
+    def record(*a):
+        dispatches.append(a)
+        return launch(*a)
+
+    port_stream.stream_dense_accumulate = record
+    try:
+        engine.search(queries, K)
+    finally:
+        port_stream.stream_dense_accumulate = launch
+    kk = min(1 << (K - 1).bit_length(), seg.n_docs)
+    s1_err = s2_err = 0.0
+    for a in dispatches:
+        got = stream_kernel.stream_dense_accumulate(*a)
+        want = stream_kernel.stream_dense_accumulate_plain(*a)
+        torch.cuda.synchronize()
+        s1_err = max(s1_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"S1 != plain on a dispatch: max abs err {s1_err}")
+        del want
+        ks, ki = topk.dense_topk(got, kk, seg.n_docs)
+        ps, pi = topk.dense_topk_plain(got, kk, seg.n_docs)
+        torch.cuda.synchronize()
+        live = torch.isfinite(ps)
+        s2_err = max(s2_err, float(torch.where(live, ks - ps, 0.0).abs().max()))
+        if not (torch.equal(ks, ps) and torch.equal(ki, pi)):
+            raise AssertionError("S2 != plain on a dispatch")
+        print(
+            f"(f) dispatch [{a[-2]} rows, {a[6].numel()} windows, "
+            f"{len(np.unique(a[8]))} ordinals, {int((got > 0).sum())} nonzero "
+            f"accumulator cells]: S1 == plain, S2 == plain (torch.equal)"
+        )
+        del got
+    a = dispatches[0]
+    n_q, n_docs = a[-2], a[-1]
+    s1_ms = cuda_ms(lambda: stream_kernel.stream_dense_accumulate(*a), iters=10)
+    s1_plain_ms = cuda_ms(lambda: stream_kernel.stream_dense_accumulate_plain(*a), iters=5)
+    zero_ms = cuda_ms(lambda: topk.new_accumulator(n_q, n_docs, "cuda"), iters=10)
+    acc = stream_kernel.stream_dense_accumulate(*a)
+    s2_ms = cuda_ms(lambda: topk.dense_topk(acc, kk, n_docs), iters=10)
+    s2_plain_ms = cuda_ms(lambda: topk.dense_topk_plain(acc, kk, n_docs), iters=5)
+    del acc
+    print(
+        f"(f) {len(dispatches)} dispatches; first: n_q={n_q}, N+1={n_docs + 1}, "
+        f"{a[6].numel()} windows; S1 {s1_ms:.4f} ms vs plain {s1_plain_ms:.4f} ms "
+        f"(both include the {zero_ms:.4f} ms accumulator zero-fill); S2 "
+        f"{s2_ms:.4f} ms vs plain {s2_plain_ms:.4f} ms at k={kk} [{label}]"
+    )
+    index.search_batch(queries, K)  # warm-up
+    torch.cuda.synchronize()
+    stream_kernel.LAUNCHES = topk.LAUNCHES = 0
+    qps = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        results = index.search_batch(queries, K)
+        qps.append(len(queries) / (time.perf_counter() - t0))
+    s1_launches, s2_launches = stream_kernel.LAUNCHES, topk.LAUNCHES
+    if not s1_launches or not s2_launches:
+        raise AssertionError(
+            f"the default engine launched S1 {s1_launches}, S2 {s2_launches} times"
+        )
+    if len(results) != len(queries) or not all(
+        np.isfinite(h.score) and h.score > 0 for hits in results for h in hits
+    ):
+        raise AssertionError("stream results are not finite positive hits")
+    print(
+        f"(f) served default: {ROUNDS} x search_batch({len(queries)} queries, "
+        f"k={K}); S1 {s1_launches} launches, S2 {s2_launches}; QPS per batch "
+        f"{[round(x, 1) for x in qps]} (median {float(np.median(qps)):.1f}) [{label}]"
+    )
+
+    # (g) correctness at that size
+    rng = np.random.default_rng(args.seed + 3)
+    sample = [queries[i] for i in np.sort(rng.choice(len(queries), AUDIT, replace=False))]
+    cpu = Bm25Index(seg, seed, IndexOptions(), device="cpu")
+    want_bytes = si.words.nbytes + 4 * (si.n_docs + 1) + 14 * (si.n_windows + 1)
+    got_bytes = engine.memory_report()["total"]
+    if got_bytes != want_bytes:
+        raise AssertionError(f"memory_report total {got_bytes} != {want_bytes}")
+    recall, total, ties, n_del = audit(index, cpu, seg, sample)
+    print(
+        f"(g) {AUDIT} sampled queries: GPU == CPU-plain, also after deleting "
+        f"{n_del} docs (1%) and with a prefilter; recall@{K} vs the float64 "
+        f"oracle {recall} ({total} hits, {ties} boundary ties excused); "
+        f"memory_report total {got_bytes} B == stream host arrays"
+    )
+
+    # (h) a growing segment served on the card
+    picks = rng.choice(seg.n_docs, 1024, replace=False)
+    base = int(seg.doc_payload.max()) + 1
+    for j, d in enumerate(picks):
+        lo, hi = int(doc_start[d]), int(doc_start[d + 1])
+        doc = Document(keys=keys[lo:hi], values=tfs[lo:hi])
+        index.insert(doc, base + j)
+        cpu.insert(doc, base + j)
+    stream_kernel.LAUNCHES = 0
+    index.growing.topk_batch_async(sample, K)()
+    grow_launches = stream_kernel.LAUNCHES
+    g_engine = index.growing.device_engine()
+    if not grow_launches or not g_engine.dev_words.is_cuda:
+        raise AssertionError("the growing segment was not served by S1 on the card")
+    got = hits_of(index.search_batch(sample, K))
+    if got != hits_of(cpu.search_batch(sample, K)):
+        raise AssertionError("growing: GPU != CPU-plain")
+    n_new = sum(p >= base for hits in got for _, p in hits)
+    print(
+        f"(h) {len(index.growing)} growing docs ({g_engine.n_docs} in the card "
+        f"engine, {g_engine.stream.n_windows} windows): GPU == CPU-plain on "
+        f"{AUDIT} queries, {n_new} growing hits; growing engine S1 launches "
+        f"{grow_launches}"
+    )
+    return [
+        {
+            "name": "stream_dense_accumulate",
+            "route": "cuda",
+            "source": "vectorchord_bm25_tpu_torch/csrc/stream_dense.cu",
+            "replaces": "vectorchord_bm25_tpu/search/stream.py:171",
+            "launches": s1_launches,
+            "max_abs_err": s1_err,
+            "ms": s1_ms,
+            "plain_ms": s1_plain_ms,
+        },
+        {
+            "name": "dense_topk",
+            "route": "cuda",
+            "source": "vectorchord_bm25_tpu_torch/csrc/dense_topk.cu",
+            "replaces": "vectorchord_bm25_tpu/ops/topk.py:31",
+            "launches": s2_launches,
+            "max_abs_err": s2_err,
+            "ms": s2_ms,
+            "plain_ms": s2_plain_ms,
+        },
+    ]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=131072)
@@ -104,10 +325,7 @@ def main() -> int:
     from vectorchord_bm25_tpu_torch import (
         Bm25Index,
         IndexOptions,
-        SessionConfig,
         build_sealed_segment_from_postings,
-        oracle_scores,
-        oracle_topk,
     )
     from vectorchord_bm25_tpu_torch.ops import _build, score_kernel
     from vectorchord_bm25_tpu_torch.search import blockmax
@@ -129,6 +347,9 @@ def main() -> int:
         f"(b) built {lib._name} with {_build.nvcc_path()} "
         f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s"
     )
+    for line in _build.build_log().splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill")):
+            print(f"(b) ptxas: {line.split('info    :')[-1].strip()}")
 
     # The slice's index (host build), served on the card.
     t0 = time.perf_counter()
@@ -238,42 +459,17 @@ def main() -> int:
     rng = np.random.default_rng(args.seed + 2)
     sample = [queries[i] for i in np.sort(rng.choice(len(queries), AUDIT, replace=False))]
     cpu = Bm25Index(seg, seed, IndexOptions(), engine="blockmax", device="cpu")
-    gpu_hits = index.search_batch(sample, K)
-    if hits_of(gpu_hits) != hits_of(cpu.search_batch(sample, K)):
-        raise AssertionError("GPU results differ from the CPU-plain run")
-    recall, total, ties = recall_vs_oracle(
-        seg, sample, hits_of(gpu_hits), K, oracle_scores, oracle_topk
-    )
-    if recall != 1.0:
-        raise AssertionError(f"recall@{K} vs oracle {recall} != 1.0")
+    recall, total, ties, n_del = audit(index, cpu, seg, sample)
     print(
         f"(e) {AUDIT} sampled queries: GPU == CPU-plain; recall@{K} vs the "
         f"float64 oracle {recall} ({total} hits, {ties} boundary ties excused)"
     )
-
-    def doomed(p):
-        return (np.asarray(p) * 2654435761) % 100 == 0
-
-    n_del = index.bulkdelete(doomed)
-    if cpu.bulkdelete(doomed) != n_del or not n_del:
-        raise AssertionError("bulkdelete counts differ or deleted nothing")
-    sess = SessionConfig(prefilter=True)
-
-    def keep(p):
-        return np.asarray(p) % 3 != 0
-
-    for kw in ({}, {"filter_fn": keep, "session": sess}):
-        got = hits_of(index.search_batch(sample, K, **kw))
-        if got != hits_of(cpu.search_batch(sample, K, **kw)):
-            raise AssertionError(f"GPU != CPU-plain after deletes {kw and '+ prefilter'}")
-        bad = [p for hits in got for _, p in hits if doomed(p) or (kw and not keep(p))]
-        if bad:
-            raise AssertionError(f"deleted or filtered payloads returned: {bad[:5]}")
     print(
         f"(e) after deleting {n_del} docs (1%) and with a prefilter: "
         f"GPU == CPU-plain on {AUDIT} queries"
     )
 
+    stream = stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label)
     print(
         json.dumps(
             {
@@ -288,7 +484,8 @@ def main() -> int:
                         "max_abs_err_random": rand_err,
                         "ms": kernel_ms,
                         "plain_ms": plain_ms,
-                    }
+                    },
+                    *stream,
                 ]
             }
         )

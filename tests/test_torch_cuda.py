@@ -107,3 +107,217 @@ def test_engine_on_card_equals_cpu(card, gen, n_docs, vocab, range_size):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
     assert on_card.memory_report() == on_cpu.memory_report()
+
+
+# --- the stream engine's kernels: S1 stream_dense_accumulate, S2 dense_topk
+
+
+def _stream_case(gen, n_docs=20_000, tf_hi=400):
+    """A stream index with every doc width class (terms stepping 1, 6, 100
+    and 1,000 docs) and tf widths up to 16 bits, and a random dispatch of
+    its windows: (engine tables on the card, wsrc, wq, word_ord, n_q)."""
+    from vectorchord_bm25_tpu.index.sealed import build_sealed_segment_from_postings
+    from vectorchord_bm25_tpu.index.stream import build_stream_index
+
+    toks, docs = [], []
+    for tid, step in enumerate((1, 6, 100, 1000)):
+        d = np.arange(int(gen.integers(0, step)), n_docs, step)
+        toks.append(np.full(d.size, tid))
+        docs.append(d)
+    for tid in range(4, 40):
+        d = np.unique(gen.integers(0, n_docs, size=int(gen.integers(1, 3000))))
+        toks.append(np.full(d.size, tid))
+        docs.append(d)
+    tok, doc = np.concatenate(toks), np.concatenate(docs)
+    tf = gen.integers(1, tf_hi + 1, size=tok.size)
+    keys = np.zeros((tok.size, 16), dtype=np.uint8)
+    keys[:, :4] = tok.astype(">u4").view(np.uint8).reshape(-1, 4)
+    order = np.lexsort((doc, tok))
+    seg = build_sealed_segment_from_postings(
+        keys.reshape(-1).view("S16")[order], doc[order], tf[order], n_docs,
+        presorted=True,
+    )
+    si = build_stream_index(seg)
+    assert set(np.unique(si.w_dbits)) == {2, 4, 8, 16}
+    s1 = si.s1_table[si.doc_fn & 0xFF].astype(np.float32)
+    s1[gen.random(n_docs + 1) < 0.2] = np.inf
+    s1[n_docs] = np.inf
+    tables = [
+        torch.from_numpy(x).cuda()
+        for x in (
+            si.words.view(np.int32),
+            s1,
+            np.append(si.w_off4, si.words.size - 64).astype(np.int32),
+            np.append(si.w_base, 0).astype(np.int32),
+            np.append(si.w_meta16(), 0).astype(np.uint16).view(np.int16),
+            np.append(si.w_s0, 0.0).astype(np.float32),
+        )
+    ]
+    wsrc, wq, word_ord = [], [], []
+    tws = si.token_w_start
+    n_q = 24
+    for q in range(n_q):
+        for o, tid in enumerate(gen.integers(0, si.n_tokens, size=int(gen.integers(1, 6)))):
+            span = np.arange(tws[tid], tws[tid + 1])
+            wsrc.append(span)
+            wq.append(np.full(span.size, q))
+            word_ord.append(np.full(span.size, o))
+    wsrc, wq, word_ord = (np.concatenate(x) for x in (wsrc, wq, word_ord))
+    pad = (-wsrc.size) % 128 or 128
+    wsrc = np.append(wsrc, np.full(pad, si.n_windows)).astype(np.int32)
+    wq = np.append(wq, np.zeros(pad)).astype(np.int32)
+    word_ord = np.append(word_ord, np.zeros(pad)).astype(np.int64)
+    return si, tables, wsrc, wq, word_ord, 32
+
+
+@pytest.mark.parametrize("tf_hi", [1, 15, 400])
+def test_stream_kernel_matches_plain(card, gen, tf_hi):
+    from vectorchord_bm25_tpu_torch.ops import stream_kernel
+
+    si, tables, wsrc, wq, word_ord, n_q = _stream_case(gen, tf_hi=tf_hi)
+    # Windows in a shuffled order: the ordinals alone fix the add order.
+    perm = gen.permutation(wsrc.size)
+    ws = torch.from_numpy(wsrc[perm]).cuda()
+    q = torch.from_numpy(wq[perm]).cuda()
+    before = stream_kernel.LAUNCHES
+    got = stream_kernel.stream_dense_accumulate(
+        *tables, ws, q, word_ord[perm], n_q, si.n_docs
+    )
+    torch.cuda.synchronize()
+    assert stream_kernel.LAUNCHES == before + len(np.unique(word_ord))
+    want = stream_kernel.stream_dense_accumulate_plain(
+        *tables, ws, q, word_ord[perm], n_q, si.n_docs
+    )
+    assert torch.equal(got, want)
+    assert int((got > 0).sum()) > 1000
+    cpu = stream_kernel.stream_dense_accumulate(
+        *[t.cpu() for t in tables], ws.cpu(), q.cpu(), word_ord[perm], n_q,
+        si.n_docs,
+    )
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_stream_kernel_rejects_bad_inputs(card, gen):
+    from vectorchord_bm25_tpu_torch.ops import stream_kernel
+
+    si, tables, wsrc, wq, word_ord, n_q = _stream_case(gen, n_docs=5_000)
+    ws, q = torch.from_numpy(wsrc).cuda(), torch.from_numpy(wq).cuda()
+    with pytest.raises(TypeError, match="wsrc"):
+        stream_kernel.stream_dense_accumulate(
+            *tables, ws.long(), q, word_ord, n_q, si.n_docs
+        )
+    with pytest.raises(ValueError, match="wq"):
+        stream_kernel.stream_dense_accumulate(
+            *tables, ws, q.cpu(), word_ord, n_q, si.n_docs
+        )
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_kernel.stream_dense_accumulate(
+            *tables, torch.stack([ws, ws], 1)[:, 0], q, word_ord, n_q, si.n_docs
+        )
+    with pytest.raises(ValueError, match="word_ord"):
+        stream_kernel.stream_dense_accumulate(
+            *tables, ws, q, torch.from_numpy(word_ord).cuda(), n_q, si.n_docs
+        )
+
+
+def _topk_cases(n=(1 << 17) + 777):
+    gen = np.random.default_rng(11)
+    ties = np.zeros((6, n + 1), dtype=np.float32)
+    ties[:, :n] = gen.choice(np.array([0, 0, 1, 2, 3], dtype=np.float32), size=(6, n))
+    tail = np.zeros((2, n + 1), dtype=np.float32)
+    tail[:, :n] = 0.5
+    tail[0, n - 3 :] = 0.0
+    tail[0, n - 5] = 9.0
+    tail[1, n - 1] = 7.5
+    few = np.zeros((3, n + 1), dtype=np.float32)
+    few[0, 11] = 2.0
+    few[1, 5] = 1.0
+    few[1, n - 1] = 3.0
+    few[2, n] = 100.0  # the pad column never wins
+    small = np.zeros((5, 5001), dtype=np.float32)
+    small[:, :5000] = gen.choice(np.array([0, 1, 2], dtype=np.float32), size=(5, 5000))
+    dense = (gen.random((4, n + 1), dtype=np.float32) - 0.2).astype(np.float32)
+    return [(ties, 10, n), (tail, 4, n), (few, 8, n), (small, 7, 5000), (dense, 16, n)]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_dense_topk_matches_plain(card, case):
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    acc_np, k, n_docs = _topk_cases()[case]
+    acc = topk.new_accumulator(acc_np.shape[0], acc_np.shape[1] - 1, card)
+    acc.copy_(torch.from_numpy(acc_np))
+    before = topk.LAUNCHES
+    s, i = topk.dense_topk(acc, k, n_docs)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    ps, pi = topk.dense_topk_plain(acc, k, n_docs)
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+    cs, ci = topk.dense_topk(torch.from_numpy(acc_np), k, n_docs)
+    assert torch.equal(s.cpu(), cs) and torch.equal(i.cpu(), ci)
+
+
+def test_dense_topk_rejects_bad_inputs(card):
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    with pytest.raises(TypeError):
+        topk.dense_topk(torch.zeros((2, 4096), dtype=torch.float64, device=card), 2, 4095)
+    # Rows that do not start 16-B aligned (odd contiguous width).
+    with pytest.raises(ValueError, match="aligned"):
+        topk.dense_topk(torch.zeros((2, 4097), device=card), 2, 4096)
+    with pytest.raises(ValueError, match="aligned"):
+        topk.dense_topk(torch.zeros((8, 4096), device=card).t(), 2, 7)
+
+
+def test_stream_engine_on_card_equals_cpu(card, gen):
+    from vectorchord_bm25_tpu.index.sealed import build_sealed_segment
+    from vectorchord_bm25_tpu.index.stream import build_stream_index
+    from vectorchord_bm25_tpu_torch.ops import stream_kernel, topk
+    from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
+
+    seg = build_sealed_segment(make_docs(gen, 3000, vocab=40))
+    si = build_stream_index(seg)
+    on_card = StreamEngine(seg, stream=si, device=card)
+    on_cpu = StreamEngine(seg, stream=si, device="cpu")
+    deleted = gen.random(3000) < 0.1
+    on_card.set_deleted(deleted)
+    on_cpu.set_deleted(deleted)
+    fmask = gen.random(3000) < 0.7
+    queries = [
+        Query.from_int_ids(gen.integers(0, 40, size=int(n)).tolist())
+        for n in gen.integers(1, 7, size=48)
+    ]
+    for kw in ({}, {"filter_mask": fmask}):
+        s1, t1 = stream_kernel.LAUNCHES, topk.LAUNCHES
+        got = on_card.search(queries, 10, **kw)
+        assert stream_kernel.LAUNCHES > s1 and topk.LAUNCHES > t1
+        want = on_cpu.search(queries, 10, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert on_card.memory_report() == on_cpu.memory_report()
+
+
+def test_facade_default_engine_with_growing_on_card(card, gen):
+    from vectorchord_bm25_tpu_torch import Bm25Index
+    from vectorchord_bm25_tpu_torch.ops import stream_kernel
+
+    docs = make_docs(gen, 2000, vocab=200)
+    queries = [
+        Query.from_int_ids(gen.integers(0, 200, size=int(n)).tolist())
+        for n in gen.integers(1, 6, size=64)
+    ]
+    seed = bytes(16)
+    gpu = Bm25Index.build(docs, seed=seed, device=card)
+    cpu = Bm25Index.build(docs, seed=seed, device="cpu")
+    for i, doc in enumerate(make_docs(gen, 50, vocab=200)):
+        gpu.insert(doc, 10_000 + i)
+        cpu.insert(doc, 10_000 + i)
+    before = stream_kernel.LAUNCHES
+    got = gpu.search_batch(queries, 10)
+    assert stream_kernel.LAUNCHES > before
+    assert gpu.growing.device_engine().dev_words.is_cuda
+
+    def hits(results):
+        return [[(h.score, h.payload) for h in row] for row in results]
+
+    assert hits(got) == hits(cpu.search_batch(queries, 10))

@@ -1,8 +1,10 @@
-"""The port's facade (engine="blockmax") vs the reference facade.
+"""The port's facade vs the reference facade, for each ported engine.
 
 Same corpus, same seed, same operations on both; the reference serves
-with its Pallas kernel in interpret mode, the port on the CPU through the
-plain version of its kernel.  Payloads and scores must be equal.
+with its Pallas kernel in interpret mode (engine="blockmax") or its jnp
+kernels on the CPU (engine="stream", the default), the port on the CPU
+through the plain versions of its kernels.  Payloads and scores must be
+equal.
 """
 
 import os
@@ -67,6 +69,17 @@ def pair(corpus):
     return ref, port, queries
 
 
+@pytest.fixture
+def stream_pair(corpus):
+    # Both facades with their default engine (stream, dense below 2^21 docs).
+    docs, payloads, queries = corpus
+    seed = random_seed()
+    ref = RefIndex.build(docs, payloads=payloads, seed=seed)
+    port = Bm25Index.build(docs, payloads=payloads, seed=seed, device="cpu")
+    assert ref.engine_kind == port.engine_kind == "stream"
+    return ref, port, queries
+
+
 def assert_batch_equal(ref, port, queries, k=10, **kw):
     want = hits_of(ref.search_batch(queries, k, **kw))
     got = hits_of(port.search_batch(queries, k, **kw))
@@ -115,11 +128,12 @@ def test_insert_maintain_search_batch(pair, rng):
     for i, doc in enumerate(new):
         ref.insert(doc, 100_000 + i)
         port.insert(doc, 100_000 + i)
-    # Growing docs are served on the host by single-query search.
+    # Growing docs: single-query search on the host, search_batch through
+    # the growing segment's stream engine.
     for q in queries[:4]:
         assert hits_of([port.search(q, k=10)]) == hits_of([ref.search(q, k=10)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search_batch(queries, 10)
+    got = assert_batch_equal(ref, port, queries)
+    assert any(p >= 100_000 for hits in got for _, p in hits)
     ref.bulkdelete(lambda p: p % 5 == 0)
     port.bulkdelete(lambda p: p % 5 == 0)
     ref.maintain()
@@ -141,6 +155,120 @@ def test_readme_toy_anchor():
     ]
 
 
+def test_stream_readme_toy_anchor():
+    seed = random_seed()
+    docs = [Document.from_token_counts(seed, tsvector(t)) for t in TOY_CORPUS]
+    ref = RefIndex.build(docs, payloads=list(range(1, 11)), seed=seed)
+    index = Bm25Index.build(docs, payloads=list(range(1, 11)), seed=seed, device="cpu")
+    q = Query.from_tokens(seed, tsvector("PostgreSQL").keys())
+    assert [h.payload for h in index.search(q, k=10)] == [8, 9, 4, 1, 7, 2]
+    assert [h.payload for h in index.search_batch([q], k=10)[0]] == [
+        8, 9, 4, 1, 7, 2,
+    ]
+    assert hits_of(index.search_batch([q], k=10)) == hits_of(ref.search_batch([q], k=10))
+
+
+def test_stream_search_batch(stream_pair):
+    ref, port, queries = stream_pair
+    assert_batch_equal(ref, port, queries)
+    assert_batch_equal(ref, port, queries, k=3)
+    assert_batch_equal(ref, port, queries, k=100)
+    assert port.engine().memory_report() == ref.engine().memory_report()
+
+
+def test_stream_search_single(stream_pair):
+    ref, port, queries = stream_pair
+    for q in queries[:8]:
+        assert hits_of([port.search(q, k=10)]) == hits_of([ref.search(q, k=10)])
+
+
+def test_stream_bulkdelete(stream_pair):
+    ref, port, queries = stream_pair
+
+    def pred(p):
+        return p % 7 == 0
+
+    assert port.bulkdelete(pred) == ref.bulkdelete(pred) > 0
+    got = assert_batch_equal(ref, port, queries)
+    assert all(p % 7 for hits in got for _, p in hits)
+
+
+def test_stream_prefilter(stream_pair):
+    ref, port, queries = stream_pair
+    sess = SessionConfig(prefilter=True)
+
+    def keep(p):
+        return p % 2 == 1
+
+    got = assert_batch_equal(ref, port, queries, filter_fn=keep, session=sess)
+    assert all(p % 2 for hits in got for _, p in hits)
+    # Post-filter mode (prefilter off) goes through the same batch path.
+    assert_batch_equal(ref, port, queries, filter_fn=keep)
+
+
+def test_stream_growing_search_batch_and_maintain(stream_pair, rng):
+    from vectorchord_bm25_tpu_torch.index.growing import GrowingSegment
+    from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
+
+    ref, port, queries = stream_pair
+    new = make_docs(rng, 60, vocab=VOCAB)
+    for i, doc in enumerate(new[:40]):
+        ref.insert(doc, 100_000 + i)
+        port.insert(doc, 100_000 + i)
+    got = assert_batch_equal(ref, port, queries)
+    assert any(p >= 100_000 for hits in got for _, p in hits)
+    assert isinstance(port.growing, GrowingSegment)
+    assert isinstance(port.growing.device_engine(), StreamEngine)
+    # Deletes in both segments refresh the growing engine's bitmap; a
+    # prefilter reaches it too.
+    assert port.bulkdelete(lambda p: p % 5 == 0) == ref.bulkdelete(lambda p: p % 5 == 0)
+    assert_batch_equal(ref, port, queries)
+    sess = SessionConfig(prefilter=True)
+    assert_batch_equal(
+        ref, port, queries, filter_fn=lambda p: p % 3 != 1, session=sess
+    )
+    # Docs inserted after the engine was built form the host-scored tail.
+    for i, doc in enumerate(new[40:]):
+        ref.insert(doc, 100_040 + i)
+        port.insert(doc, 100_040 + i)
+    assert_batch_equal(ref, port, queries)
+    assert port.growing._dev_engine_n == 40 < len(port.growing)
+    ref.maintain()
+    port.maintain()
+    assert isinstance(port.growing, GrowingSegment) and not len(port.growing)
+    assert port.growing.device == port.device
+    got = assert_batch_equal(ref, port, queries)
+    assert any(p >= 100_000 for hits in got for _, p in hits)
+    port.insert(new[0], 300_000)
+    ref.insert(new[0], 300_000)
+    assert_batch_equal(ref, port, queries)
+
+
+def test_from_reference_stream_checkpoint(stream_pair, rng, tmp_path):
+    ref, _, queries = stream_pair
+    ref.bulkdelete(lambda p: p % 3 == 0)
+    for i, doc in enumerate(make_docs(rng, 10, vocab=VOCAB)):
+        ref.insert(doc, 200_000 + i)
+    ref.bulkdelete(lambda p: p == 200_003)
+    save_index(ref, str(tmp_path / "idx"))
+    loaded = load_index(str(tmp_path / "idx"))
+    port = Bm25Index.from_reference(loaded, device="cpu")
+    assert port.engine_kind == "stream" and port.engine_options == ref.engine_options
+    got = assert_batch_equal(ref, port, queries)
+    assert any(p >= 200_000 for hits in got for _, p in hits)
+    for q in queries[:6]:
+        assert hits_of([port.search(q, k=10)]) == hits_of([ref.search(q, k=10)])
+
+
+def test_from_reference_keeps_unported_engine(corpus):
+    docs, payloads, queries = corpus
+    ref = RefIndex.build(docs[:50], engine="exact")
+    port = Bm25Index.from_reference(ref, device="cpu")
+    assert port.engine_kind == "exact"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.search_batch(queries[:2], 5)
+
+
 def test_from_reference_checkpoint(pair, rng, tmp_path):
     ref, _, queries = pair
     ref.bulkdelete(lambda p: p % 3 == 0)
@@ -159,7 +287,7 @@ def test_from_reference_checkpoint(pair, rng, tmp_path):
     assert_batch_equal(ref, port, queries)
 
 
-@pytest.mark.parametrize("engine", ["stream", "exact", "hybrid"])
+@pytest.mark.parametrize("engine", ["exact", "hybrid"])
 def test_unported_engines_raise(corpus, engine):
     docs, payloads, queries = corpus
     index = Bm25Index.build(docs[:50], engine=engine, device="cpu")
@@ -175,25 +303,43 @@ def test_no_cpu_fallback(corpus, monkeypatch):
     index = Bm25Index.build(docs[:50], engine="blockmax")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         index.search_batch(queries[:2], 5)
+    index = Bm25Index.build(docs[:50])  # the default engine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        index.search_batch(queries[:2], 5)
+    index.insert(docs[0], 99)  # the growing segment's engine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        index.growing.topk_batch_async(queries[:2], 5)
 
 
 def test_port_runs_without_jax():
     # A CUDA install need not have jax: the port and the reference host code
-    # it imports must build and serve the slice with jax blocked.
+    # it imports must build and serve the slice with jax blocked.  The
+    # reference's large-dispatch throttle imports jax; with its threshold at
+    # 0 any call of it would fail, so the default engine proves it is never
+    # reached, for the sealed and the growing segment alike.
     script = textwrap.dedent(
         """
         import sys
         sys.modules["jax"] = None
         import numpy as np
+        from vectorchord_bm25_tpu.search import exact
+        exact._LARGE_DISPATCH_BYTES = 0
         from vectorchord_bm25_tpu_torch import Bm25Index, Query
         from test_sealed import make_docs
 
         rng = np.random.default_rng(7)
-        index = Bm25Index.build(make_docs(rng, 300, vocab=40),
-                                engine="blockmax", device="cpu")
+        docs = make_docs(rng, 300, vocab=40)
+        index = Bm25Index.build(docs, engine="blockmax", device="cpu")
         qs = [Query.from_int_ids([1, 2, 3]), Query.from_int_ids([5])]
         hits = index.search_batch(qs, k=5)
         assert all(len(h) == 5 for h in hits), hits
+        index = Bm25Index.build(docs, device="cpu")
+        assert index.engine_kind == "stream"
+        for i, doc in enumerate(make_docs(rng, 20, vocab=40)):
+            index.insert(doc, 1000 + i)
+        hits = index.search_batch(qs, k=5)
+        assert all(len(h) == 5 for h in hits), hits
+        assert index.growing._dev_engine is not None
         loaded = sorted(m for m, v in sys.modules.items()
                         if v is not None and m.split(".")[0] in ("jax", "jaxlib"))
         assert not loaded, loaded

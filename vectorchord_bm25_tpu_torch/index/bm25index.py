@@ -1,9 +1,11 @@
 """Bm25Index on torch (counterpart of ``index/bm25index.py``).
 
 Subclasses the reference facade: build, insert, bulkdelete, maintain,
-prefilter, single-query search and the host growing path are the
-reference's own code.  Only the engine construction is replaced, so the
-sealed segment is served by the port's ``BlockMaxEngine`` on ``device``.
+prefilter, search and the batch merge of sealed and growing hits are the
+reference's own code.  Only the engine construction and the growing
+segment are replaced, so the sealed segment is served by the port's
+``StreamEngine`` (the default) or ``BlockMaxEngine``, and a non-empty
+growing segment by the port's ``GrowingSegment``, all on ``device``.
 """
 
 from __future__ import annotations
@@ -17,20 +19,22 @@ from vectorchord_bm25_tpu.index.sealed import SealedSegment
 from vectorchord_bm25_tpu.text.intern import Document
 from vectorchord_bm25_tpu.utils.options import IndexOptions, SearchOptions
 
+from .growing import GrowingSegment
+
 __all__ = ["Bm25Index"]
 
 # ROADMAP.md items that bring the reference's other engines to the port.
 _NOT_PORTED = {
-    "stream": "queue 1: StreamEngine slices",
     "exact": "queue 1: ExactEngine",
     "hybrid": "queue 1: HybridEngine",
 }
 
 
 class Bm25Index(_ReferenceIndex):
-    """The reference facade with its sealed segment served on ``device``.
+    """The reference facade with its segments served on ``device``.
 
-    Only ``engine="blockmax"`` is ported; the other engines raise
+    ``engine="stream"`` (the default, dense strategy) and
+    ``engine="blockmax"`` are ported; the other engines raise
     ``NotImplementedError`` when first used."""
 
     def __init__(
@@ -48,6 +52,7 @@ class Bm25Index(_ReferenceIndex):
             engine=engine, engine_options=engine_options,
         )
         self.device = torch.device(device)
+        self.growing = GrowingSegment(sealed, device=self.device)
 
     @classmethod
     def build(
@@ -70,6 +75,7 @@ class Bm25Index(_ReferenceIndex):
             reorder=reorder, progress=progress,
         )
         index.device = torch.device(device)
+        index.growing = GrowingSegment(index.sealed, device=index.device)
         return index
 
     @classmethod
@@ -77,11 +83,16 @@ class Bm25Index(_ReferenceIndex):
         cls, ref: _ReferenceIndex, device="cuda", engine_options=None
     ) -> "Bm25Index":
         """Port index over a reference index's host state (sealed segment,
-        delete bitmap, growing segment, seed and options) — e.g. a
-        checkpoint read by ``index/storage.py:load_index``."""
+        delete bitmap, growing segment, seed, options, engine and engine
+        options) — e.g. a checkpoint read by ``index/storage.py:load_index``.
+        ``engine_options``, when given, replaces the reference's.  An engine
+        the port lacks raises when first used, as in the constructor."""
+        if engine_options is None:
+            engine_options = ref.engine_options
         index = cls(
             ref.sealed, ref.seed, ref.options, ref.search_options,
-            engine="blockmax", engine_options=engine_options, device=device,
+            engine=ref.engine_kind, engine_options=engine_options,
+            device=device,
         )
         index.deleted = ref.deleted.copy()
         for doc, payload in zip(ref.growing.documents, ref.growing.payloads):
@@ -91,17 +102,21 @@ class Bm25Index(_ReferenceIndex):
 
     def _engine_locked(self):
         if self._engine is None:
-            if self.engine_kind != "blockmax":
+            kw = self.engine_options
+            if self.engine_kind == "stream":
+                from ..search.stream import StreamEngine
+
+                self._engine = StreamEngine(self.sealed, device=self.device, **kw)
+            elif self.engine_kind == "blockmax":
+                from ..search.blockmax import BlockMaxEngine
+
+                self._engine = BlockMaxEngine(self.sealed, device=self.device, **kw)
+            else:
                 raise NotImplementedError(
                     f"engine={self.engine_kind!r} is not ported yet "
                     f"(ROADMAP.md {_NOT_PORTED[self.engine_kind]}); use "
-                    f"engine='blockmax'"
+                    f"engine='stream' or 'blockmax'"
                 )
-            from ..search.blockmax import BlockMaxEngine
-
-            self._engine = BlockMaxEngine(
-                self.sealed, device=self.device, **self.engine_options
-            )
             self._engine.set_deleted(self.deleted)
             self._engine_deleted_dirty = False
         elif self._engine_deleted_dirty:
@@ -109,13 +124,7 @@ class Bm25Index(_ReferenceIndex):
             self._engine_deleted_dirty = False
         return self._engine
 
-    def _search_batch_dispatch(self, queries, k, filter_fn=None):
-        if len(self.growing):
-            # The reference serves growing docs in a batch through its jax
-            # StreamEngine (index/growing.py).
-            raise NotImplementedError(
-                "search_batch over a non-empty growing segment is not "
-                "ported yet (ROADMAP.md queue 1: growing search_batch); "
-                "call maintain() first, or use search()"
-            )
-        return super()._search_batch_dispatch(queries, k, filter_fn)
+    def _maintain_locked(self, progress=None) -> None:
+        super()._maintain_locked(progress)
+        # The reference re-creates its own (empty) growing segment.
+        self.growing = GrowingSegment(self.sealed, device=self.device)

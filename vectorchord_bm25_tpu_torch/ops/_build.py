@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes`` (no PyTorch headers, so the build
-takes seconds).  The library lands in ``_build/`` beside the package,
-named by a hash of the sources and flags, so a second process reuses it
-and an edited source rebuilds.  Nothing here runs at import time: the
-first CUDA launch calls ``library()``.
+``nvcc`` compiles each ``csrc/*.cu`` to an object, one process per source,
+all started together, then links them into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
+build takes seconds).  The library lands in ``_build/`` beside the
+package, named by a hash of the sources and flags, so a second process
+reuses it and an edited source rebuilds; ``ptxas``' register and
+shared-memory report for every kernel is kept beside it (``build_log``).
+Nothing here runs at import time: the first CUDA launch calls
+``library()``.
 """
 
 from __future__ import annotations
@@ -19,15 +22,16 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "nvcc_path", "NVCC_FLAGS"]
+__all__ = ["library", "build_log", "nvcc_path", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
+# Never --use_fast_math: the kernels keep IEEE round-to-nearest division.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -60,10 +64,44 @@ def _tag(sources) -> str:
 
 
 def _declare(lib):
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.bm25_fused_range_scores
-    fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
-    fn.restype = i
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    signatures = {
+        "bm25_fused_range_scores": [vp, vp, vp, vp, vp, i, i, i, i, vp],
+        "bm25_stream_dense_accumulate": [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, i, ll, i, i, vp,
+        ],
+        "bm25_block_max_keys": [vp, vp, i, i, ll, i, vp],
+        "bm25_gather_keys": [vp, vp, vp, i, i, i, i, i, i, ll, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
+
+
+def _compile(sources, workdir):
+    """One nvcc per source, all running at once; returns (objects, log)."""
+    nvcc = nvcc_path()
+    procs = []
+    for src in sources:
+        obj = os.path.join(workdir, os.path.basename(src) + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append(
+            (src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        )
+    log, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src} (exit {proc.returncode})")
+    if failed:
+        raise RuntimeError(
+            "nvcc failed on " + ", ".join(failed) + ":\n" + "\n".join(log)
+        )
+    return [obj for _, obj, _ in procs], "\n".join(log)
 
 
 @functools.lru_cache(maxsize=1)
@@ -72,28 +110,42 @@ def library() -> ctypes.CDLL:
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {_CSRC}")
-    path = os.path.join(_BUILD, f"libbm25_kernels_{_tag(sources)}.so")
+    tag = _tag(sources)
+    path = os.path.join(_BUILD, f"libbm25_kernels_{tag}.so")
     if not os.path.exists(path):
         os.makedirs(_BUILD, exist_ok=True)
-        # Build to a private name, then rename: concurrent builders never
-        # load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
+        # Build in a private directory, then rename: concurrent builders
+        # never load a half-written library.
+        work = tempfile.mkdtemp(dir=_BUILD)
         try:
+            objects, log = _compile(sources, work)
+            tmp = os.path.join(work, "lib.so")
             proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources],
+                [nvcc_path(), "-shared", "-o", tmp, *objects],
                 capture_output=True,
                 text=True,
             )
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n"
+                    f"nvcc link failed (exit {proc.returncode}):\n"
                     f"{proc.stdout}{proc.stderr}"
                 )
+            with open(path + ".log", "w") as f:
+                f.write(log)
             os.replace(tmp, path)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            shutil.rmtree(work, ignore_errors=True)
     lib = ctypes.CDLL(path)
     _declare(lib)
     return lib
+
+
+def build_log() -> str:
+    """nvcc's output for the loaded library (ptxas: registers, shared
+    memory and spills of every kernel); empty if it was not kept."""
+    lib = library()
+    try:
+        with open(lib._name + ".log") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""

@@ -34,29 +34,13 @@ from vectorchord_bm25_tpu.text.intern import Query
 from vectorchord_bm25_tpu.utils.buckets import bucket_pow2 as _bucket
 
 from ..ops.score_kernel import fused_range_scores
+from ..ops.topk import lex_topk
 from ..utils.device import as_device
 from .device import DeviceSegment
 
 __all__ = ["BlockMaxEngine"]
 
 _INT_MAX = int(np.iinfo(np.int32).max)
-# Bits of +inf in float32: a key half above every finite positive score.
-_F32_INF_BITS = 0x7F800000
-
-
-def _lex_topk(all_s, all_d, k: int):
-    """The k best (score desc, doc asc) entries of each row.
-
-    Scores are > 0 or -inf, so the f32 bit pattern of a live score orders
-    like the score; packing (inf_bits - bits, doc) into one int64 key
-    turns the two-key order of the reference's ``lax.sort`` into one
-    ``topk`` on distinct keys (pads are identical, so their order is moot).
-    """
-    bits = all_s.view(torch.int32)
-    hi = torch.where(all_s > 0, _F32_INF_BITS - bits, _F32_INF_BITS)
-    key = (hi.long() << 32) | all_d.long()
-    _, pick = torch.topk(key, k, dim=1, largest=False, sorted=True)
-    return all_s.gather(1, pick), all_d.gather(1, pick)
 
 
 def _blockmax_kernel(
@@ -148,7 +132,7 @@ def _blockmax_kernel(
         flat_s = torch.where(ok, flat_s, neg_inf)
         flat_d = torch.where(ok, flat_d, _INT_MAX)
 
-        topk_s, topk_d = _lex_topk(
+        topk_s, topk_d = lex_topk(
             torch.cat([topk_s, flat_s], dim=1),
             torch.cat([topk_d, flat_d], dim=1),
             k,
