@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one GPU: the Block-Max engine and
-the served default, the stream engine with a growing segment.
+the served default, the stream engine, with a growing segment and at the
+scale where its ``auto`` strategy leaves the dense path.
 
-    python3 chip_smoke.py [--docs N] [--seed S]
+    python3 chip_smoke.py [--docs N] [--sparse-docs N] [--seed S]
 
 Phases (each prints its lines; any failure raises, so the exit code is
 not 0 and no result line is printed):
@@ -39,9 +40,27 @@ not 0 and no result line is printed):
   (h) 1,024 inserted docs (the term counts of corpus docs, so every term
       is known) served by ``search_batch`` through the growing segment's
       stream engine on the card: equal to the CPU, and its S1 launches
-      grow.
+      grow;
+  (i) the served default at scale: a 2,097,152-doc corpus (``--sparse-docs``;
+      the same generator and shape, only the doc count raised, the
+      smallest size at which ``auto`` leaves the dense path), served by
+      ``Bm25Index(seg, seed, IndexOptions(), device="cuda")``.  One
+      512-query batch of informative queries (``synth_queries_fast``) and
+      one of heavy ones (``synth_queries_from_segment(mix="heavy")``), k=10:
+      on every dispatch the engine hands them, S3 (``stream_sparse_decode``),
+      S4 (``sparse_combine``) and S5 (``stream_rescore``) must equal their
+      plain versions (``torch.equal``); each and its plain version timed
+      with CUDA events on its largest dispatch.  Then 5 batches of each mix,
+      QPS each and ``last_ms_stats``; the three launch counts must grow from
+      0 and the heavy mix must route queries to MaxScore;
+  (j) 64 sampled queries (32 of each mix): the card equals the CPU-plain
+      engine under ``auto``, ``sparse`` and ``maxscore``, also after
+      deleting 1% and under a prefilter; recall@10 = 1.0 against the
+      float64 oracle on 32 of them; ``memory_report()["total"]`` equals
+      the bytes of the stream's host arrays;
+  (k) the host build time of each phase.
 
-The ``kernels`` line lists P1, S1 and S2; the last line of stdout is
+The ``kernels`` line lists P1 and S1-S5; the last line of stdout is
 ``{"ok": true, "device": {...}}``.
 Needs torch with CUDA and nvcc; imports no jax.
 """
@@ -59,6 +78,9 @@ BATCH = 4096
 K = 10
 AUDIT = 256
 ROUNDS = 5
+SPARSE_BATCH = 512  # the reference's batch at its 8,388,608-doc scale
+SPARSE_AUDIT = 64  # (j): half informative, half heavy queries
+RECALL_QUERIES = 32
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -144,7 +166,7 @@ def audit(index, cpu, seg, sample):
     return recall, total, ties, n_del
 
 
-def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label):
+def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_times):
     """Phases (f)-(h): the served default engine with a growing segment.
     Returns the kernels-line entries of S1 and S2."""
     import torch
@@ -164,10 +186,11 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label):
     si = engine.stream
     if index.engine_kind != "stream" or type(engine) is not port_stream.StreamEngine:
         raise AssertionError(f"default engine is {index.engine_kind}: {engine!r}")
+    build_times["(f) stream index"] = time.perf_counter() - t0
     print(
         f"(f) stream index: {si.n_windows} windows, {si.n_postings} postings, "
         f"{si.words.nbytes} B of stream words; host build "
-        f"{time.perf_counter() - t0:.1f} s; device index "
+        f"{build_times['(f) stream index']:.1f} s; device index "
         f"{engine.memory_report()['total']} B"
     )
     dispatches = []
@@ -307,13 +330,276 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label):
     ]
 
 
+def _checked(module, name, plain, size, errs):
+    """Replace ``module.name`` by a wrapper that launches the kernel as the
+    engine asked, then runs its plain version on the same inputs and raises
+    unless the two are ``torch.equal``.  ``errs(out, want)`` gives the max
+    abs error of the float outputs.  Returns (restore, stats): stats counts
+    the dispatches checked, keeps the largest error and the inputs of the
+    largest dispatch (``size(args)`` lanes) for timing."""
+    import torch
+
+    real = getattr(module, name)
+    stats = {"name": name, "real": real, "plain": plain, "checked": 0,
+             "err": 0.0, "args": None, "size": -1}
+
+    def wrapper(*args):
+        out = real(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{name} != its plain version on a dispatch")
+        stats["err"] = max(stats["err"], errs(out, want))
+        stats["checked"] += 1
+        if size(args) > stats["size"]:
+            stats["args"], stats["size"] = args, size(args)
+        return out
+
+    setattr(module, name, wrapper)
+    return (lambda: setattr(module, name, real)), stats
+
+
+def _finite_err(a, b):
+    import torch
+
+    live = torch.isfinite(a) & torch.isfinite(b)
+    return float(torch.where(live, a - b, 0.0).abs().max()) if a.numel() else 0.0
+
+
+def sparse_slice(args, label, build_times):
+    """Phases (i)-(j): the served default at scale, where ``auto`` leaves the
+    dense path.  Returns the kernels-line entries of S3, S4 and S5."""
+    import torch
+
+    from bench import (
+        synth_corpus_postings,
+        synth_queries_fast,
+        synth_queries_from_segment,
+    )
+    from vectorchord_bm25_tpu_torch import (
+        Bm25Index,
+        IndexOptions,
+        build_sealed_segment_from_postings,
+    )
+    from vectorchord_bm25_tpu_torch.ops import stream_rescore, stream_sparse, topk
+    from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
+
+    # (i) the corpus: bench.py's generator and shape, only the doc count raised
+    t0 = time.perf_counter()
+    n = args.sparse_docs
+    keys, doc_ids, tfs, doc_start = synth_corpus_postings(
+        n, args.vocab, args.avg_len, seed=args.seed
+    )
+    seg = build_sealed_segment_from_postings(keys, doc_ids, tfs, n, doc_grouped=True)
+    batches = {
+        "informative": synth_queries_fast(
+            keys, doc_start, seg, SPARSE_BATCH, seed=args.seed + 1
+        ),
+        "heavy": synth_queries_from_segment(
+            seg, SPARSE_BATCH, args.vocab, seed=args.seed + 2, mix="heavy"
+        ),
+    }
+    del keys, doc_ids, tfs, doc_start
+    build_times["(i) corpus, segment and queries"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = Bm25Index(seg, args.seed.to_bytes(16, "little"), IndexOptions(), device="cuda")
+    engine = index.engine()
+    build_times["(i) stream index"] = time.perf_counter() - t0
+    si = engine.stream
+    if (
+        index.engine_kind != "stream"
+        or type(engine) is not StreamEngine
+        or engine.strategy != "auto"
+        or seg.n_docs < engine.SPARSE_MIN_DOCS
+    ):
+        raise AssertionError(
+            f"{seg.n_docs} docs served by {index.engine_kind} / {engine!r}, "
+            f"not the stream engine's auto strategy at scale"
+        )
+    print(
+        f"(i) {seg.n_docs} docs (>= SPARSE_MIN_DOCS {engine.SPARSE_MIN_DOCS}), "
+        f"{si.n_postings} postings in {si.n_windows} windows; host build "
+        f"{build_times['(i) corpus, segment and queries']:.1f} s (corpus, "
+        f"segment, queries) + {build_times['(i) stream index']:.1f} s (stream "
+        f"index); device index {engine.memory_report()['total']} B"
+    )
+
+    # Every dispatch the engine hands S3, S4 and S5 against the plain versions.
+    checks = [
+        _checked(
+            stream_sparse, "stream_sparse_decode",
+            stream_sparse.stream_sparse_decode_plain, lambda a: a[6].numel() * 128,
+            lambda out, want: _finite_err(out[1], want[1]),
+        ),
+        _checked(
+            stream_sparse, "sparse_combine", stream_sparse.sparse_combine_plain,
+            lambda a: a[0].numel(),
+            lambda out, want: _finite_err(topk._unpack(out)[0], topk._unpack(want)[0]),
+        ),
+        _checked(
+            stream_rescore, "stream_rescore", stream_rescore.stream_rescore_plain,
+            lambda a: a[6].numel() * a[7].shape[1], _finite_err,
+        ),
+    ]
+    try:
+        for mix, queries in batches.items():
+            index.search_batch(queries, K)
+            st = engine.last_ms_stats
+            print(
+                f"(i) {mix}: {len(queries)} queries, routed to MaxScore "
+                f"{st and st['routed_queries']}; dispatches checked so far: "
+                + ", ".join(f"{c['name']} {c['checked']}" for _, c in checks)
+                + " (torch.equal)"
+            )
+    finally:
+        for restore, _ in checks:
+            restore()
+    stats = [c for _, c in checks]
+    if not all(c["checked"] for c in stats):
+        raise AssertionError(f"a kernel saw no dispatch: {[c['checked'] for c in stats]}")
+    for c in stats:
+        a = c["args"]
+        c["ms"] = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
+        c["plain_ms"] = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
+        print(
+            f"(i) {c['name']}: {c['checked']} dispatches equal to the plain "
+            f"version; largest ({c['size']} lanes) {c['ms']:.4f} ms vs plain "
+            f"{c['plain_ms']:.4f} ms [{label}]"
+        )
+        c["args"] = None
+
+    # The main path at scale: every count from 0, 5 batches of each mix.
+    stream_sparse.DECODE_LAUNCHES = stream_sparse.COMBINE_LAUNCHES = 0
+    stream_rescore.LAUNCHES = 0
+    heavy_stats = None
+    for mix, queries in batches.items():
+        qps = []
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            results = index.search_batch(queries, K)
+            qps.append(len(queries) / (time.perf_counter() - t0))
+        if len(results) != len(queries) or not all(
+            np.isfinite(h.score) and h.score > 0 for hits in results for h in hits
+        ):
+            raise AssertionError(f"{mix} results are not finite positive hits")
+        st = engine.last_ms_stats
+        if mix == "heavy":
+            heavy_stats = st
+        print(
+            f"(i) {mix}: {ROUNDS} x search_batch({len(queries)} queries, k={K}) "
+            f"at {seg.n_docs} docs; QPS per batch {[round(x, 1) for x in qps]} "
+            f"(median {float(np.median(qps)):.1f}) [{label}]"
+        )
+        print(f"(i) {mix} last_ms_stats: {json.dumps(st)}")
+    launches = {
+        "stream_sparse_decode": stream_sparse.DECODE_LAUNCHES,
+        "sparse_combine": stream_sparse.COMBINE_LAUNCHES,
+        "stream_rescore": stream_rescore.LAUNCHES,
+    }
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    if not heavy_stats or heavy_stats["routed_queries"] <= 0:
+        raise AssertionError(f"auto routed no heavy query to MaxScore: {heavy_stats}")
+    print(f"(i) launches over the timed batches: {launches}")
+
+    # (j) card == CPU-plain for each strategy, recall, memory
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 4)
+    half = SPARSE_AUDIT // 2
+    sample = [
+        q
+        for queries in batches.values()
+        for q in (queries[i] for i in np.sort(rng.choice(len(queries), half, replace=False)))
+    ]
+    payload = np.asarray(seg.doc_payload)
+    deleted = doomed(payload)
+    fmask = keep(payload)
+    for strategy in ("auto", "sparse", "maxscore"):
+        gpu = engine if strategy == "auto" else StreamEngine(
+            seg, stream=si, strategy=strategy, device="cuda"
+        )
+        cpu = StreamEngine(seg, stream=si, strategy=strategy, device="cpu")
+        for step in ("as built", "1% deleted", "1% deleted + prefilter"):
+            if step == "1% deleted":
+                gpu.set_deleted(deleted)
+                cpu.set_deleted(deleted)
+            kw = {"filter_mask": fmask} if "prefilter" in step else {}
+            got = gpu.search(sample, K, **kw)
+            want = cpu.search(sample, K, **kw)
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{strategy}, {step}: GPU != CPU-plain")
+            if gpu.last_ms_stats != cpu.last_ms_stats:
+                raise AssertionError(f"{strategy}, {step}: last_ms_stats differ")
+            scores, ids, pays = got
+            hits = [
+                [(float(s), int(p)) for s, i, p in zip(*row) if i >= 0]
+                for row in zip(scores, ids, pays)
+            ]
+            if step != "as built":
+                bad = [p for row in hits for _, p in row if doomed(p) or (kw and not keep(p))]
+                if bad:
+                    raise AssertionError(f"deleted or filtered payloads returned: {bad[:5]}")
+            elif strategy == "auto":
+                picks = list(range(0, RECALL_QUERIES // 2)) + list(
+                    range(half, half + RECALL_QUERIES // 2)
+                )
+                recall, total, ties = recall_vs_oracle(
+                    seg, [sample[i] for i in picks], [hits[i] for i in picks], K
+                )
+                if recall != 1.0:
+                    raise AssertionError(f"recall@{K} vs oracle {recall} != 1.0")
+            st = gpu.last_ms_stats
+            print(
+                f"(j) {strategy}, {step}: GPU == CPU-plain on {len(sample)} "
+                f"queries ({sum(map(len, hits))} hits; routed "
+                f"{st and st['routed_queries']}, fallback {st and st['fallback_queries']})"
+            )
+        if strategy != "auto":
+            del gpu, cpu
+    want_bytes = si.words.nbytes + 4 * (si.n_docs + 1) + 14 * (si.n_windows + 1)
+    got_bytes = engine.memory_report()["total"]
+    if got_bytes != want_bytes:
+        raise AssertionError(f"memory_report total {got_bytes} != {want_bytes}")
+    print(
+        f"(j) recall@{K} vs the float64 oracle {recall} on {RECALL_QUERIES} "
+        f"queries ({total} hits, {ties} boundary ties excused); memory_report "
+        f"total {got_bytes} B == stream host arrays; (j) took "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+    replaces = {
+        "stream_sparse_decode": ("stream_sparse.cu", ":327"),
+        "sparse_combine": ("stream_sparse.cu", ":337"),
+        "stream_rescore": ("stream_rescore.cu", ":366"),
+    }
+    return [
+        {
+            "name": c["name"],
+            "route": "cuda",
+            "source": f"vectorchord_bm25_tpu_torch/csrc/{replaces[c['name']][0]}",
+            "replaces": f"vectorchord_bm25_tpu/search/stream.py{replaces[c['name']][1]}",
+            "launches": launches[c["name"]],
+            "max_abs_err": c["err"],
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+        }
+        for c in stats
+    ]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=131072)
     parser.add_argument("--vocab", type=int, default=50000)
     parser.add_argument("--avg-len", type=int, default=80)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--sparse-docs", type=int, default=1 << 21,
+        help="corpus size of phases (i)-(j); auto leaves the dense path at 2^21",
+    )
     args = parser.parse_args()
+    started = time.perf_counter()
+    build_times = {}
 
     import torch
 
@@ -366,6 +652,9 @@ def main() -> int:
     index = Bm25Index(seg, seed, IndexOptions(), engine="blockmax", device="cuda")
     engine = index.engine()
     ri = engine.ranges
+    build_times["(c)-(e) corpus, segment, queries, Block-Max index"] = (
+        time.perf_counter() - t0
+    )
     print(
         f"index: {seg.n_docs} docs, {seg.n_tokens} terms, "
         f"{ri.post_local.size - ri.range_size} postings, {ri.n_ranges} ranges "
@@ -469,7 +758,23 @@ def main() -> int:
         f"GPU == CPU-plain on {AUDIT} queries"
     )
 
-    stream = stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label)
+    stream = stream_slice(
+        args, seg, seed, queries, keys, tfs, doc_start, label, build_times
+    )
+    slice_line = (
+        f"slice QPS {float(np.median(qps)):.1f} (median of {ROUNDS} batches of "
+        f"{len(queries)}, k={K}, {seg.n_docs} docs; min {min(qps):.1f}, max "
+        f"{max(qps):.1f}) [{label}]"
+    )
+    # The 131,072-doc corpus and its indexes go before phase (i)'s corpus.
+    del index, engine, cpu, seg, queries, keys, tfs, doc_start, sample
+    sparse = sparse_slice(args, label, build_times)
+    # (k) where the host time went
+    print(
+        "(k) host build: "
+        + "; ".join(f"{name} {sec:.1f} s" for name, sec in build_times.items())
+        + f"; script {time.perf_counter() - started:.1f} s so far"
+    )
     print(
         json.dumps(
             {
@@ -486,15 +791,12 @@ def main() -> int:
                         "plain_ms": plain_ms,
                     },
                     *stream,
+                    *sparse,
                 ]
             }
         )
     )
-    print(
-        f"slice QPS {float(np.median(qps)):.1f} (median of {ROUNDS} batches of "
-        f"{len(queries)}, k={K}, {seg.n_docs} docs; min {min(qps):.1f}, max "
-        f"{max(qps):.1f}) [{label}]"
-    )
+    print(slice_line)
     print(
         json.dumps(
             {

@@ -321,3 +321,147 @@ def test_facade_default_engine_with_growing_on_card(card, gen):
         return [[(h.score, h.payload) for h in row] for row in results]
 
     assert hits(got) == hits(cpu.search_batch(queries, 10))
+
+
+# --- the sparse and MaxScore kernels: S3 stream_sparse_decode, S4
+# sparse_combine, S5 stream_rescore
+
+
+def _window_matrix(gen, si, wsrc, n_q=16):
+    """The case's windows dealt into a [n_q, P] matrix (the sparse path's
+    layout), with pad windows W at random places."""
+    live = wsrc[wsrc < si.n_windows]
+    p = -(-live.size // n_q) + 8
+    mat = np.full(n_q * p, si.n_windows, dtype=np.int32)
+    mat[np.sort(gen.choice(mat.size, size=live.size, replace=False))] = live
+    return mat.reshape(n_q, p)
+
+
+@pytest.mark.parametrize("tf_hi", [1, 15, 400])
+def test_sparse_decode_matches_plain(card, gen, tf_hi):
+    from vectorchord_bm25_tpu_torch.ops import stream_sparse
+
+    si, tables, wsrc, _, _, _ = _stream_case(gen, tf_hi=tf_hi)
+    mat = torch.from_numpy(_window_matrix(gen, si, wsrc)).cuda()
+    before = stream_sparse.DECODE_LAUNCHES
+    doc, sc = stream_sparse.stream_sparse_decode(*tables, mat, si.n_docs)
+    torch.cuda.synchronize()
+    assert stream_sparse.DECODE_LAUNCHES == before + 1
+    p_doc, p_sc = stream_sparse.stream_sparse_decode_plain(*tables, mat, si.n_docs)
+    assert torch.equal(doc, p_doc) and torch.equal(sc, p_sc)
+    assert int((sc > 0).sum()) > 1000
+    c_doc, c_sc = stream_sparse.stream_sparse_decode(
+        *[t.cpu() for t in tables], mat.cpu(), si.n_docs
+    )
+    assert torch.equal(doc.cpu(), c_doc) and torch.equal(sc.cpu(), c_sc)
+
+
+@pytest.mark.parametrize("seg_steps", [0, 1, 2, 4])
+def test_sparse_combine_matches_plain(card, gen, seg_steps):
+    from vectorchord_bm25_tpu_torch.ops import stream_sparse
+
+    # Random sorted rows: runs of every length, some past 2^seg_steps, pad
+    # docs (n_docs) and zero scores.
+    n_docs = 3000
+    df = np.sort(gen.integers(0, n_docs + 1, size=(24, 20_000)), axis=1)
+    sf = gen.random(df.shape, dtype=np.float32) * 4
+    sf[gen.random(df.shape) < 0.1] = 0.0
+    df_t = torch.from_numpy(df.astype(np.int32)).cuda()
+    sf_t = torch.from_numpy(sf).cuda()
+    before = stream_sparse.COMBINE_LAUNCHES
+    keys = stream_sparse.sparse_combine(df_t, sf_t, n_docs, seg_steps)
+    torch.cuda.synchronize()
+    assert stream_sparse.COMBINE_LAUNCHES == before + 1
+    assert torch.equal(keys, stream_sparse.sparse_combine_plain(df_t, sf_t, n_docs, seg_steps))
+    cpu = stream_sparse.sparse_combine(df_t.cpu(), sf_t.cpu(), n_docs, seg_steps)
+    assert torch.equal(keys.cpu(), cpu)
+
+
+@pytest.mark.parametrize("k", [16, 5000])
+def test_sparse_topk_on_index_windows_matches_cpu(card, gen, k):
+    from vectorchord_bm25_tpu_torch.ops import stream_sparse
+
+    si, tables, wsrc, _, _, _ = _stream_case(gen, tf_hi=15)
+    mat = _window_matrix(gen, si, wsrc, n_q=8)
+    got = stream_sparse.stream_sparse_topk(
+        *tables, torch.from_numpy(mat).cuda(), k, si.n_docs, 3
+    )
+    want = stream_sparse.stream_sparse_topk(
+        *[t.cpu() for t in tables], torch.from_numpy(mat), k, si.n_docs, 3
+    )
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _rescore_case(gen, si, n_q=24, c=64, tmax=4):
+    tws = si.token_w_start
+    t_lo = np.zeros((n_q, tmax), np.int32)
+    t_hi = np.zeros((n_q, tmax), np.int32)
+    cand = np.full((n_q, c), si.n_docs, np.int32)
+    for q in range(n_q):
+        terms = gen.integers(0, si.n_tokens, size=int(gen.integers(1, tmax + 1)))
+        t_lo[q, : terms.size], t_hi[q, : terms.size] = tws[terms], tws[terms + 1]
+        docs = np.concatenate(
+            [si.decode_window(int(tws[t]))[0] for t in terms]
+            + [gen.integers(0, si.n_docs, size=16)]
+        )
+        pick = np.unique(gen.choice(docs, size=c - 8))
+        cand[q, : pick.size] = pick
+    cand.sort(axis=1)
+    return [torch.from_numpy(x).cuda() for x in (cand, t_lo, t_hi)]
+
+
+def test_stream_rescore_matches_plain(card, gen):
+    from vectorchord_bm25_tpu_torch.ops import stream_rescore
+
+    si, tables, _, _, _, _ = _stream_case(gen, tf_hi=400)
+    cand, t_lo, t_hi = _rescore_case(gen, si)
+    before = stream_rescore.LAUNCHES
+    got = stream_rescore.stream_rescore(*tables, cand, t_lo, t_hi, si.n_docs)
+    torch.cuda.synchronize()
+    assert stream_rescore.LAUNCHES == before + 1
+    want = stream_rescore.stream_rescore_plain(*tables, cand, t_lo, t_hi, si.n_docs)
+    assert torch.equal(got, want)
+    assert int(torch.isfinite(got).sum()) > 100
+    cpu = stream_rescore.stream_rescore(
+        *[t.cpu() for t in tables], cand.cpu(), t_lo.cpu(), t_hi.cpu(), si.n_docs
+    )
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("strategy", ["sparse", "maxscore", "auto"])
+def test_stream_strategies_on_card_equal_cpu(card, gen, strategy, monkeypatch):
+    from vectorchord_bm25_tpu.index.sealed import build_sealed_segment
+    from vectorchord_bm25_tpu.index.stream import build_stream_index
+    from vectorchord_bm25_tpu_torch.ops import stream_rescore, stream_sparse
+    from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
+
+    # 'auto' leaves the dense path at SPARSE_MIN_DOCS; routing everything
+    # with enough windows to MaxScore exercises both of its branches.
+    monkeypatch.setattr(StreamEngine, "SPARSE_MIN_DOCS", 1000)
+    monkeypatch.setattr(StreamEngine, "MS_ROUTE_MIN_WINDOWS", 4)
+    seg = build_sealed_segment(make_docs(gen, 3000, vocab=40))
+    si = build_stream_index(seg)
+    on_card = StreamEngine(seg, stream=si, strategy=strategy, device=card)
+    on_cpu = StreamEngine(seg, stream=si, strategy=strategy, device="cpu")
+    deleted = gen.random(3000) < 0.1
+    on_card.set_deleted(deleted)
+    on_cpu.set_deleted(deleted)
+    fmask = gen.random(3000) < 0.7
+    queries = [
+        Query.from_int_ids(gen.integers(0, 40, size=int(n)).tolist())
+        for n in gen.integers(1, 7, size=48)
+    ]
+    for kw in ({}, {"filter_mask": fmask}):
+        s3, s4 = stream_sparse.DECODE_LAUNCHES, stream_sparse.COMBINE_LAUNCHES
+        s5 = stream_rescore.LAUNCHES
+        got = on_card.search(queries, 10, **kw)
+        assert stream_sparse.DECODE_LAUNCHES > s3
+        assert stream_sparse.COMBINE_LAUNCHES > s4
+        if strategy != "auto":
+            assert (stream_rescore.LAUNCHES > s5) == (strategy == "maxscore")
+        want = on_cpu.search(queries, 10, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert on_card.last_ms_stats == on_cpu.last_ms_stats
+    assert on_card.memory_report() == on_cpu.memory_report()

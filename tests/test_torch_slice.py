@@ -313,7 +313,8 @@ def test_no_cpu_fallback(corpus, monkeypatch):
 
 def test_port_runs_without_jax():
     # A CUDA install need not have jax: the port and the reference host code
-    # it imports must build and serve the slice with jax blocked.  The
+    # it imports must build and serve every ported engine and strategy with
+    # jax blocked.  The
     # reference's large-dispatch throttle imports jax; with its threshold at
     # 0 any call of it would fail, so the default engine proves it is never
     # reached, for the sealed and the growing segment alike.
@@ -340,6 +341,14 @@ def test_port_runs_without_jax():
         hits = index.search_batch(qs, k=5)
         assert all(len(h) == 5 for h in hits), hits
         assert index.growing._dev_engine is not None
+        for strategy in ("sparse", "maxscore"):
+            other = Bm25Index.build(
+                docs, device="cpu", engine_options={"strategy": strategy}
+            )
+            got = other.search_batch(qs, k=5)
+            assert all(len(h) == 5 for h in got), (strategy, got)
+            assert other.engine().strategy == strategy
+        assert other.engine().last_ms_stats["routed_queries"] == len(qs)
         loaded = sorted(m for m, v in sys.modules.items()
                         if v is not None and m.split(".")[0] in ("jax", "jaxlib"))
         assert not loaded, loaded

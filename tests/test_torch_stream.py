@@ -160,7 +160,7 @@ def test_lockstep_dispatch_inputs(rng):
     seg = random_segment(rng, 2000, 50, 20000, tf_hi=20)
     ref, port = engines(seg)
     queries = rand_queries(rng, 12, 55) + [Query.from_int_ids([7, 7])]
-    (rows, wsrc, wq, word_ord, n_qb), = list(port._dispatches(queries))
+    (rows, wsrc, wq, word_ord, n_qb), = list(port._dispatches(port._win_lists(queries)[0]))
     assert rows.size == len(queries) and wsrc.size % 128 == 0
     n = seg.n_docs
     r_s, r_i = _stream_dense(
@@ -211,23 +211,40 @@ def test_memory_report_equals_reference(rng):
 
 @pytest.mark.parametrize("strategy", ["sparse", "maxscore"])
 def test_unported_strategies_raise(rng, strategy):
+    # The strategies the dense slice left out now serve, as the reference.
     seg = random_segment(rng, 200, 20, 1000)
-    port = StreamEngine(seg, strategy=strategy, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-        port.search(rand_queries(rng, 2, 20), 5)
+    si = build_stream_index(seg)
+    ref = RefEngine(seg, stream=si, strategy=strategy)
+    port = StreamEngine(seg, stream=si, strategy=strategy, device="cpu")
+    queries = rand_queries(rng, 6, 20)
+    s1, i1, p1 = ref.search(queries, 5)
+    s2, i2, p2 = port.search(queries, 5)
+    np.testing.assert_array_equal(i2, i1)
+    np.testing.assert_array_equal(p2, p1)
+    np.testing.assert_allclose(s2, s1, rtol=2e-6)
+    assert port.last_ms_stats == ref.last_ms_stats
+    assert (ref.last_ms_stats is not None) == (strategy == "maxscore")
 
 
 def test_auto_at_scale_raises(rng, monkeypatch):
+    # 'auto' at SPARSE_MIN_DOCS and above routes per query to MaxScore or
+    # the sparse reduction, as the reference does.
     seg = random_segment(rng, 200, 20, 1000)
-    auto = StreamEngine(seg, device="cpu")
+    si = build_stream_index(seg)
+    auto = StreamEngine(seg, stream=si, device="cpu")
     queries = rand_queries(rng, 4, 20)
-    ref = RefEngine(seg)
+    ref = RefEngine(seg, stream=si)
     s1, i1, _ = ref.search(queries, 5)
     s2, i2, _ = auto.search(queries, 5)  # auto below 2^21 docs: dense
     assert np.array_equal(s1, s2) and np.array_equal(i1, i2)
-    monkeypatch.setattr(StreamEngine, "SPARSE_MIN_DOCS", 100)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-        auto.search(queries, 5)
+    assert auto.last_ms_stats is None
+    monkeypatch.setattr(RefEngine, "SPARSE_MIN_DOCS", 100)
+    s1, i1, _ = ref.search(queries, 5)
+    s2, i2, _ = auto.search(queries, 5)
+    np.testing.assert_array_equal(i2, i1)
+    np.testing.assert_allclose(s2, s1, rtol=2e-6)
+    assert auto.last_ms_stats == ref.last_ms_stats
+    assert auto.last_ms_stats["batch_queries"] == len(queries)
 
 
 def test_no_cpu_fallback(rng, monkeypatch):

@@ -9,28 +9,21 @@
 //     doc = w_base[w] + sum_{0 < j <= l} delta_j
 //     acc[wq * stride + doc] += (tf_l * s0[w]) / (tf_l + s1_eff[doc])
 //
-// Design.  One block of 128 threads per window, one thread per lane.  The
-// block reads the window's offset, base, meta and s0 by window id and
-// decodes the meta: len = m & 0xFF, dbits = 2 << ((m >> 8) & 3),
-// tfbits = tclass ? 1 << tclass : 0 with tclass = (m >> 10) & 7.  Lane l's
-// delta sits at bit l * dbits (widths divide 32, so a value never
-// straddles two words); the width is read at run time, so one kernel
-// serves every width class where the TPU kernel specialised statically.
-// Lane 0's delta is forced to 0 and an inclusive scan over the 128 lanes
-// (warp shuffles, then the four warp totals through shared memory) plus
-// the base gives the doc ids.  The tf words follow the doc words at word
-// off + ((len * dbits + 31) >> 5); tfbits = 0 means every tf is 1.  Only
-// live lanes touch memory: the stream's 64-word zero tail that the TPU
-// kernel's fixed 32-word gather relied on is never needed here.
+// Design.  One warp per window, four lanes a thread, decoded by
+// window_decode.cuh (shared with S3 and S5).  A thread loads the
+// accumulator cells of all its live lanes before it stores any: the docs
+// of one window are distinct, so the four read-add-writes are independent
+// and their loads overlap.  Only live lanes touch memory: the stream's
+// 64-word zero tail that the TPU kernel's fixed 32-word gather relied on is
+// never needed here.
 //
 // Exactness.  The wrapper launches once per term ordinal, in ascending
 // order.  Inside one launch each (query, doc) is hit at most once (a
 // term's postings are unique per doc), so a plain read-add-write is exact
 // and race-free, and across launches the adds land in the reference's
-// window order.  The score keeps the reference's order of operations, and
-// the build never passes --use_fast_math: `/` stays IEEE round-to-nearest
-// (-prec-div=true, nvcc's default), so every lane equals the reference's
-// f32 value bit for bit.
+// window order.  The score keeps the reference's order of operations and
+// the build never passes --use_fast_math, so every lane equals the
+// reference's f32 value bit for bit.
 //
 // Bound.  A 4,096-query batch over 131,072 docs leaves over 5M nonzero
 // accumulator cells in each of its two large dispatches: each live lane
@@ -45,10 +38,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "window_decode.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kWarps = kLanes / 32;
+constexpr int kThreads = 128;
+constexpr int kWarpsPerBlock = kThreads / 32;
 
 __global__ void stream_dense_kernel(
     const uint32_t* __restrict__ words,   // [S]
@@ -60,52 +55,31 @@ __global__ void stream_dense_kernel(
     const int32_t* __restrict__ wsrc,     // [n_windows] this ordinal's windows
     const int32_t* __restrict__ wq,       // [n_windows] their query rows
     float* __restrict__ acc,              // [n_q, stride]
-    int64_t stride, int n_q, int n_docs) {
-  __shared__ uint32_t warp_total[kWarps];
-  const int lane = threadIdx.x;
-  const int w = wsrc[blockIdx.x];
-  const int q = wq[blockIdx.x];
-  const uint32_t off = static_cast<uint32_t>(w_off[w]);
-  const uint32_t m = w_meta[w];
-  const uint32_t len = m & 0xFFu;
-  const uint32_t dbits = 2u << ((m >> 8) & 3u);
-  const uint32_t tclass = (m >> 10) & 7u;
-  const uint32_t tfbits = tclass ? (1u << tclass) : 0u;
-  const bool live = static_cast<uint32_t>(lane) < len;
-
-  uint32_t delta = 0;
-  if (live && lane > 0) {
-    const uint32_t pos = static_cast<uint32_t>(lane) * dbits;
-    delta = (words[off + (pos >> 5)] >> (pos & 31u)) & ((1u << dbits) - 1u);
-  }
-
-  // Inclusive scan over the 128 lanes.
-  uint32_t sum = delta;
+    int n_windows, int64_t stride, int n_q, int n_docs) {
+  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (i >= n_windows) return;  // whole warps leave together
+  const int w = wsrc[i];
+  const int q = wq[i];
+  const bm25::Window win = bm25::load_window(w_off, w_base, w_meta, w_s0, w);
+  int doc[bm25::kLanesPerThread];
+  float tf[bm25::kLanesPerThread];
+  bm25::decode_lanes(words, win, doc, tf);
+  if (q < 0 || q >= n_q) return;
+  float* row = acc + static_cast<int64_t>(q) * stride;
+  bool live[bm25::kLanesPerThread];
+  float sc[bm25::kLanesPerThread], old[bm25::kLanesPerThread];
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t up = __shfl_up_sync(0xFFFFFFFFu, sum, d);
-    if ((lane & 31) >= d) sum += up;
+  for (int j = 0; j < bm25::kLanesPerThread; ++j) {
+    live[j] = bm25::lane_of(j) < win.len && doc[j] >= 0 && doc[j] <= n_docs;
+    if (live[j]) {
+      sc[j] = bm25::posting_score(tf[j], win.s0, s1_eff[doc[j]]);
+      old[j] = row[doc[j]];
+    }
   }
-  if ((lane & 31) == 31) warp_total[lane >> 5] = sum;
-  __syncthreads();
-  for (int i = 0; i < (lane >> 5); ++i) sum += warp_total[i];
-
-  if (!live || q < 0 || q >= n_q) return;
-  const int doc = w_base[w] + static_cast<int>(sum);
-  if (doc < 0 || doc > n_docs) return;
-
-  float tf = 1.0f;
-  if (tfbits) {
-    const uint32_t toff = off + ((len * dbits + 31u) >> 5);
-    const uint32_t pos = static_cast<uint32_t>(lane) * tfbits;
-    tf = static_cast<float>(
-        (words[toff + (pos >> 5)] >> (pos & 31u)) & ((1u << tfbits) - 1u));
+#pragma unroll
+  for (int j = 0; j < bm25::kLanesPerThread; ++j) {
+    if (live[j]) row[doc[j]] = __fadd_rn(old[j], sc[j]);
   }
-  // Explicit round-to-nearest intrinsics: nothing is contracted or
-  // approximated, whatever the flags.
-  const float sc = __fdiv_rn(__fmul_rn(tf, w_s0[w]), __fadd_rn(tf, s1_eff[doc]));
-  float* slot = acc + static_cast<int64_t>(q) * stride + doc;
-  *slot = __fadd_rn(*slot, sc);
 }
 
 }  // namespace
@@ -119,12 +93,14 @@ extern "C" int bm25_stream_dense_accumulate(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_windows == 0) return 0;
-  stream_dense_kernel<<<static_cast<unsigned int>(n_windows), kLanes, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const unsigned int blocks =
+      static_cast<unsigned int>((n_windows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  stream_dense_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(s1_eff),
       static_cast<const int32_t*>(w_off), static_cast<const int32_t*>(w_base),
       static_cast<const uint16_t*>(w_meta), static_cast<const float*>(w_s0),
       static_cast<const int32_t*>(wsrc), static_cast<const int32_t*>(wq),
-      static_cast<float*>(acc), static_cast<int64_t>(stride), n_q, n_docs);
+      static_cast<float*>(acc), n_windows, static_cast<int64_t>(stride), n_q,
+      n_docs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@
 all started together, then links them into one shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
 build takes seconds).  The library lands in ``_build/`` beside the
-package, named by a hash of the sources and flags, so a second process
+package, named by a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so a second process
 reuses it and an edited source rebuilds; ``ptxas``' register and
 shared-memory report for every kernel is kept beside it (``build_log``).
 Nothing here runs at import time: the first CUDA launch calls
@@ -56,7 +57,8 @@ def _sources():
 
 def _tag(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    for path in sources + headers:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode())
             h.update(f.read())
@@ -72,6 +74,11 @@ def _declare(lib):
         ],
         "bm25_block_max_keys": [vp, vp, i, i, ll, i, vp],
         "bm25_gather_keys": [vp, vp, vp, i, i, i, i, i, i, ll, vp],
+        "bm25_stream_sparse_decode": [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, vp],
+        "bm25_sparse_combine": [vp, vp, vp, ll, i, i, i, vp],
+        "bm25_stream_rescore": [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp,
+        ],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -130,31 +130,40 @@ def stream_dense_accumulate_plain(
     return acc
 
 
-def _check(words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, wq, n_q, n_docs):
-    want = (
-        (words, torch.int32, "words"),
-        (s1_eff, torch.float32, "s1_eff"),
-        (w_off, torch.int32, "w_off"),
-        (w_base, torch.int32, "w_base"),
-        (w_meta, torch.int16, "w_meta"),
-        (w_s0, torch.float32, "w_s0"),
-        (wsrc, torch.int32, "wsrc"),
-        (wq, torch.int32, "wq"),
-    )
-    for x, dtype, name in want:
+def check_tensors(words, want) -> None:
+    """Raise unless each (tensor, dtype, name, dims) of ``want`` has that
+    dtype and number of dims, lies on ``words``' device and is contiguous."""
+    for x, dtype, name, dims in want:
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if x.device != words.device:
             raise ValueError(f"{name} is on {x.device}, words on {words.device}")
-        if x.dim() != 1:
-            raise ValueError(f"{name} must be 1-D, got shape {tuple(x.shape)}")
+        if x.dim() != dims:
+            raise ValueError(f"{name} must be {dims}-D, got shape {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_tables(words, s1_eff, w_off, w_base, w_meta, w_s0, n_docs: int) -> None:
+    """The engine's stream tables, as every stream kernel takes them."""
+    check_tensors(words, (
+        (words, torch.int32, "words", 1),
+        (s1_eff, torch.float32, "s1_eff", 1),
+        (w_off, torch.int32, "w_off", 1),
+        (w_base, torch.int32, "w_base", 1),
+        (w_meta, torch.int16, "w_meta", 1),
+        (w_s0, torch.float32, "w_s0", 1),
+    ))
     if s1_eff.numel() != n_docs + 1:
         raise ValueError(f"s1_eff has {s1_eff.numel()} entries, need {n_docs + 1}")
     n_win = w_off.numel()
     if not (w_base.numel() == w_meta.numel() == w_s0.numel() == n_win):
         raise ValueError("w_off, w_base, w_meta and w_s0 must be equal length")
+
+
+def _check(words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, wq, n_q, n_docs):
+    check_tables(words, s1_eff, w_off, w_base, w_meta, w_s0, n_docs)
+    check_tensors(words, ((wsrc, torch.int32, "wsrc", 1), (wq, torch.int32, "wq", 1)))
     if wq.numel() != wsrc.numel():
         raise ValueError("wsrc and wq must be equal length")
     if n_q < 1:

@@ -39,6 +39,7 @@ __all__ = [
     "dense_topk_plain",
     "lex_topk",
     "new_accumulator",
+    "select_keys",
 ]
 
 # Number of dense_topk calls that launched the CUDA kernels (pass 1 and
@@ -89,6 +90,12 @@ def _select(keys, k: int):
     return torch.topk(keys, k, dim=1, largest=False, sorted=True).values
 
 
+def select_keys(keys, k: int):
+    """(scores f32, ids i32) of the k smallest packed keys of each row:
+    ``lex_topk``'s selection, for callers that wrote the keys themselves."""
+    return _unpack(_select(keys, k))
+
+
 def new_accumulator(n_q: int, n_docs: int, device) -> torch.Tensor:
     """A zeroed ``[n_q, n_docs + 1]`` f32 accumulator whose rows start
     16-B aligned: a view of ``[n_q, stride]`` with the stride rounded up
@@ -110,7 +117,7 @@ def dense_topk_plain(acc, k: int, n_docs: int, block: int = 1024):
     if not _hierarchical(m, k, n_docs, block):
         cols = acc[:, :n_docs]
         ids = torch.arange(n_docs, dtype=torch.int32, device=dev).expand(q, -1)
-        return _unpack(_select(_pack(cols, ids), k))
+        return select_keys(_pack(cols, ids), k)
 
     t = m // block
     neg_inf = float("-inf")
@@ -132,7 +139,7 @@ def dense_topk_plain(acc, k: int, n_docs: int, block: int = 1024):
     keys = torch.cat(
         [_pack(vals, docs), _pack(tail, tail_docs.expand(q, -1))], dim=1
     )
-    return _unpack(_select(keys, k))
+    return select_keys(keys, k)
 
 
 def _check(acc, k, n_docs, block):
@@ -202,6 +209,6 @@ def dense_topk(acc, k: int, n_docs: int, block: int = 1024):
         )
         if err != 0:
             raise RuntimeError(f"gather-keys kernel launch failed: cudaError {err}")
-        out = _unpack(_select(keys, k))
+        out = select_keys(keys, k)
     LAUNCHES += 1
     return out

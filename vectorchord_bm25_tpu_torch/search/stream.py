@@ -1,26 +1,34 @@
 """Exact batched search over the compressed posting stream
-(counterpart of ``search/stream.py``), dense strategy.
+(counterpart of ``search/stream.py``): the dense, sparse and MaxScore
+strategies and ``auto``'s routing between them.
 
 The served default: ``Bm25Index`` builds this engine unless told
-otherwise, and ``strategy="auto"`` takes the dense reduction below
-``SPARSE_MIN_DOCS`` (2^21) docs.  Per dispatch of a batch:
+otherwise.  ``strategy="auto"`` takes the dense reduction below
+``SPARSE_MIN_DOCS`` (2^21) docs; from there on it routes each query, as
+the reference does, to MaxScore (k <= 128 and the router predicts enough
+pruning) or to the exhaustive sparse reduction, which also takes every
+query MaxScore cannot certify.  The reductions, per dispatch:
 
-1. the host plans the windows of every query term (the reference's own
-   ``_win_lists``) and cuts the batch into the reference's dispatches
-   (``q_cap`` queries bounded by the 1 GiB accumulator budget, at most
-   ``t_cap`` = 2^19 windows);
-2. ``ops/stream_kernel.py`` decodes, scores and adds every window into a
-   ``[n_q, N+1]`` accumulator, one term ordinal at a time so the adds land
-   in the reference's order;
-3. ``ops/topk.py`` takes the exact hierarchical top-k of each row.
+- dense: ``ops/stream_kernel.py`` (S1) decodes, scores and adds every
+  window into a ``[n_q, N+1]`` accumulator, one term ordinal at a time so
+  the adds land in the reference's order; ``ops/topk.py`` (S2) takes the
+  exact hierarchical top-k of each row;
+- sparse: ``ops/stream_sparse.py`` decodes every lane of a ``[q, P]``
+  window matrix (S3), sorts each row by doc and sums each doc's run into
+  packed selection keys (S4), then selects the top k;
+- MaxScore: the reference's tiers, each a sparse pass over the
+  impact-ordered window prefix into a candidate pool, then
+  ``ops/stream_rescore.py`` (S5) rescores the candidates exactly.
 
 ``StreamEngine`` subclasses the reference engine: the numpy planning
-(``_win_lists``, ``_assemble``, ``_s1_by_doc_host``), ``set_deleted``,
+(``_win_lists``, ``_assemble``, ``_ms_route``, ``_maxscore_phase``,
+``_maxscore_tables``, ``_s1_by_doc_host``), ``set_deleted``,
 ``memory_report`` and ``search`` are the reference's own, running on the
 torch tensors uploaded here.  Only the methods that reach jax are
-replaced.  The reference's ``_throttle_large`` (a jax-only guard against
-a TPU dispatch pile-up) has no counterpart: each dispatch's accumulator
-is freed before the next one is allocated.
+replaced.  The reference's ``_throttle_large`` (a jax-only guard against a
+TPU dispatch pile-up) has no counterpart: each dispatch's lanes or
+accumulator are freed before the next is allocated, and only the
+``[q, k]`` results wait for ``finalize``.
 """
 
 from __future__ import annotations
@@ -33,19 +41,22 @@ import torch
 from vectorchord_bm25_tpu.index.sealed import SealedSegment
 from vectorchord_bm25_tpu.index.stream import StreamIndex, build_stream_index
 from vectorchord_bm25_tpu.search.stream import StreamEngine as _ReferenceEngine
+from vectorchord_bm25_tpu.search.stream import _ms_certify, _ms_prefix_prep
 from vectorchord_bm25_tpu.text.intern import Query
+from vectorchord_bm25_tpu.utils.batchkeys import group_positions
 from vectorchord_bm25_tpu.utils.buckets import bucket_pow2 as _bucket
 
 from ..ops.stream_kernel import stream_dense_accumulate
+from ..ops.stream_rescore import rescore_topk
+from ..ops.stream_sparse import stream_sparse_topk
 from ..ops.topk import dense_topk
 from ..utils.device import as_device
 
 __all__ = ["StreamEngine", "window_ordinals"]
 
-_NOT_PORTED = (
-    "is not ported yet (ROADMAP.md queue 1 item 2: StreamEngine slices 2-3, "
-    "the sparse and MaxScore reductions); use strategy='dense' below 2^21 docs"
-)
+# Lanes a sparse dispatch may hold (the reference's cap, search/stream.py
+# :797, :882, :1081): 512 MB of (doc, score) before the sort's copy.
+_LANE_CAP = 1 << 26
 
 
 def window_ordinals(stream: StreamIndex, wsrc, starts, sizes) -> np.ndarray:
@@ -68,10 +79,9 @@ def window_ordinals(stream: StreamIndex, wsrc, starts, sizes) -> np.ndarray:
 class StreamEngine(_ReferenceEngine):
     """Batched exact search from the compressed stream, on torch.
 
-    The dense strategy only (``"dense"``, or ``"auto"`` below
-    ``SPARSE_MIN_DOCS``); on a CUDA device every dispatch runs the
-    ``stream_dense_accumulate`` and ``dense_topk`` kernels, on the CPU
-    their plain PyTorch versions."""
+    Every strategy of the reference (``"auto"``, ``"dense"``, ``"sparse"``,
+    ``"maxscore"``); on a CUDA device every dispatch runs the CUDA kernels
+    S1-S5, on the CPU their plain PyTorch versions."""
 
     def __init__(
         self,
@@ -131,24 +141,27 @@ class StreamEngine(_ReferenceEngine):
         keep = torch.from_numpy(fm).to(self.device) > 0.0
         return torch.where(keep, self.dev_s1bd, float("inf"))
 
-    def _check_dense(self) -> None:
-        if self.strategy in ("sparse", "maxscore"):
-            raise NotImplementedError(f"strategy={self.strategy!r} {_NOT_PORTED}")
-        if self.strategy == "auto" and self.n_docs >= self.SPARSE_MIN_DOCS:
-            raise NotImplementedError(
-                f"strategy='auto' at {self.n_docs} docs (>= "
-                f"SPARSE_MIN_DOCS = {self.SPARSE_MIN_DOCS}) {_NOT_PORTED}"
-            )
+    def _window_tables(self):
+        return (self.dev_w_off, self.dev_w_base, self.dev_w_meta, self.dev_w_s0)
 
-    def _dispatches(self, queries: Sequence[Query]):
-        """The reference's dense chunking (search/stream.py:1016-1047):
-        yields (query rows, wsrc [tb] int32, wq [tb] int32, word_ord [tb],
-        n_qb) per dispatch, windows in the reference's order with pad
-        windows (len 0) up to the bucketed tb."""
-        qn = len(queries)
-        n_docs = self.n_docs
-        lists, _ = self._win_lists(queries)
+    def _sparse_topk(self, s1_eff, mat: np.ndarray, k: int, max_terms: int):
+        """One sparse dispatch (the reference's ``_stream_sparse`` call) over
+        a ``[q, P]`` window matrix whose queries match at most ``max_terms``
+        terms, repeats counted."""
+        return stream_sparse_topk(
+            self.dev_words, s1_eff, *self._window_tables(),
+            torch.from_numpy(mat).to(self.device), k, self.n_docs,
+            int(max_terms - 1).bit_length(),
+        )
+
+    def _dispatches(self, lists):
+        """The reference's dense chunking (search/stream.py:1016-1047) of
+        ``_win_lists``' output: yields (query rows, wsrc [tb] int32, wq [tb]
+        int32, word_ord [tb], n_qb) per dispatch, windows in the reference's
+        order with pad windows (len 0) up to the bucketed tb."""
         wsrc_all, starts, sizes = lists
+        qn = sizes.size
+        n_docs = self.n_docs
         ord_all = window_ordinals(self.stream, wsrc_all, starts, sizes)
         q_cap = max(1, self.accumulator_budget // (4 * (n_docs + 1)))
         while q_cap * (n_docs + 1) >= 1 << 31:  # the reference's int32 bound
@@ -176,6 +189,146 @@ class StreamEngine(_ReferenceEngine):
             yield np.arange(q0, q1), wsrc, wq, word_ord, _bucket(q1 - q0, 8)
             q0 = q1
 
+    def _ms_tier(
+        self, ids, qidx, qn, k, s1_eff, n_terms, tau_frac, pool_min,
+        exclude_frac,
+    ):
+        """One MaxScore certification tier over a query subset (local
+        indices 0..qn): the reference's ``_ms_tier`` (search/stream.py
+        :752-926), statement for statement, with its two device calls
+        replaced by ``stream_sparse_topk`` (phase 1) and ``rescore_topk``
+        (phase 2).  The kernels read window widths and search depths at run
+        time, so the reference's ``_active_widths`` and ``bs_steps`` go.
+
+        Returns (pending entries in local indices, local fallback
+        indices, stats dict).
+        """
+        si = self.stream
+        n_docs = self.n_docs
+        order, bounds = self._maxscore_tables()
+        tws = si.token_w_start
+        lo, hi, cut, s_rem, excl = _ms_prefix_prep(
+            order, bounds, tws, ids, qidx, qn, tau_frac, exclude_frac
+        )
+        stats = {
+            "queries": qn,
+            "tau_frac": tau_frac,
+            "windows_total": int((hi - lo).sum()),
+            "windows_phase1": int(cut.sum()),
+            "excluded_terms": int(excl.sum()),
+            "terms": int(qidx.size),
+        }
+
+        # Phase 1: the prefix windows through the sparse reduction with a
+        # C-wide result pool.
+        wsrc = order[np.repeat(lo, cut) + group_positions(cut)]
+        q_of = np.repeat(qidx, cut)
+        sizes = np.bincount(q_of, minlength=qn).astype(np.int64)
+        starts = np.concatenate(([0], np.cumsum(sizes)))
+        lists = (wsrc, starts, sizes)
+        c_pool = int(min(_bucket(max(16 * k, pool_min), 1), self.MS_POOL_CAP))
+        p1 = []
+        p_bucket = max(1, _bucket(int(sizes.max(initial=1)), 8))
+        lane_cap = max(1, _LANE_CAP // (p_bucket * 128))
+        for i0 in range(0, qn, lane_cap):
+            sub = np.arange(i0, min(qn, i0 + lane_cap))
+            mat, _ = self._assemble(lists, sub)
+            mt = int(max(1, n_terms[sub].max(initial=1)))
+            p1.append((sub, self._sparse_topk(s1_eff, mat, c_pool, mt)))
+        sp = np.full((qn, c_pool), -np.inf, dtype=np.float32)
+        ip = np.full((qn, c_pool), n_docs, dtype=np.int64)
+        for sub, (s_d, i_d) in p1:
+            s = s_d.cpu().numpy()
+            i = i_d.cpu().numpy().astype(np.int64)
+            sp[sub, : s.shape[1]] = s
+            ip[sub, : i.shape[1]] = np.where(np.isfinite(s), i, n_docs)
+        del p1
+
+        theta = sp[:, k - 1].astype(np.float64)
+        last = sp[:, -1].astype(np.float64)
+        # Queries with fewer than k finite partials cannot form a selection
+        # threshold; the others are certified after the rescore, against
+        # the kth exact score.
+        hopeless = ~np.isfinite(theta)
+        ok = np.flatnonzero(~hopeless)
+        fallback = np.flatnonzero(hopeless)
+        stats["fallback_queries"] = int(fallback.size)
+        if ok.size == 0:
+            return [], fallback, stats
+
+        # Candidates: partial + S could reach the kth partial (a few f32
+        # ulps of slack keep the set a superset under rounding).
+        th = theta[ok]
+        th_pad = th - 4.0 * np.spacing(
+            np.abs(th).astype(np.float32)
+        ).astype(np.float64)
+        mask = np.isfinite(sp[ok]) & (
+            sp[ok].astype(np.float64) + s_rem[ok, None] >= th_pad[:, None]
+        )
+        cand_ids = np.where(mask, ip[ok], n_docs)
+        cand_ids.sort(axis=1)
+        c_pad = int(_bucket(max(int(mask.sum(1).max(initial=1)), k), 16))
+        if c_pad <= cand_ids.shape[1]:
+            cand = cand_ids[:, :c_pad]
+        else:
+            cand = np.pad(
+                cand_ids,
+                ((0, 0), (0, c_pad - cand_ids.shape[1])),
+                constant_values=n_docs,
+            )
+        cand = cand.astype(np.int32)
+
+        # Per-(query, term) window spans in the original doc-ascending
+        # order for the rescore's binary search.
+        qstart = np.concatenate(
+            ([0], np.cumsum(np.bincount(qidx, minlength=qn)))
+        )
+        tpos = np.arange(qidx.size, dtype=np.int64) - qstart[qidx]
+        row = np.full(qn, -1, dtype=np.int64)
+        row[ok] = np.arange(ok.size)
+        selp = row[qidx] >= 0
+        tmax = int(_bucket(int(n_terms[ok].max(initial=1)), 2))
+        t_lo = np.zeros((ok.size, tmax), dtype=np.int32)
+        t_hi = np.zeros((ok.size, tmax), dtype=np.int32)
+        t_lo[row[qidx[selp]], tpos[selp]] = lo[selp]
+        t_hi[row[qidx[selp]], tpos[selp]] = hi[selp]
+
+        stats["candidate_pad"] = int(c_pad)
+        res_s = np.full((ok.size, k), -np.inf, dtype=np.float32)
+        res_i = np.zeros((ok.size, k), dtype=np.int64)
+        lane_cap2 = max(1, _LANE_CAP // (tmax * c_pad * 128))
+        for i0 in range(0, ok.size, lane_cap2):
+            s2 = slice(i0, min(ok.size, i0 + lane_cap2))
+            s_d, i_d = rescore_topk(
+                self.dev_words, s1_eff, *self._window_tables(),
+                *(torch.from_numpy(x[s2]).to(self.device) for x in (cand, t_lo, t_hi)),
+                k, n_docs,
+            )
+            res_s[s2] = s_d.cpu().numpy()[:, :k]
+            res_i[s2] = i_d.cpu().numpy().astype(np.int64)[:, :k]
+
+        # Exact-theta certification (see _ms_certify): kth_exact includes
+        # the excluded and tail terms' contributions; unselected pool docs
+        # had partial + s_rem < theta <= kth_exact.
+        kth_exact = res_s[:, k - 1].astype(np.float64)
+        fail_unseen, fail_pool = _ms_certify(kth_exact, last[ok], s_rem[ok])
+        stats["cert_fail_unseen"] = int(fail_unseen.sum())
+        stats["cert_fail_pool"] = int((fail_pool & ~fail_unseen).sum())
+        safe = ~(fail_unseen | fail_pool)
+        certified = np.flatnonzero(safe)
+        # Sorted: the next tier's prefix prep assumes query-ascending term
+        # lists.
+        fallback = np.sort(
+            np.concatenate([fallback, ok[np.flatnonzero(~safe)]])
+        )
+        stats["fallback_queries"] = int(fallback.size)
+        pending = []
+        if certified.size:
+            pending.append(
+                (ok[certified], (res_s[certified], res_i[certified]))
+            )
+        return pending, fallback, stats
+
     def search_async(
         self,
         queries: Sequence[Query],
@@ -183,34 +336,109 @@ class StreamEngine(_ReferenceEngine):
         filter_mask: Optional[np.ndarray] = None,
     ):
         """Dispatch a batch and return finalize() -> (scores, ids,
-        payloads): the reference's dense branch (search/stream.py:939-1065)
-        and finalize (:1105-1127)."""
+        payloads): the reference's routing (search/stream.py:939-1014), its
+        dense and sparse branches (:1016-1103) and finalize (:1105-1127)."""
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
+        # Per-dispatch profile: cleared up front so a reader after this call
+        # never sees a previous dispatch's stats.
         self.last_ms_stats = None
-        self._check_dense()
         queries = list(queries)
         qn = len(queries)
         n_docs = self.n_docs
+        # 'maxscore' sends every query through the pruned path (k above
+        # MS_MAX_K serves exhaustively); at scale 'auto' routes per query
+        # (_ms_route, k <= MS_ROUTE_MAX_K) and the rest, and every query no
+        # tier certifies, take the exhaustive sparse reduction.
+        at_scale = n_docs >= self.SPARSE_MIN_DOCS
+        ms_sel = None
+        if k <= self.MS_MAX_K:
+            if self.strategy == "maxscore":
+                ms_sel = np.arange(qn, dtype=np.int64)
+            elif (
+                self.strategy == "auto"
+                and at_scale
+                and k <= self.MS_ROUTE_MAX_K
+            ):
+                ms_sel = np.flatnonzero(self._ms_route(queries))
+        use_sparse = ms_sel is None and (
+            self.strategy in ("sparse", "maxscore")
+            or (self.strategy == "auto" and at_scale)
+        )
+
         s1_eff = self._s1_eff(filter_mask)
         kk = min(_bucket(k, 1), max(n_docs, 1))
-        tables = (self.dev_w_off, self.dev_w_base, self.dev_w_meta, self.dev_w_s0)
+        lists, n_terms = self._win_lists(queries)
+        sizes = lists[2]
 
         pending = []
-        for rows, wsrc, wq, word_ord, n_qb in self._dispatches(queries):
-            # Group the windows by ordinal on the host, so the kernel's
-            # launches read contiguous spans.
-            order = np.argsort(word_ord, kind="stable")
-            acc = stream_dense_accumulate(
-                self.dev_words, s1_eff, *tables,
-                torch.from_numpy(wsrc[order]).to(self.device),
-                torch.from_numpy(wq[order]).to(self.device),
-                word_ord[order], n_qb, n_docs,
-            )
-            pending.append((rows, dense_topk(acc, kk, n_docs)))
-            # Only the [n_qb, kk] results stay queued: the accumulator
-            # (1 GiB at the budget) is released before the next dispatch.
-            del acc
+        sparse_sel = np.arange(qn, dtype=np.int64)
+        if ms_sel is not None:
+            if ms_sel.size:
+                sub_q = (
+                    queries
+                    if ms_sel.size == qn
+                    else [queries[i] for i in ms_sel]
+                )
+                ms_pending, fb_local = self._maxscore_phase(
+                    sub_q, k, s1_eff, n_terms[ms_sel]
+                )
+                for qs_local, data in ms_pending:
+                    pending.append((ms_sel[qs_local], data))
+                not_routed = np.setdiff1d(
+                    sparse_sel, ms_sel, assume_unique=True
+                )
+                sparse_sel = np.sort(
+                    np.concatenate([not_routed, ms_sel[fb_local]])
+                )
+            stats = self.last_ms_stats or {
+                "queries": 0,
+                "tiers": [],
+                "fallback_queries": 0,
+            }
+            stats["batch_queries"] = qn
+            stats["routed_queries"] = int(ms_sel.size)
+            self.last_ms_stats = stats
+            use_sparse = sparse_sel.size > 0
+
+        if not use_sparse and ms_sel is None:
+            for rows, wsrc, wq, word_ord, n_qb in self._dispatches(lists):
+                # Group the windows by ordinal on the host, so the kernel's
+                # launches read contiguous spans.
+                order = np.argsort(word_ord, kind="stable")
+                acc = stream_dense_accumulate(
+                    self.dev_words, s1_eff, *self._window_tables(),
+                    torch.from_numpy(wsrc[order]).to(self.device),
+                    torch.from_numpy(wq[order]).to(self.device),
+                    word_ord[order], n_qb, n_docs,
+                )
+                pending.append((rows, dense_topk(acc, kk, n_docs)))
+                # The accumulator (1 GiB at the budget) goes before the
+                # next dispatch allocates its own.
+                del acc
+        elif use_sparse:
+            sel = sparse_sel
+            ssz = sizes[sel]
+            # Cost bucketing: when padding every row to the longest wastes
+            # over 65,536 windows, rows go to x4 size buckets.
+            bucket_of = np.zeros(sel.size, dtype=np.int64)
+            waste = sel.size * int(ssz.max(initial=0)) - int(ssz.sum())
+            if waste > 65536:
+                b = 32
+                while np.any(ssz > b):
+                    bucket_of[ssz > b] += 1
+                    b *= 4
+            for bu in np.unique(bucket_of):
+                bidx = sel[np.flatnonzero(bucket_of == bu)]
+                p_bucket = max(
+                    1, _bucket(int(sizes[bidx].max(initial=1)), 8)
+                )
+                lane_cap = max(1, _LANE_CAP // (p_bucket * 128))
+                for i0 in range(0, bidx.size, lane_cap):
+                    sub = bidx[i0 : i0 + lane_cap]
+                    mat, _ = self._assemble(lists, sub)
+                    mt = int(max(1, n_terms[sub].max(initial=1)))
+                    pending.append((sub, self._sparse_topk(s1_eff, mat, kk, mt)))
 
         payload_arr = np.asarray(self.segment.doc_payload)
 
@@ -219,9 +447,10 @@ class StreamEngine(_ReferenceEngine):
             ids = np.full((qn, k), -1, dtype=np.int64)
             payloads = np.full((qn, k), -1, dtype=np.int64)
             for sub, (s_dev, i_dev) in pending:
-                # Dense rows are pow2-bucketed; drop the padding rows.
-                s = s_dev.cpu().numpy()[: sub.size, :k]
-                i = i_dev.cpu().numpy().astype(np.int64)[: sub.size, :k]
+                # Dense rows are pow2-bucketed; drop the padding rows.  The
+                # MaxScore tiers hand over host arrays.
+                s = np.asarray(_host(s_dev))[: sub.size, :k]
+                i = np.asarray(_host(i_dev)).astype(np.int64)[: sub.size, :k]
                 if s.shape[1] < k:
                     pad = k - s.shape[1]
                     s = np.pad(s, ((0, 0), (0, pad)), constant_values=-np.inf)
@@ -233,3 +462,9 @@ class StreamEngine(_ReferenceEngine):
             return scores, ids, payloads
 
         return finalize
+
+
+def _host(x):
+    """A result block as numpy: device tensors are copied back, the MaxScore
+    tiers' host arrays pass as they are."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
