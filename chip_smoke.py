@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port once on one GPU: the Block-Max engine and
-the served default, the stream engine, with a growing segment and at the
-scale where its ``auto`` strategy leaves the dense path.
+"""Drive the PyTorch/CUDA port once on one GPU: the Block-Max engine (f32
+and bf16 impacts, tf postings, the exhaustive range sweep) and the served
+default, the stream engine, with a growing segment and at the scale where
+its ``auto`` strategy leaves the dense path.  The corpora come from the
+port's own generators (``vectorchord_bm25_tpu_torch/data/synth.py``).
 
     python3 chip_smoke.py [--docs N] [--sparse-docs N] [--seed S]
 
@@ -18,7 +20,7 @@ not 0 and no result line is printed):
       windows with colliding slots (rtol 1e-5, atol 1e-6), with both
       times from CUDA events;
   (d) the slice: ``Bm25Index(..., engine="blockmax", device="cuda")``
-      over a 131,072-doc synthetic corpus (bench.py's default,
+      over a 131,072-doc synthetic corpus (bench.py's default size,
       trec-covid scale) serving ``search_batch(k=10)`` in 4,096-query
       batches; the kernel's launch count must grow;
   (e) correctness at that size: 256 sampled queries equal the same
@@ -41,6 +43,23 @@ not 0 and no result line is printed):
       is known) served by ``search_batch`` through the growing segment's
       stream engine on the card: equal to the CPU, and its S1 launches
       grow;
+  (l) bf16 impacts on the same corpus and RangeIndex:
+      ``Bm25Index(..., engine="blockmax", engine_options={"impact_dtype":
+      "bfloat16", "range_index": ri})``.  On every round's windows P1 on
+      bf16 equals its plain version (``torch.equal``), both timed; 5
+      batches of 4,096 at k=10, QPS each, its launches must grow; 256
+      queries equal the CPU-plain run; every rank's score within rtol 6e-3
+      of the f32 engine's (the reference's own tolerance), recall@10
+      against it printed; ``memory_report()["total"]`` equals the
+      reference's formula;
+  (m) ``posting_mode="tf"``: the same with P1-tf (``tf_range_scores``),
+      then phase (e)'s audit (card == CPU-plain, also after deleting 1%
+      and under a prefilter; recall@10 = 1.0 against the float64 oracle);
+  (n) the exhaustive sweep ``search_rangescan_async`` on phase (d)'s f32
+      engine: P1 on every chunk and S2 on the accumulator equal their
+      plain versions, both timed; 3 batches of 4,096 queries, QPS each,
+      P1's and S2's launches must grow; ids and scores equal the pruned
+      engine's on all 4,096 queries and the CPU-plain engine's on 256;
   (i) the served default at scale: a 2,097,152-doc corpus (``--sparse-docs``;
       the same generator and shape, only the doc count raised, the
       smallest size at which ``auto`` leaves the dense path), served by
@@ -60,9 +79,16 @@ not 0 and no result line is printed):
       the bytes of the stream's host arrays;
   (k) the host build time of each phase.
 
-The ``kernels`` line lists P1 and S1-S5; the last line of stdout is
-``{"ok": true, "device": {...}}``.
-Needs torch with CUDA and nvcc; imports no jax.
+Phases (l)-(n) run after (h), while the 131,072-doc corpus is held.  Each
+path is driven with its launch counters at 0 and read just after.  The
+``kernels`` line lists P1 (f32 and bf16), P1-tf and S1-S5, each with its
+launches, its time and its plain version's from CUDA events, its bound
+(``bound_ms``: the larger of its bytes over 3.35 TB/s and its f32
+operations over 67 TFLOP/s, counted from this run's inputs) and the time
+of one PyTorch call computing the same function where there is one
+(``library_ms``); the last line of stdout is ``{"ok": true, "device":
+{...}}``.  Needs torch with CUDA and nvcc; imports no jax, nothing of the
+JAX package and not ``bench.py``.
 """
 
 from __future__ import annotations
@@ -97,6 +123,55 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The card's published peaks (NVIDIA's H100 SXM data sheet, dense rates),
+# which a kernel's least time (``bound_ms``) is taken against.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take for work that must move
+    ``n_bytes`` of device memory and do ``n_ops`` f32 operations: the
+    larger of the two times, and which one it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": int(n_bytes),
+        "bound_ops": int(n_ops),
+    }
+
+
+def window_words(si, wins):
+    """u32 stream words the windows ``wins`` hold (pad windows none): each
+    stores its lanes' doc deltas at dbits and tfs at tfbits."""
+    wins = np.asarray(wins)
+    wins = wins[wins < si.n_windows]
+    ln = si.w_len[wins].astype(np.int64)
+    dw = -(-ln * si.w_dbits[wins].astype(np.int64) // 32)
+    tw = -(-ln * si.w_tfbits[wins].astype(np.int64) // 32)
+    return int((dw + tw).sum()), int(ln.sum()), int(wins.size)
+
+
+def p1_bound(post, starts, lens, rs):
+    """P1 (any impact type) or P1-tf on these windows: each active lane's
+    posting bytes (impact or tf, its u8 slot, and for tf its u8 fieldnorm),
+    the [Q, T, C] starts and lengths, the [Q, C, RS] f32 output; one add
+    (tf: a multiply, an add, a divide and the add) a lane."""
+    import torch
+
+    q, t, c = starts.shape
+    active = int(lens.sum())
+    tf = post.dtype in (torch.uint8, torch.int16)
+    lane_bytes = post.element_size() + 1 + (1 if tf else 0)
+    extra = (4 * q * t + 4 * q * c + 1024) if tf else 0  # s0, cand_r, s1
+    return bound(
+        active * lane_bytes + 8 * starts.numel() + 4 * q * c * rs + extra,
+        active * (4 if tf else 1),
+    )
 
 
 def hits_of(results):
@@ -236,12 +311,25 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     acc = stream_kernel.stream_dense_accumulate(*a)
     s2_ms = cuda_ms(lambda: topk.dense_topk(acc, kk, n_docs), iters=10)
     s2_plain_ms = cuda_ms(lambda: topk.dense_topk_plain(acc, kk, n_docs), iters=5)
+    # The library's top-k over the same rows (no score > 0 mask, no tie rule).
+    s2_lib_ms = cuda_ms(lambda: torch.topk(acc[:, :n_docs], kk, dim=1), iters=5)
     del acc
+    # S1 must read each window's words and meta and write the accumulator;
+    # S2 must read the accumulator's doc columns.
+    n_words, lanes, n_win = window_words(si, a[6].cpu().numpy())
+    s1_bound = bound(
+        4 * n_words + 14 * n_win + 8 * a[6].numel()
+        + 4 * min(lanes, n_docs + 1) + 4 * n_q * (n_docs + 1),
+        4 * lanes,
+    )
+    s2_bound = bound(4 * n_q * n_docs + 8 * n_q * kk, n_q * n_docs)
     print(
         f"(f) {len(dispatches)} dispatches; first: n_q={n_q}, N+1={n_docs + 1}, "
         f"{a[6].numel()} windows; S1 {s1_ms:.4f} ms vs plain {s1_plain_ms:.4f} ms "
         f"(both include the {zero_ms:.4f} ms accumulator zero-fill); S2 "
-        f"{s2_ms:.4f} ms vs plain {s2_plain_ms:.4f} ms at k={kk} [{label}]"
+        f"{s2_ms:.4f} ms vs plain {s2_plain_ms:.4f} ms at k={kk}, torch.topk "
+        f"{s2_lib_ms:.4f} ms; bounds S1 {s1_bound['bound_ms']:.4f} ms, S2 "
+        f"{s2_bound['bound_ms']:.4f} ms [{label}]"
     )
     index.search_batch(queries, K)  # warm-up
     torch.cuda.synchronize()
@@ -313,9 +401,12 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
             "source": "vectorchord_bm25_tpu_torch/csrc/stream_dense.cu",
             "replaces": "vectorchord_bm25_tpu/search/stream.py:171",
             "launches": s1_launches,
+            "launches_growing": grow_launches,
             "max_abs_err": s1_err,
             "ms": s1_ms,
             "plain_ms": s1_plain_ms,
+            **s1_bound,
+            "library_ms": None,
         },
         {
             "name": "dense_topk",
@@ -326,8 +417,252 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
             "max_abs_err": s2_err,
             "ms": s2_ms,
             "plain_ms": s2_plain_ms,
+            **s2_bound,
+            "library_ms": s2_lib_ms,
         },
     ]
+
+
+def _record(module, name):
+    """Replace ``module.name`` by a pass-through that keeps the arguments
+    of every call (the engine never writes to them afterwards; an ``out``
+    is dropped, so a replay returns a fresh result).  Returns (restore,
+    calls)."""
+    real = getattr(module, name)
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, {k: v for k, v in kw.items() if k != "out"}))
+        return real(*args, **kw)
+
+    setattr(module, name, record)
+    return (lambda: setattr(module, name, real)), calls
+
+
+def _kernel_vs_plain(kernel, plain, calls, what):
+    """Every recorded call's kernel result ``torch.equal`` to its plain
+    version; returns the max abs error and (kernel ms, plain ms) on the
+    first call."""
+    import torch
+
+    err = 0.0
+    for args, kw in calls:
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{what} != its plain version")
+        err = max(err, _finite_err(*pairs[0]))
+    args, kw = calls[0]
+    return err, cuda_ms(lambda: kernel(*args, **kw)), cuda_ms(lambda: plain(*args, **kw))
+
+
+def _serve(index, queries, counters, what):
+    """Warm up, zero the launch counters, serve ROUNDS batches and read
+    the counters.  Returns (QPS per batch, launches by counter, results)."""
+    import torch
+
+    index.search_batch(queries, K)
+    torch.cuda.synchronize()
+    for module, name in counters:
+        setattr(module, name, 0)
+    qps = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        results = index.search_batch(queries, K)
+        qps.append(len(queries) / (time.perf_counter() - t0))
+    launches = {name: getattr(module, name) for module, name in counters}
+    if not all(launches.values()):
+        raise AssertionError(f"{what}: a kernel of the path never launched: {launches}")
+    if len(results) != len(queries) or not all(
+        np.isfinite(h.score) and h.score > 0 for hits in results for h in hits
+    ):
+        raise AssertionError(f"{what}: results are not finite positive hits")
+    return qps, launches, results
+
+
+def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
+    """Phases (l)-(n): the rest of the Block-Max engine on the 131,072-doc
+    corpus and its RangeIndex.  Returns the kernels-line entries of P1 on
+    bf16 and P1-tf, and the rangescan's P1 and S2 launch counts."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch import Bm25Index, IndexOptions
+    from vectorchord_bm25_tpu_torch.ops import score_kernel, topk
+    from vectorchord_bm25_tpu_torch.search import blockmax
+    from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine
+
+    rng = np.random.default_rng(args.seed + 5)
+    sample = [queries[i] for i in np.sort(rng.choice(len(queries), AUDIT, replace=False))]
+    n, v, p = seg.n_docs, seg.n_tokens, ri.post_local.size
+    meta = 12 * (ri.tr_range.size + 1) + 4 + 4 * (v + 2)  # range meta + CSR
+
+    def build(opts, device):
+        return Bm25Index(
+            seg, seed, IndexOptions(), engine="blockmax",
+            engine_options={**opts, "range_index": ri}, device=device,
+        )
+
+    f32_fresh = BlockMaxEngine(seg, ri, device="cuda")  # bf16's yardstick, no deletes
+    entries = []
+    for phase, mode, opts in (
+        ("(l)", "bf16", {"impact_dtype": "bfloat16"}),
+        ("(m)", "tf", {"posting_mode": "tf"}),
+    ):
+        index = build(opts, "cuda")
+        engine = index.engine()
+        name = "fused_range_scores" if mode == "bf16" else "tf_range_scores"
+        counter = "BF16_LAUNCHES" if mode == "bf16" else "TF_LAUNCHES"
+        restore, calls = _record(blockmax, name)
+        try:
+            engine.search(queries, K)
+        finally:
+            restore()
+        kernel = getattr(score_kernel, name)
+        err, ms, plain_ms = _kernel_vs_plain(
+            kernel, getattr(score_kernel, name + "_plain"), calls, f"P1 {mode}"
+        )
+        first = calls[0][0]
+        post = first[0]
+        starts, lens = (first[2], first[3]) if mode == "bf16" else (first[6], first[7])
+        rs = calls[0][1]["rs"]
+        kb = p1_bound(post, starts, lens, rs)
+        print(
+            f"{phase} {mode}: {len(calls)} rounds, kernel == plain on every "
+            f"round's windows (torch.equal); Q,T,C,RS={(*starts.shape, rs)}, "
+            f"{int(lens.sum())} active lanes in round 1: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {kb['bound_ms']:.4f} ms "
+            f"({kb['bound_by']}) [{label}]"
+        )
+        del calls
+        qps, launches, _ = _serve(index, queries, [(score_kernel, counter)], mode)
+        print(
+            f"{phase} {mode}: {ROUNDS} x search_batch({len(queries)} queries, "
+            f"k={K}); {launches[counter]} kernel launches; QPS per batch "
+            f"{[round(x, 1) for x in qps]} (median {float(np.median(qps)):.1f}) [{label}]"
+        )
+        # Device bytes by the reference's formula (search/blockmax.py:475-507).
+        if mode == "bf16":
+            want_bytes = 3 * p + meta + 4 * (n + 1)
+        else:
+            tf_bytes = engine.dev_post_tf.element_size()
+            want_bytes = (tf_bytes + 1) * p + meta + 5 * (n + 1)
+        got_bytes = engine.memory_report()["total"]
+        if got_bytes != want_bytes:
+            raise AssertionError(f"{mode} memory_report total {got_bytes} != {want_bytes}")
+        cpu = build(opts, "cpu")
+        if mode == "bf16":
+            got = index.search_batch(sample, K)
+            if hits_of(got) != hits_of(cpu.search_batch(sample, K)):
+                raise AssertionError("bf16: GPU != CPU-plain")
+            s_bf, i_bf, _ = engine.search(queries, K)
+            s_32, i_32, _ = f32_fresh.search(queries, K)
+            if not np.array_equal(i_bf >= 0, i_32 >= 0):
+                raise AssertionError("bf16 and f32 return different hit counts")
+            live = i_32 >= 0
+            np.testing.assert_allclose(s_bf[live], s_32[live], rtol=6e-3)
+            hit = sum(len(set(a[a >= 0]) & set(b[b >= 0])) for a, b in zip(i_bf, i_32))
+            recall = hit / max(1, int(live.sum()))
+            print(
+                f"{phase} bf16: GPU == CPU-plain on {AUDIT} queries; scores per "
+                f"rank within rtol 6e-3 of the f32 engine's on {len(queries)} "
+                f"queries, recall@{K} vs the f32 engine {recall:.6f}; "
+                f"memory_report total {got_bytes} B == the reference's formula"
+            )
+        else:
+            recall, total, ties, n_del = audit(index, cpu, seg, sample)
+            print(
+                f"{phase} tf: {AUDIT} sampled queries: GPU == CPU-plain, also "
+                f"after deleting {n_del} docs (1%) and with a prefilter; recall@{K} "
+                f"vs the float64 oracle {recall} ({total} hits, {ties} ties excused); "
+                f"post_tf {engine.dev_post_tf.dtype}; memory_report total "
+                f"{got_bytes} B == the reference's formula"
+            )
+        entries.append(
+            {
+                "name": "fused_range_scores_bf16" if mode == "bf16" else "tf_range_scores",
+                "route": "cuda",
+                "source": "vectorchord_bm25_tpu_torch/csrc/"
+                + ("score_kernel.cu" if mode == "bf16" else "tf_range_scores.cu"),
+                "replaces": "vectorchord_bm25_tpu/ops/score_kernel.py:67"
+                if mode == "bf16"
+                else "vectorchord_bm25_tpu/search/blockmax.py:169",
+                "launches": launches[counter],
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                **kb,
+                "library_ms": None,
+            }
+        )
+        del index, engine, cpu
+
+    # (n) the exhaustive sweep on the f32 engine: P1 per chunk, then S2
+    restores = [_record(blockmax, "fused_range_scores"), _record(blockmax, "dense_topk")]
+    try:
+        swept = f32_engine.search_rangescan_async(queries, K)()
+    finally:
+        for restore, _ in restores:
+            restore()
+    p1_calls, s2_calls = (calls for _, calls in restores)
+    p1_err, p1_ms, p1_plain_ms = _kernel_vs_plain(
+        score_kernel.fused_range_scores, score_kernel.fused_range_scores_plain,
+        p1_calls, "P1 in the sweep",
+    )
+    s2_err, s2_ms, s2_plain_ms = _kernel_vs_plain(
+        topk.dense_topk, topk.dense_topk_plain, s2_calls, "S2 in the sweep"
+    )
+    (post, _, starts, lens), rs = p1_calls[0][0], p1_calls[0][1]["rs"]
+    acc, kk, n_docs = s2_calls[0][0]
+    q = acc.shape[0]
+    sweep = {
+        "fused_range_scores": {
+            "sweep_ms": p1_ms, "sweep_plain_ms": p1_plain_ms,
+            "sweep_bound_ms": p1_bound(post, starts, lens, rs)["bound_ms"],
+        },
+        "dense_topk": {
+            "sweep_ms": s2_ms, "sweep_plain_ms": s2_plain_ms,
+            "sweep_bound_ms": bound(4 * q * n_docs + 8 * q * kk, q * n_docs)["bound_ms"],
+        },
+    }
+    print(
+        f"(n) rangescan: {len(p1_calls)} chunks of Q,T,C,RS="
+        f"{(*starts.shape, rs)} into a {tuple(acc.shape)} accumulator; P1 == "
+        f"plain on every chunk, S2 == plain (torch.equal); P1 {p1_ms:.4f} ms vs "
+        f"plain {p1_plain_ms:.4f} ms a chunk (bound "
+        f"{sweep['fused_range_scores']['sweep_bound_ms']:.4f} ms), S2 {s2_ms:.4f} "
+        f"ms vs plain {s2_plain_ms:.4f} ms (bound "
+        f"{sweep['dense_topk']['sweep_bound_ms']:.4f} ms) [{label}]"
+    )
+    del acc, post, starts, lens
+    del p1_calls, s2_calls, restores
+    torch.cuda.synchronize()
+    score_kernel.LAUNCHES = topk.LAUNCHES = 0
+    qps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        swept = f32_engine.search_rangescan_async(queries, K)()
+        qps.append(len(queries) / (time.perf_counter() - t0))
+    launches = {"fused_range_scores": score_kernel.LAUNCHES, "dense_topk": topk.LAUNCHES}
+    for name, n_launched in launches.items():
+        sweep[name]["sweep_launches"] = n_launched
+    if not all(launches.values()):
+        raise AssertionError(f"rangescan: a kernel never launched: {launches}")
+    pruned = f32_engine.search(queries, K)
+    if not all(np.array_equal(a, b) for a, b in zip(swept, pruned)):
+        raise AssertionError("rangescan != the pruned engine")
+    got = f32_engine.search_rangescan_async(sample, K)()
+    want = f32_cpu.search_rangescan_async(sample, K)()
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("rangescan: GPU != CPU-plain")
+    print(
+        f"(n) rangescan: 3 x search_rangescan_async({len(queries)} queries, "
+        f"k={K}); launches {launches}; QPS per batch {[round(x, 1) for x in qps]}; "
+        f"ids and scores == the pruned engine on all {len(queries)} queries "
+        f"({int((swept[1] >= 0).sum())} hits); GPU == CPU-plain on {AUDIT} "
+        f"(1% deleted, as phase (e) left the engine) [{label}]"
+    )
+    return entries, sweep
 
 
 def _checked(module, name, plain, size, errs):
@@ -372,15 +707,15 @@ def sparse_slice(args, label, build_times):
     dense path.  Returns the kernels-line entries of S3, S4 and S5."""
     import torch
 
-    from bench import (
-        synth_corpus_postings,
-        synth_queries_fast,
-        synth_queries_from_segment,
-    )
     from vectorchord_bm25_tpu_torch import (
         Bm25Index,
         IndexOptions,
         build_sealed_segment_from_postings,
+    )
+    from vectorchord_bm25_tpu_torch.data.synth import (
+        synth_corpus_postings,
+        synth_queries_fast,
+        synth_queries_from_segment,
     )
     from vectorchord_bm25_tpu_torch.ops import stream_rescore, stream_sparse, topk
     from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
@@ -458,14 +793,51 @@ def sparse_slice(args, label, build_times):
     stats = [c for _, c in checks]
     if not all(c["checked"] for c in stats):
         raise AssertionError(f"a kernel saw no dispatch: {[c['checked'] for c in stats]}")
+    n = seg.n_docs
+
+    def decode_bound(a):
+        # Each window's words and meta, one doc and one score written a lane.
+        wsrc = a[6].cpu().numpy().ravel()
+        n_words, lanes, n_win = window_words(si, wsrc)
+        return bound(
+            4 * n_words + 14 * n_win + 4 * wsrc.size + 4 * min(lanes, n + 1)
+            + 8 * 128 * wsrc.size,
+            3 * lanes,
+        )
+
+    def rescore_bound(a):
+        # The candidates, spans and scores, and each window some candidate
+        # falls in (its words and meta), read once.
+        cand, t_lo, t_hi = (x.cpu().numpy() for x in a[6:9])
+        wins = set()
+        for qi in range(cand.shape[0]):
+            cq = cand[qi][cand[qi] < n]
+            for lo, hi in zip(t_lo[qi], t_hi[qi]):
+                if hi > lo and cq.size:
+                    w = lo + np.searchsorted(si.w_base[lo:hi], cq, side="right") - 1
+                    wins.update(np.unique(w[w >= lo]).tolist())
+        n_words, lanes, n_win = window_words(si, np.fromiter(wins, np.int64))
+        return bound(
+            4 * n_words + 14 * n_win + 8 * cand.size + 8 * t_lo.size,
+            4 * cand.size * t_lo.shape[1],
+        )
+
+    bound_of = {
+        "stream_sparse_decode": decode_bound,
+        # Doc and score read, one packed key written a lane.
+        "sparse_combine": lambda a: bound(16 * a[0].numel(), a[0].numel()),
+        "stream_rescore": rescore_bound,
+    }
     for c in stats:
         a = c["args"]
         c["ms"] = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
         c["plain_ms"] = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
+        c.update(bound_of[c["name"]](a))
         print(
             f"(i) {c['name']}: {c['checked']} dispatches equal to the plain "
             f"version; largest ({c['size']} lanes) {c['ms']:.4f} ms vs plain "
-            f"{c['plain_ms']:.4f} ms [{label}]"
+            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']}) [{label}]"
         )
         c["args"] = None
 
@@ -582,6 +954,8 @@ def sparse_slice(args, label, build_times):
             "max_abs_err": c["err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
+            **{key: c[key] for key in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+            "library_ms": None,
         }
         for c in stats
     ]
@@ -607,11 +981,14 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
 
-    from bench import synth_corpus_postings, synth_queries_fast
     from vectorchord_bm25_tpu_torch import (
         Bm25Index,
         IndexOptions,
         build_sealed_segment_from_postings,
+    )
+    from vectorchord_bm25_tpu_torch.data.synth import (
+        synth_corpus_postings,
+        synth_queries_fast,
     )
     from vectorchord_bm25_tpu_torch.ops import _build, score_kernel
     from vectorchord_bm25_tpu_torch.search import blockmax
@@ -761,13 +1138,25 @@ def main() -> int:
     stream = stream_slice(
         args, seg, seed, queries, keys, tfs, doc_start, label, build_times
     )
+    t0 = time.perf_counter()
+    rest, sweep = blockmax_rest(args, seg, seed, queries, ri, engine, cpu.engine(), label)
+    build_times["(l)-(n) phases, all of them"] = time.perf_counter() - t0
+    # P1 and S2 entries count every main-path run that launched them.
+    s2_entry = next(e for e in stream if e["name"] == "dense_topk")
+    s2_entry["launches_by_phase"] = {
+        "(f)": s2_entry["launches"], "(n)": sweep["dense_topk"]["sweep_launches"],
+    }
+    s2_entry["launches"] += sweep["dense_topk"]["sweep_launches"]
+    s2_entry.update(sweep["dense_topk"])
+    p1_bound_fields = p1_bound(imp, starts, lens, rs)
+    p1_sweep = sweep["fused_range_scores"]
     slice_line = (
         f"slice QPS {float(np.median(qps)):.1f} (median of {ROUNDS} batches of "
         f"{len(queries)}, k={K}, {seg.n_docs} docs; min {min(qps):.1f}, max "
         f"{max(qps):.1f}) [{label}]"
     )
     # The 131,072-doc corpus and its indexes go before phase (i)'s corpus.
-    del index, engine, cpu, seg, queries, keys, tfs, doc_start, sample
+    del index, engine, cpu, seg, queries, keys, tfs, doc_start, sample, ri
     sparse = sparse_slice(args, label, build_times)
     # (k) where the host time went
     print(
@@ -784,12 +1173,19 @@ def main() -> int:
                         "route": "cuda",
                         "source": "vectorchord_bm25_tpu_torch/csrc/score_kernel.cu",
                         "replaces": "vectorchord_bm25_tpu/ops/score_kernel.py:67",
-                        "launches": launches,
+                        "launches": launches + p1_sweep["sweep_launches"],
+                        "launches_by_phase": {
+                            "(d)": launches, "(n)": p1_sweep["sweep_launches"],
+                        },
                         "max_abs_err": max_err,
                         "max_abs_err_random": rand_err,
                         "ms": kernel_ms,
                         "plain_ms": plain_ms,
+                        **p1_bound_fields,
+                        "library_ms": None,
+                        **p1_sweep,
                     },
+                    *rest,
                     *stream,
                     *sparse,
                 ]

@@ -6,6 +6,8 @@ adds in the same order, so ids and scores must be equal, not close.
 Replays the cases of tests/test_blockmax.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,12 @@ from vectorchord_bm25_tpu.search.device import (  # noqa: E402
     DeviceSegment as RefDeviceSegment,
 )
 from vectorchord_bm25_tpu.text.intern import Document, Query  # noqa: E402
+from vectorchord_bm25_tpu_torch.index.ranges import (  # noqa: E402
+    RangeIndex as PortRangeIndex,
+)
+from vectorchord_bm25_tpu_torch.index.sealed import (  # noqa: E402
+    SealedSegment as PortSegment,
+)
 from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.device import DeviceSegment  # noqa: E402
 
@@ -170,17 +178,30 @@ def test_from_reference(rng, source):
         port = BlockMaxEngine.from_reference(
             seg, ref.ranges, device="cpu", deleted=deleted
         )
-    assert port.ranges is ref.ranges
+    # The reference's state crosses by value, into the port's own classes.
+    assert isinstance(port.ranges, PortRangeIndex)
+    assert isinstance(port.segment, PortSegment)
+    for f in dataclasses.fields(PortRangeIndex):
+        np.testing.assert_array_equal(
+            getattr(port.ranges, f.name), getattr(ref.ranges, f.name)
+        )
     queries = [Query.from_int_ids([0, 1, 2]), Query.from_int_ids([3])]
     assert_same(ref, port, queries, 10)
 
 
 def test_unported_options_raise(rng):
+    # posting_mode="tf", bf16 impacts and the range sweep are ported now:
+    # each serves equal to the reference (tests/test_torch_blockmax_rest.py
+    # holds them case by case); only an unknown posting mode still raises.
     seg = build_sealed_segment(make_docs(rng, 50, vocab=5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BlockMaxEngine(seg, device="cpu", posting_mode="tf")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BlockMaxEngine(seg, device="cpu", impact_dtype="bfloat16")
-    port = BlockMaxEngine(seg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search_rangescan_async([Query.from_int_ids([0])], 5)
+    queries = [Query.from_int_ids([0, 1])]
+    for kw in ({"posting_mode": "tf"}, {"impact_dtype": "bfloat16"}):
+        ref, port = engines(seg, **kw)
+        assert_same(ref, port, queries, 5)
+    ref, port = engines(seg)
+    s1, i1, p1 = ref.search_rangescan_async(queries, 5)()
+    s2, i2, p2 = port.search_rangescan_async(queries, 5)()
+    np.testing.assert_array_equal(i2, i1)
+    np.testing.assert_array_equal(s2, s1)
+    with pytest.raises(ValueError, match="posting_mode"):
+        BlockMaxEngine(seg, device="cpu", posting_mode="bogus")

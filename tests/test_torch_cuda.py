@@ -465,3 +465,139 @@ def test_stream_strategies_on_card_equal_cpu(card, gen, strategy, monkeypatch):
             np.testing.assert_array_equal(g, w)
         assert on_card.last_ms_stats == on_cpu.last_ms_stats
     assert on_card.memory_report() == on_cpu.memory_report()
+
+
+# --- the rest of the Block-Max engine: P1 on bf16, P1-tf, the B2 sweep
+
+
+def _recorded(monkeypatch, name):
+    """Record every call the Block-Max engine makes to ``name`` (imported
+    into search/blockmax.py) while passing it through."""
+    from vectorchord_bm25_tpu_torch.search import blockmax
+
+    calls, real = [], getattr(blockmax, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(blockmax, name, record)
+    return calls
+
+
+def test_bf16_kernel_matches_plain(card, gen):
+    p, rs = 8192, 128
+    post_local = torch.from_numpy(gen.integers(0, rs, size=p).astype(np.uint8))
+    post_impact = torch.from_numpy((gen.random(p) * 8).astype(np.float32))
+    starts = torch.from_numpy(gen.integers(0, p - rs, size=(16, 4, 8)).astype(np.int32))
+    lens = torch.from_numpy(gen.integers(0, rs + 1, size=(16, 4, 8)).astype(np.int32))
+    args = [x.to(card) for x in (post_impact.to(torch.bfloat16), post_local, starts, lens)]
+    before = score_kernel.BF16_LAUNCHES
+    got = score_kernel.fused_range_scores(*args, rs=rs)
+    torch.cuda.synchronize()
+    assert score_kernel.BF16_LAUNCHES == before + 1
+    want = score_kernel.fused_range_scores_plain(*args, rs=rs)
+    # Colliding slots add in atomic order on both sides.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "tf8", "tf16"])
+def test_engine_modes_kernel_equal_plain_on_index_windows(card, gen, monkeypatch, mode):
+    # Every call the engine makes, on its own windows: kernel == plain.
+    docs = make_docs(gen, 3000, vocab=40)
+    if mode == "tf16":
+        from vectorchord_bm25_tpu.text.intern import Document
+
+        docs[5] = Document(keys=docs[5].keys, values=docs[5].values * 300)
+    seg = build_sealed_segment(docs)
+    ri = build_range_index(seg)
+    kw = {"impact_dtype": "bfloat16"} if mode == "bf16" else {"posting_mode": "tf"}
+    name = "fused_range_scores" if mode == "bf16" else "tf_range_scores"
+    calls = _recorded(monkeypatch, name)
+    on_card = BlockMaxEngine(seg, ri, chunk=4, device=card, **kw)
+    on_cpu = BlockMaxEngine(seg, ri, chunk=4, device="cpu", **kw)
+    if mode != "bf16":
+        want_dtype = torch.int16 if mode == "tf16" else torch.uint8
+        assert on_card.dev_post_tf.dtype == want_dtype
+    deleted = gen.random(3000) < 0.1
+    on_card.set_deleted(deleted)
+    on_cpu.set_deleted(deleted)
+    queries = [
+        Query.from_int_ids(gen.integers(0, 40, size=int(n)).tolist())
+        for n in gen.integers(1, 7, size=48)
+    ]
+    counter = "BF16_LAUNCHES" if mode == "bf16" else "TF_LAUNCHES"
+    before = getattr(score_kernel, counter)
+    got = on_card.search(queries, 10)
+    assert getattr(score_kernel, counter) > before
+    card_calls = [c for c in calls if c[0][0].is_cuda]
+    assert card_calls
+    plain = getattr(score_kernel, name + "_plain")
+    for args, kw_ in card_calls:
+        out = getattr(score_kernel, name)(*args, **kw_)
+        assert torch.equal(out, plain(*args, **kw_))
+    want = on_cpu.search(queries, 10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert on_card.memory_report() == on_cpu.memory_report()
+
+
+def test_rangescan_on_card_equals_cpu_and_pruned(card, gen):
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    seg = build_sealed_segment(make_docs(gen, 3000, vocab=40))
+    ri = build_range_index(seg)
+    on_card = BlockMaxEngine(seg, ri, chunk=4, device=card)
+    on_cpu = BlockMaxEngine(seg, ri, chunk=4, device="cpu")
+    fmask = gen.random(3000) < 0.7
+    queries = [
+        Query.from_int_ids(gen.integers(0, 40, size=int(n)).tolist())
+        for n in gen.integers(1, 7, size=48)
+    ]
+    for kw in ({}, {"filter_mask": fmask}):
+        p1, s2 = score_kernel.LAUNCHES, topk.LAUNCHES
+        got = on_card.search_rangescan_async(queries, 10, **kw)()
+        assert score_kernel.LAUNCHES > p1 and topk.LAUNCHES == s2 + 1
+        want = on_cpu.search_rangescan_async(queries, 10, **kw)()
+        pruned = on_card.search(queries, 10, **kw)
+        for g, w, p in zip(got, want, pruned):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, p)
+
+
+def test_strided_output_matches_dense(card, gen):
+    p, rs, q, t, c = 4096, 64, 6, 3, 5
+    post_local = torch.from_numpy(gen.integers(0, rs, size=p).astype(np.uint8)).to(card)
+    post_impact = torch.from_numpy((gen.random(p) * 8).astype(np.float32)).to(card)
+    starts = torch.from_numpy(gen.integers(0, p - rs, size=(q, t, c)).astype(np.int32)).to(card)
+    lens = torch.from_numpy(gen.integers(0, rs + 1, size=(q, t, c)).astype(np.int32)).to(card)
+    dense = score_kernel.fused_range_scores(post_impact, post_local, starts, lens, rs=rs)
+    wide = torch.full((q, 3 * c * rs + 4), -1.0, device=card)
+    view = wide[:, c * rs : 2 * c * rs]
+    assert score_kernel.fused_range_scores(
+        post_impact, post_local, starts, lens, rs=rs, out=view
+    ) is view
+    torch.cuda.synchronize()
+    torch.testing.assert_close(view.reshape(q, c, rs), dense, rtol=1e-5, atol=1e-6)
+    assert bool((wide[:, : c * rs] == -1).all()) and bool((wide[:, 2 * c * rs :] == -1).all())
+
+
+def test_launch_failure_raises(card, monkeypatch):
+    # A nonzero CUDA error from the library raises; nothing falls back.
+    from vectorchord_bm25_tpu_torch.ops import _build
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *a: 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_build, "library", lambda: Failing())
+    imp = torch.zeros(256, device=card)
+    loc = torch.zeros(256, dtype=torch.uint8, device=card)
+    st = torch.zeros((1, 1, 1), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        score_kernel.fused_range_scores(imp.to(torch.bfloat16), loc, st, st, rs=128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        score_kernel.tf_range_scores(
+            loc, loc, loc, torch.zeros(256, device=card),
+            torch.zeros((1, 1), device=card), st[0], st, st, rs=128, n_docs=255,
+        )

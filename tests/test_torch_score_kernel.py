@@ -166,9 +166,24 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     assert list(tmp_path.iterdir()) == []  # no half-written library left
 
 
-def test_bf16_impacts_not_ported():
-    imp = torch.zeros(256, dtype=torch.bfloat16)
-    loc = torch.zeros(256, dtype=torch.uint8)
-    st = torch.zeros((1, 1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        score_kernel.fused_range_scores(imp, loc, st, st, rs=128)
+def test_bf16_impacts_not_ported(rng):
+    # Ported now: bf16 impacts (the same bits as the reference's cast) are
+    # widened exactly, so the result equals the Pallas kernel's bit for bit.
+    import jax.numpy as jnp
+
+    post_impact, post_local, starts, lens = index_windows(rng)
+    ref_imp = jnp.asarray(post_impact, dtype=jnp.bfloat16)
+    imp = torch.from_numpy(post_impact).to(torch.bfloat16)
+    assert np.array_equal(
+        imp.view(torch.int16).numpy(), np.asarray(ref_imp).view(np.int16)
+    )
+    got = score_kernel.fused_range_scores(
+        imp, torch.from_numpy(post_local), torch.from_numpy(starts),
+        torch.from_numpy(lens), rs=128,
+    ).numpy()
+    want = np.asarray(
+        ref_fused_range_scores(
+            ref_imp, post_local, starts, lens, rs=128, interpret=True
+        )
+    )
+    assert np.array_equal(got, want)

@@ -7,11 +7,6 @@ through the plain versions of its kernels.  Payloads and scores must be
 equal.
 """
 
-import os
-import subprocess
-import sys
-import textwrap
-
 import numpy as np
 import pytest
 
@@ -31,7 +26,6 @@ from test_tokenizer import TOY_CORPUS  # noqa: E402
 
 torch.set_num_threads(2)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_DOCS, VOCAB = 2048, 300
 # chunk=4: several pruning rounds per batch on this corpus (16 ranges).
 PORT_OPTS = {"chunk": 4}
@@ -309,59 +303,3 @@ def test_no_cpu_fallback(corpus, monkeypatch):
     index.insert(docs[0], 99)  # the growing segment's engine
     with pytest.raises(RuntimeError, match="no CUDA device"):
         index.growing.topk_batch_async(queries[:2], 5)
-
-
-def test_port_runs_without_jax():
-    # A CUDA install need not have jax: the port and the reference host code
-    # it imports must build and serve every ported engine and strategy with
-    # jax blocked.  The
-    # reference's large-dispatch throttle imports jax; with its threshold at
-    # 0 any call of it would fail, so the default engine proves it is never
-    # reached, for the sealed and the growing segment alike.
-    script = textwrap.dedent(
-        """
-        import sys
-        sys.modules["jax"] = None
-        import numpy as np
-        from vectorchord_bm25_tpu.search import exact
-        exact._LARGE_DISPATCH_BYTES = 0
-        from vectorchord_bm25_tpu_torch import Bm25Index, Query
-        from test_sealed import make_docs
-
-        rng = np.random.default_rng(7)
-        docs = make_docs(rng, 300, vocab=40)
-        index = Bm25Index.build(docs, engine="blockmax", device="cpu")
-        qs = [Query.from_int_ids([1, 2, 3]), Query.from_int_ids([5])]
-        hits = index.search_batch(qs, k=5)
-        assert all(len(h) == 5 for h in hits), hits
-        index = Bm25Index.build(docs, device="cpu")
-        assert index.engine_kind == "stream"
-        for i, doc in enumerate(make_docs(rng, 20, vocab=40)):
-            index.insert(doc, 1000 + i)
-        hits = index.search_batch(qs, k=5)
-        assert all(len(h) == 5 for h in hits), hits
-        assert index.growing._dev_engine is not None
-        for strategy in ("sparse", "maxscore"):
-            other = Bm25Index.build(
-                docs, device="cpu", engine_options={"strategy": strategy}
-            )
-            got = other.search_batch(qs, k=5)
-            assert all(len(h) == 5 for h in got), (strategy, got)
-            assert other.engine().strategy == strategy
-        assert other.engine().last_ms_stats["routed_queries"] == len(qs)
-        loaded = sorted(m for m, v in sys.modules.items()
-                        if v is not None and m.split(".")[0] in ("jax", "jaxlib"))
-        assert not loaded, loaded
-        print("ok")
-        """
-    )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")]
-    )
-    out = subprocess.run(
-        [sys.executable, "-c", script],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert out.returncode == 0, out.stderr[-4000:]
-    assert out.stdout.strip().endswith("ok")

@@ -1,0 +1,284 @@
+"""The port stands alone: it imports neither jax nor the JAX package nor
+``bench.py``, and its own copies of the reference's host code give the
+reference's results.
+
+- an AST scan of every port module and ``chip_smoke.py``;
+- a subprocess with ``jax``, ``vectorchord_bm25_tpu`` and ``bench``
+  blocked that builds and serves every ported engine, strategy and mode;
+- the copies against the originals on the same inputs: interning, the
+  segment, range-index and stream builds, the oracles and the synthetic
+  generators (whose output depends on the numpy version, so the copy is
+  held to ``bench.py``'s on the same seed here);
+- the reference's state crossing into the port by value.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import bench  # noqa: E402
+from vectorchord_bm25_tpu.index import ranges as ref_ranges  # noqa: E402
+from vectorchord_bm25_tpu.index import sealed as ref_sealed  # noqa: E402
+from vectorchord_bm25_tpu.index import stream as ref_stream  # noqa: E402
+from vectorchord_bm25_tpu.index.bm25index import Bm25Index as RefIndex  # noqa: E402
+from vectorchord_bm25_tpu.search import exact as ref_exact  # noqa: E402
+from vectorchord_bm25_tpu.text import intern as ref_intern  # noqa: E402
+from vectorchord_bm25_tpu_torch import Bm25Index  # noqa: E402
+from vectorchord_bm25_tpu_torch.data import synth  # noqa: E402
+from vectorchord_bm25_tpu_torch.index import ranges, sealed, stream  # noqa: E402
+from vectorchord_bm25_tpu_torch.search import exact  # noqa: E402
+from vectorchord_bm25_tpu_torch.text import intern  # noqa: E402
+
+from test_sealed import make_docs  # noqa: E402
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "vectorchord_bm25_tpu_torch")
+BLOCKED = ("jax", "jaxlib", "vectorchord_bm25_tpu", "bench")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _absolute_imports(path):
+    """Top-level names of every absolute import in a file, with lines."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_no_module_imports_jax_or_the_reference():
+    sources = _port_sources()
+    assert len(sources) > 20
+    bad = [
+        f"{os.path.relpath(p, REPO)}:{line} imports {name}"
+        for p in sources
+        for name, line in _absolute_imports(p)
+        if name in BLOCKED
+    ]
+    assert not bad, bad
+
+
+def test_port_runs_without_jax():
+    # A CUDA install need not have jax, nor the JAX package: the port must
+    # build and serve every ported engine, strategy and mode with jax, the
+    # JAX package and bench.py blocked, from documents made with its own
+    # Document class.
+    script = textwrap.dedent(
+        """
+        import sys
+        for name in ("jax", "vectorchord_bm25_tpu", "bench"):
+            sys.modules[name] = None
+        import numpy as np
+        from vectorchord_bm25_tpu_torch import Bm25Index, Document, Query
+        from vectorchord_bm25_tpu_torch.data.synth import (
+            synth_corpus_postings, synth_queries_fast,
+        )
+
+        rng = np.random.default_rng(7)
+        def make_docs(n, vocab=40):
+            return [
+                Document.from_int_ids(
+                    rng.integers(0, vocab, size=int(rng.integers(1, 30))).tolist()
+                )
+                for _ in range(n)
+            ]
+
+        docs = make_docs(300)
+        qs = [Query.from_int_ids([1, 2, 3]), Query.from_int_ids([5])]
+        for opts in ({}, {"impact_dtype": "bfloat16"}, {"posting_mode": "tf"}):
+            index = Bm25Index.build(
+                docs, engine="blockmax", engine_options=opts, device="cpu"
+            )
+            hits = index.search_batch(qs, k=5)
+            assert all(len(h) == 5 for h in hits), (opts, hits)
+        s, i, _ = index.engine().search(qs, 5)
+        f32 = Bm25Index.build(docs, engine="blockmax", device="cpu").engine()
+        s2, i2, _ = f32.search_rangescan_async(qs, 5)()
+        s3, i3, _ = f32.search(qs, 5)
+        assert np.array_equal(i2, i3) and np.array_equal(s2, s3)
+        index = Bm25Index.build(docs, device="cpu")
+        assert index.engine_kind == "stream"
+        for j, doc in enumerate(make_docs(20)):
+            index.insert(doc, 1000 + j)
+        hits = index.search_batch(qs, k=5)
+        assert all(len(h) == 5 for h in hits), hits
+        assert index.growing._dev_engine is not None
+        for strategy in ("sparse", "maxscore"):
+            other = Bm25Index.build(
+                docs, device="cpu", engine_options={"strategy": strategy}
+            )
+            got = other.search_batch(qs, k=5)
+            assert all(len(h) == 5 for h in got), (strategy, got)
+            assert other.engine().strategy == strategy
+        assert other.engine().last_ms_stats["routed_queries"] == len(qs)
+        keys, doc_ids, tfs, doc_start = synth_corpus_postings(500, 2000, 20)
+        assert keys.size == doc_ids.size == tfs.size
+        loaded = sorted(
+            m for m, v in sys.modules.items()
+            if v is not None
+            and m.split(".")[0] in ("jax", "jaxlib", "vectorchord_bm25_tpu", "bench")
+        )
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")])
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize(
+    "token",
+    [
+        b"postgres",
+        b"exactly-16-bytes",
+        b"a much longer token than sixteen bytes",
+        b"nul\x00inside",
+        "unicode-lexeme-éèê-long".encode(),
+    ],
+)
+def test_interning_equals_reference(token):
+    # Tokens of 16 bytes or more (or with a NUL) are hashed: the port's
+    # pure-Python blake3 gives the reference's keys.
+    seed = bytes(range(32))
+    assert intern.intern(seed, token) == ref_intern.intern(seed, token)
+    q = intern.Query.from_tokens(seed, [token, b"x"])
+    assert np.array_equal(q.keys, ref_intern.Query.from_tokens(seed, [token, b"x"]).keys)
+
+
+def _assert_fields_equal(a, b, cls):
+    for f in dataclasses.fields(cls):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "options":
+            assert (x.k1, x.b) == (y.k1, y.b)
+        else:
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f.name)
+
+
+def _both_segments(rng, n=800, vocab=60):
+    docs = make_docs(rng, n, vocab=vocab)
+    port_docs = [intern.Document(keys=d.keys, values=d.values) for d in docs]
+    payloads = np.arange(n, dtype=np.int64) * 7 + 3
+    return (
+        ref_sealed.build_sealed_segment(docs, payloads=payloads),
+        sealed.build_sealed_segment(port_docs, payloads=payloads),
+    )
+
+
+def test_sealed_segment_equals_reference(rng):
+    ref_seg, seg = _both_segments(rng)
+    assert isinstance(seg, sealed.SealedSegment)
+    _assert_fields_equal(seg, ref_seg, sealed.SealedSegment)
+    copied = sealed.segment_from_reference(ref_seg)
+    assert type(copied) is sealed.SealedSegment
+    _assert_fields_equal(copied, ref_seg, sealed.SealedSegment)
+    assert copied.doc_payload is not ref_seg.doc_payload  # by value
+    assert sealed.segment_from_reference(seg) is seg
+
+
+@pytest.mark.parametrize("range_size", [32, 128])
+def test_range_index_equals_reference(rng, range_size):
+    ref_seg, seg = _both_segments(rng)
+    ri = ranges.build_range_index(seg, range_size=range_size)
+    ref_ri = ref_ranges.build_range_index(ref_seg, range_size=range_size)
+    _assert_fields_equal(ri, ref_ri, ranges.RangeIndex)
+    copied = ranges.ranges_from_reference(ref_ri)
+    assert type(copied) is ranges.RangeIndex
+    _assert_fields_equal(copied, ref_ri, ranges.RangeIndex)
+
+
+def test_stream_index_equals_reference(rng):
+    ref_seg, seg = _both_segments(rng, n=3000, vocab=80)
+    si = stream.build_stream_index(seg)
+    ref_si = ref_stream.build_stream_index(ref_seg)
+    _assert_fields_equal(si, ref_si, stream.StreamIndex)
+    assert si.device_bytes() == ref_si.device_bytes()
+
+
+def test_oracles_equal_reference(rng):
+    ref_seg, seg = _both_segments(rng)
+    deleted = rng.random(seg.n_docs) < 0.2
+    fmask = rng.random(seg.n_docs) < 0.6
+    for ids in ([0, 1, 2], [5], [999]):
+        q, ref_q = intern.Query.from_int_ids(ids), ref_intern.Query.from_int_ids(ids)
+        for dtype in (np.float32, np.float64):
+            np.testing.assert_array_equal(
+                exact.oracle_scores(seg, q, deleted, dtype),
+                ref_exact.oracle_scores(ref_seg, ref_q, deleted, dtype),
+            )
+            got = exact.oracle_topk(seg, q, 10, deleted, fmask, dtype)
+            want = ref_exact.oracle_topk(ref_seg, ref_q, 10, deleted, fmask, dtype)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+
+
+def test_generators_equal_bench():
+    n, vocab, avg_len = 3000, 5000, 40
+    got = synth.synth_corpus_postings(n, vocab, avg_len, seed=3)
+    want = bench.synth_corpus_postings(n, vocab, avg_len, seed=3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    keys, doc_ids, tfs, doc_start = got
+    seg = sealed.build_sealed_segment_from_postings(keys, doc_ids, tfs, n, doc_grouped=True)
+    ref_seg = ref_sealed.build_sealed_segment_from_postings(
+        keys, doc_ids, tfs, n, doc_grouped=True
+    )
+    pairs = [
+        (
+            synth.synth_queries_fast(keys, doc_start, seg, 64, seed=4),
+            bench.synth_queries_fast(keys, doc_start, ref_seg, 64, seed=4),
+        )
+    ]
+    for mix in ("informative", "heavy"):
+        pairs.append(
+            (
+                synth.synth_queries_from_segment(seg, 64, vocab, seed=5, mix=mix),
+                bench.synth_queries_from_segment(ref_seg, 64, vocab, seed=5, mix=mix),
+            )
+        )
+    for got_q, want_q in pairs:
+        assert all(type(q) is intern.Query for q in got_q)
+        assert [q.keys.tolist() for q in got_q] == [q.keys.tolist() for q in want_q]
+
+
+def test_index_from_reference_by_value(rng):
+    docs = make_docs(rng, 400, vocab=30)
+    ref = RefIndex.build(docs, engine="blockmax", engine_options={"chunk": 4})
+    for i, doc in enumerate(make_docs(rng, 12, vocab=30)):
+        ref.insert(doc, 5000 + i)
+    ref.bulkdelete(lambda p: p % 9 == 0)
+    port = Bm25Index.from_reference(ref, device="cpu")
+    assert type(port.sealed) is sealed.SealedSegment
+    assert type(port.options).__module__.startswith("vectorchord_bm25_tpu_torch.")
+    assert all(type(d) is intern.Document for d in port.growing.documents)
+    assert port.deleted is not ref.deleted
+    np.testing.assert_array_equal(port.deleted, ref.deleted)
+    assert port.growing.deleted == ref.growing.deleted
+    qs = [ref_intern.Query.from_int_ids(rng.integers(0, 30, size=3).tolist()) for _ in range(16)]
+    want = [[(h.score, h.payload) for h in hits] for hits in ref.search_batch(qs, 10)]
+    got = [[(h.score, h.payload) for h in hits] for hits in port.search_batch(qs, 10)]
+    assert got == want

@@ -238,7 +238,8 @@ def test_auto_at_scale_raises(rng, monkeypatch):
     s2, i2, _ = auto.search(queries, 5)  # auto below 2^21 docs: dense
     assert np.array_equal(s1, s2) and np.array_equal(i1, i2)
     assert auto.last_ms_stats is None
-    monkeypatch.setattr(RefEngine, "SPARSE_MIN_DOCS", 100)
+    for cls in (RefEngine, StreamEngine):  # the port keeps its own copy
+        monkeypatch.setattr(cls, "SPARSE_MIN_DOCS", 100)
     s1, i1, _ = ref.search(queries, 5)
     s2, i2, _ = auto.search(queries, 5)
     np.testing.assert_array_equal(i2, i1)

@@ -353,9 +353,13 @@ def test_auto_routes_per_query_at_scale(rng, monkeypatch):
         )
         for _ in range(12)
     ] + [Query.from_int_ids(rng.integers(200, 10000, size=4).tolist()) for _ in range(12)]
-    # The reference's class attributes are the port's (it subclasses them).
-    monkeypatch.setattr(RefEngine, "SPARSE_MIN_DOCS", 1000)
-    assert StreamEngine.SPARSE_MIN_DOCS == 1000
+    # The port has its own copy of the reference's class attributes: set
+    # each knob on both classes.
+    def knob(name, value):
+        for cls in (RefEngine, StreamEngine):
+            monkeypatch.setattr(cls, name, value)
+
+    knob("SPARSE_MIN_DOCS", 1000)
     ref_ex, ex = engines(seg, "sparse", stream=si)
     _, i_e = assert_same(ref_ex, ex, queries, 10)
     ref_a, auto = engines(seg, "auto", stream=si)
@@ -364,13 +368,13 @@ def test_auto_routes_per_query_at_scale(rng, monkeypatch):
     st = auto.last_ms_stats
     assert st["batch_queries"] == len(queries) and 0 <= st["routed_queries"] <= len(queries)
     for frac, min_w, routed in ((1.0, 0, len(queries)), (-1.0, 256, 0)):
-        monkeypatch.setattr(RefEngine, "MS_ROUTE_FRAC", frac)
-        monkeypatch.setattr(RefEngine, "MS_ROUTE_MIN_WINDOWS", min_w)
+        knob("MS_ROUTE_FRAC", frac)
+        knob("MS_ROUTE_MIN_WINDOWS", min_w)
         ref_a, auto = engines(seg, "auto", stream=si)
         _, i_a = assert_same(ref_a, auto, queries, 10)
         assert np.array_equal(i_a, i_e)
         assert auto.last_ms_stats["routed_queries"] == routed
-    monkeypatch.setattr(RefEngine, "MS_ROUTE_FRAC", 0.35)
+    knob("MS_ROUTE_FRAC", 0.35)
     # k above MS_MAX_K and k just above MS_ROUTE_MAX_K: exhaustive, no stats.
     for k in (1500, StreamEngine.MS_ROUTE_MAX_K + 1):
         ref_a, auto = engines(seg, "auto", stream=si)

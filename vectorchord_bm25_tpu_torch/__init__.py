@@ -1,10 +1,12 @@
 """PyTorch / CUDA port of tpu-bm25.
 
 A second package beside ``vectorchord_bm25_tpu`` (the reference).  It
-imports ``torch`` and never ``jax``: the reference's host code (segment
-build, range index, tokenizer, options, oracle, numpy query planning) is
-jax-free and is imported unchanged; only the modules that touch the
-device are ported.  Public API:
+imports ``torch``, never ``jax``, and nothing of the reference: the host
+code it needs (segment build, range index, compressed stream, tokenizer
+interning, options, oracles, numpy query planning) is its own copy, and
+the modules that touch the device are ported.  State built by the
+reference crosses by value (``Bm25Index.from_reference``,
+``segment_from_reference``).  Public API:
 
     from vectorchord_bm25_tpu_torch import Bm25Index, Query, Document
     index = Bm25Index.build(docs, engine="blockmax", device="cuda")
@@ -20,32 +22,33 @@ __all__ = [
     "IndexOptions",
     "SearchOptions",
     "SessionConfig",
+    "build_sealed_segment",
     "build_sealed_segment_from_postings",
+    "segment_from_reference",
     "oracle_scores",
     "oracle_topk",
 ]
 
-# Names re-exported from the reference's jax-free host modules.
-_REFERENCE = {
-    "Document": "vectorchord_bm25_tpu.text.intern",
-    "Query": "vectorchord_bm25_tpu.text.intern",
-    "IndexOptions": "vectorchord_bm25_tpu.utils.options",
-    "SearchOptions": "vectorchord_bm25_tpu.utils.options",
-    "SessionConfig": "vectorchord_bm25_tpu.utils.options",
-    "build_sealed_segment_from_postings": "vectorchord_bm25_tpu.index.sealed",
-    "oracle_scores": "vectorchord_bm25_tpu.search.exact",
-    "oracle_topk": "vectorchord_bm25_tpu.search.exact",
+# Where each public name lives in the port.
+_HOME = {
+    "Bm25Index": ".index.bm25index",
+    "Document": ".text.intern",
+    "Query": ".text.intern",
+    "IndexOptions": ".utils.options",
+    "SearchOptions": ".utils.options",
+    "SessionConfig": ".utils.options",
+    "build_sealed_segment": ".index.sealed",
+    "build_sealed_segment_from_postings": ".index.sealed",
+    "segment_from_reference": ".index.sealed",
+    "oracle_scores": ".search.exact",
+    "oracle_topk": ".search.exact",
 }
 
 
 def __getattr__(name):
-    # Lazy, so importing the package loads neither torch nor the reference.
+    # Lazy, so importing the package loads no torch until a name needs it.
     import importlib
 
-    if name == "Bm25Index":
-        from .index.bm25index import Bm25Index
-
-        return Bm25Index
-    if name in _REFERENCE:
-        return getattr(importlib.import_module(_REFERENCE[name]), name)
+    if name in _HOME:
+        return getattr(importlib.import_module(_HOME[name], __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

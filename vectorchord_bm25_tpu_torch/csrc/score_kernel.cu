@@ -6,8 +6,14 @@
 // candidate range c) row it computes
 //
 //     out[q, c, slot] = sum_t sum_{lane < lens[q,t,c]}
-//                       post_impact[starts[q,t,c] + lane]
+//                       float(post_impact[starts[q,t,c] + lane])
 //                       * (post_local[starts[q,t,c] + lane] == slot)
+//
+// with f32 or bf16 impacts (`impact_dtype="bfloat16"`, the reference's
+// widening at score_kernel.py:125; `__bfloat162float` is exact).  Rows are
+// written at a caller-given row stride, so the exhaustive range sweep
+// (search/blockmax.py::_rangescan_kernel) writes each chunk straight into
+// its [Q, n_chunks * C * RS] accumulator.
 //
 // Design.  One block per row, one thread per range slot (RS <= 256,
 // index/ranges.py caps range-local ids at one byte), the RS f32
@@ -30,11 +36,12 @@
 // bit for bit.  Inputs with duplicate slots in one window (random tests)
 // add in atomic order and agree to f32 rounding.
 //
-// Bound.  Each active lane reads 5 B (f32 impact + u8 slot) and the row
-// writes 4*RS B; there is one add per posting, so the kernel is bound by
-// memory traffic (and by the latency of the scattered window starts),
-// far below the card's arithmetic rate.
+// Bound.  Each active lane reads 5 B (f32 impact + u8 slot; 3 B with bf16)
+// and the row writes 4*RS B; there is one add per posting, so the kernel
+// is bound by memory traffic (and by the latency of the scattered window
+// starts), far below the card's arithmetic rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,13 +49,19 @@ namespace {
 
 constexpr int kMaxRangeSize = 256;
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename Impact>
 __global__ void fused_range_scores_kernel(
-    const float* __restrict__ post_impact,   // [P]
+    const Impact* __restrict__ post_impact,  // [P]
     const uint8_t* __restrict__ post_local,  // [P]
     const int32_t* __restrict__ starts,      // [Q, T, C]
     const int32_t* __restrict__ lens,        // [Q, T, C]
-    float* __restrict__ out,                 // [Q, C, RS]
-    int n_terms, int chunk, int rs) {
+    float* __restrict__ out,                 // [Q, *] rows of C * RS
+    int n_terms, int chunk, int rs, long long out_stride) {
   __shared__ float acc[kMaxRangeSize];
   const int row = blockIdx.x;  // q * C + c
   const int q = row / chunk;
@@ -67,27 +80,38 @@ __global__ void fused_range_scores_kernel(
       // as the TPU kernel's one-hot matmul drops them.  No bounds branch:
       // one cost 14% of the kernel's time at the slice's shapes on an
       // H100 at 700 W.
-      atomicAdd(&acc[post_local[p]], post_impact[p]);
+      atomicAdd(&acc[post_local[p]], widen(post_impact[p]));
     }
     __syncthreads();
   }
-  out[static_cast<int64_t>(row) * rs + lane] = acc[lane];
+  out[q * out_stride + static_cast<int64_t>(c) * rs + lane] = acc[lane];
 }
 
 }  // namespace
 
+// impact_bf16 != 0: post_impact holds bf16, else f32.  out_stride: floats
+// between the starts of two queries' rows in `out` (C * RS when dense).
 extern "C" int bm25_fused_range_scores(
     const void* post_impact, const void* post_local, const void* starts,
     const void* lens, void* out, int n_queries, int n_terms, int chunk,
-    int rs, void* stream) {
+    int rs, long long out_stride, int impact_bf16, void* stream) {
   if (rs < 1 || rs > kMaxRangeSize) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(n_queries) * chunk;
   if (rows == 0) return 0;
-  fused_range_scores_kernel<<<static_cast<unsigned int>(rows), rs, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(post_impact),
-      static_cast<const uint8_t*>(post_local),
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(lens),
-      static_cast<float*>(out), n_terms, chunk, rs);
+  const dim3 grid(static_cast<unsigned int>(rows));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* loc = static_cast<const uint8_t*>(post_local);
+  const int32_t* st = static_cast<const int32_t*>(starts);
+  const int32_t* ln = static_cast<const int32_t*>(lens);
+  float* o = static_cast<float*>(out);
+  if (impact_bf16) {
+    fused_range_scores_kernel<__nv_bfloat16><<<grid, rs, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(post_impact), loc, st, ln, o,
+        n_terms, chunk, rs, out_stride);
+  } else {
+    fused_range_scores_kernel<float><<<grid, rs, 0, s>>>(
+        static_cast<const float*>(post_impact), loc, st, ln, o, n_terms,
+        chunk, rs, out_stride);
+  }
   return static_cast<int>(cudaGetLastError());
 }

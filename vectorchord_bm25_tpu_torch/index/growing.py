@@ -1,31 +1,257 @@
-"""Growing segment on torch (counterpart of ``index/growing.py``).
+"""Growing segment on torch (counterpart of ``index/growing.py``, whose
+body it copies): the device engine over the frozen prefix of the growing
+postings is the port's ``StreamEngine`` on ``device``.
 
-The reference's ``GrowingSegment`` with one method replaced: the device
-engine over the frozen prefix of the growing postings is the port's
-``StreamEngine`` on ``device``.  Inserts, deletes, the host-scored tail,
-``topk_batch_async`` and ``_tail_topk`` are the reference's own.
+The reference's description follows.
+
+Growing segment: append-only buffer for freshly inserted documents.
+
+The reference appends inserted docs to a growing page chain scored by a
+brute-force pass during every search (crates/bm25/src/insert.rs,
+search.rs:83-135) until `maintain` merges them into the sealed segment.
+
+Semantics pinned to the reference:
+
+- growing docs are scored against the *sealed* segment's statistics
+  (df, N, avgdl): the token list used by the brute-force pass comes from
+  the sealed token table (search.rs:53-79), so terms that only exist in
+  growing documents contribute nothing until the next maintain;
+- the original (key, tf) vectors are retained so maintain can relabel and
+  re-flush them (maintain.rs:167-255).
+
+Host representation: a CSR of (sealed-term-id, tf) postings per growing
+doc (term id -1 for sealed-unknown terms) plus the original Documents.
+Scoring is a vectorized numpy pass (the growing segment stays small by
+design — maintain seals it).
 """
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 import torch
 
-from vectorchord_bm25_tpu.index.growing import GrowingSegment as _Reference
-from vectorchord_bm25_tpu.index.sealed import (
-    SealedSegment,
-    build_sealed_segment_from_postings,
-)
+from ..models.fieldnorm import length_to_fieldnorm
+from ..text.intern import Document, Query
+from .sealed import SealedSegment, build_sealed_segment_from_postings
 
 __all__ = ["GrowingSegment"]
 
 
-class GrowingSegment(_Reference):
+class GrowingSegment:
     """Append-only buffer of inserted docs, batch-served on ``device``."""
 
     def __init__(self, sealed: SealedSegment, device="cuda"):
-        super().__init__(sealed)
+        self.sealed = sealed
         self.device = torch.device(device)
+        self.documents: List[Document] = []
+        self.payloads: List[int] = []
+        self.deleted: List[bool] = []
+        self.fieldnorms: List[int] = []
+        # CSR postings against the sealed token table.
+        self._tid: List[np.ndarray] = []
+        self._tf: List[np.ndarray] = []
+        # Flattened tid-sorted posting cache for the batched scorer;
+        # rebuilt lazily after inserts (deletes don't touch it — the
+        # delete bitmap is applied at scoring time).
+        self._flat = None
+        # Lazily built device engine over a FROZEN PREFIX of the growing
+        # postings (batched serving).  Inserts do NOT invalidate it:
+        # fresh docs beyond `_dev_engine_n` form a small host-scored
+        # tail (the reference's brute-force growing chain,
+        # search.rs:83-135) merged into every batch, and the engine is
+        # rebuilt only when the tail outgrows the amortization
+        # threshold — otherwise an insert burst between served batches
+        # pays an O(G log G) rebuild per batch (measured 65x slowdown
+        # at G=10k before this design).  Delete bits are refreshed in
+        # place (cheap) — see device_engine() / topk_batch_async().
+        self._dev_engine = None
+        self._dev_engine_n = 0
+        self._dev_engine_deleted_dirty = False
+        # Flat tid-sorted postings of the tail [_dev_engine_n, G),
+        # f32 impacts; invalidated by inserts (tail-sized rebuild).
+        self._tail_flat = None
+
+    def __len__(self) -> int:
+        return len(self.documents)
+
+    @property
+    def n_live(self) -> int:
+        return sum(not d for d in self.deleted)
+
+    def insert(self, document: Document, payload: int) -> int:
+        """Append one document (insert.rs:23-78 analog); returns its slot."""
+        tids = self.sealed.lookup_tokens(document.keys)
+        self.documents.append(document)
+        self.payloads.append(int(payload))
+        self.deleted.append(False)
+        self.fieldnorms.append(int(length_to_fieldnorm(document.length())))
+        self._tid.append(tids.astype(np.int64))
+        self._tf.append(document.values.astype(np.int64))
+        self._flat = None
+        self._tail_flat = None
+        return len(self.documents) - 1
+
+    def bulkdelete(self, predicate) -> int:
+        """Mark growing docs whose payload matches (bulkdelete.rs:40-77)."""
+        from .bm25index import _eval_predicate
+
+        mask = _eval_predicate(
+            predicate, np.asarray(self.payloads, dtype=np.int64)
+        )
+        return self.apply_delete_mask(mask)
+
+    def apply_delete_mask(self, mask: np.ndarray) -> int:
+        """Flip delete bits for live docs under a boolean mask; returns count."""
+        count = 0
+        for i in np.flatnonzero(mask):
+            if not self.deleted[i]:
+                self.deleted[i] = True
+                count += 1
+        if count:
+            self._dev_engine_deleted_dirty = True
+        return count
+
+    def score(
+        self,
+        query: Query,
+        filter_fn=None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Brute-force scores for all live growing docs against the query.
+
+        Returns (scores float64 [G], payloads int64 [G]); scores use the
+        sealed segment's Cache tables (search.rs:83-135 semantics) and
+        are computed in FLOAT32 — per-posting impacts rounded to f32 and
+        accumulated in f32, term-ascending per doc — exactly like the
+        sealed engines, the device growing engine, and the reference
+        (bm25.rs f32 idf/tf, search.rs f32 accumulation), so the single-
+        query and batched paths rank near-ties identically.  Deleted /
+        filtered docs score 0 (excluded by the score > 0 rule).
+        """
+        g = len(self.documents)
+        scores = np.zeros(g, dtype=np.float32)
+        if g == 0:
+            return scores, np.zeros(0, dtype=np.int64)
+
+        seg = self.sealed
+        q_tids = seg.lookup_tokens(query.keys)
+        q_tids = np.sort(q_tids[q_tids >= 0])
+        if q_tids.size:
+            tables = seg.score_tables()
+            s0_all = seg.token_s0()
+            tids = (
+                np.concatenate(self._tid)
+                if self._tid
+                else np.zeros(0, dtype=np.int64)
+            )
+            tfs = (
+                np.concatenate(self._tf)
+                if self._tf
+                else np.zeros(0, dtype=np.int64)
+            )
+            doc_of = np.repeat(
+                np.arange(g, dtype=np.int64),
+                [t.size for t in self._tid],
+            )
+            # Postings whose sealed term id is in the query's set.
+            pos = np.searchsorted(q_tids, tids)
+            pos = np.minimum(pos, q_tids.size - 1)
+            hit = (tids >= 0) & (q_tids[pos] == tids)
+            if np.any(hit):
+                h_doc = doc_of[hit]
+                h_tid = tids[hit]
+                h_tf = tfs[hit].astype(np.float32)
+                fn = np.asarray(self.fieldnorms, dtype=np.int64)[h_doc]
+                s1 = tables.s1_table[fn].astype(np.float32)
+                contrib = (
+                    h_tf * s0_all[h_tid].astype(np.float32)
+                ) / (h_tf + s1)
+                # add.at applies in array order (doc-major, term-asc
+                # within doc) — the device lane order, so f32 sums are
+                # bit-identical.
+                np.add.at(scores, h_doc, contrib.astype(np.float32))
+            dead = np.asarray(self.deleted, dtype=bool)
+            scores[dead] = 0.0
+            if filter_fn is not None:
+                from .bm25index import _eval_predicate
+
+                keep = _eval_predicate(
+                    filter_fn, np.asarray(self.payloads, dtype=np.int64)
+                )
+                scores[~keep] = 0.0
+        return scores.astype(np.float64), np.asarray(
+            self.payloads, dtype=np.int64
+        )
+
+    def _flat_postings(self):
+        """(tid_sorted, impact_sorted, doc_of_sorted): the growing CSR
+        flattened once, tid-sorted for searchsorted term slicing, with
+        per-posting impacts precomputed from the sealed Cache tables —
+        rebuilt only after inserts, NOT per search call."""
+        if self._flat is None:
+            seg = self.sealed
+            if self._tid:
+                tids = np.concatenate(self._tid)
+                tfs = np.concatenate(self._tf).astype(np.float64)
+                doc_of = np.repeat(
+                    np.arange(len(self._tid), dtype=np.int64),
+                    [t.size for t in self._tid],
+                )
+            else:
+                tids = np.zeros(0, dtype=np.int64)
+                tfs = np.zeros(0, dtype=np.float64)
+                doc_of = np.zeros(0, dtype=np.int64)
+            known = tids >= 0
+            tids, tfs, doc_of = tids[known], tfs[known], doc_of[known]
+            order = np.argsort(tids, kind="stable")
+            tids, tfs, doc_of = tids[order], tfs[order], doc_of[order]
+            if tids.size:
+                tables = seg.score_tables()
+                s0 = seg.token_s0()
+                fn = np.asarray(self.fieldnorms, dtype=np.int64)[doc_of]
+                impact = (tfs * s0[tids]) / (tfs + tables.s1_table[fn])
+            else:
+                impact = np.zeros(0, dtype=np.float64)
+            self._flat = (tids, impact, doc_of)
+        return self._flat
+
+    def score_batch(self, queries) -> np.ndarray:
+        """Scores for a whole query batch in one vectorized pass.
+
+        Returns [Q, G] float64; deleted docs score 0 (the score > 0 rule
+        excludes them downstream).  Semantics identical to per-query
+        `score` (sealed statistics, sealed-known terms only) but cost is
+        one searchsorted over the flat posting array per batch instead
+        of Q re-concatenations (search.rs:83-135 merges per query; our
+        hot path is 4096-query batches).
+        """
+        from ..utils.batchkeys import batch_lookup, group_positions
+
+        qn = len(queries)
+        g = len(self.documents)
+        scores = np.zeros((qn, g), dtype=np.float64)
+        if g == 0 or qn == 0:
+            return scores
+        tids, impact, doc_of = self._flat_postings()
+        if tids.size == 0:
+            return scores
+        ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
+        if ids.size == 0:
+            return scores
+        lo = np.searchsorted(tids, ids, side="left")
+        hi = np.searchsorted(tids, ids, side="right")
+        cnt = hi - lo
+        total = int(cnt.sum())
+        if total == 0:
+            return scores
+        src = np.repeat(lo, cnt) + group_positions(cnt)
+        q_of = np.repeat(qidx, cnt)
+        np.add.at(scores, (q_of, doc_of[src]), impact[src])
+        dead = np.asarray(self.deleted, dtype=bool)
+        if dead.any():
+            scores[:, dead] = 0.0
+        return scores
 
     def _mini_segment(self):
         """The growing docs as a mini sealed segment keyed by sealed token
@@ -94,3 +320,246 @@ class GrowingSegment(_Reference):
             )
             self._dev_engine_deleted_dirty = False
         return self._dev_engine
+
+    def topk_batch_async(self, queries, k: int, keep=None):
+        """Dispatch the growing top-k on device; returns finalize() ->
+        (scores [Q, k] float64 -inf-padded, idx [Q, k] int64 -1-padded)
+        ranked (score desc, id asc) — the merge-ready form of
+        topk_batch, overlappable with the sealed dispatch.
+
+        Two-level serving: the device engine covers the frozen prefix
+        [0, _dev_engine_n); docs inserted since are scored on host
+        (same f32 semantics) and merged — so an insert burst between
+        served batches costs O(tail), not an O(G log G) engine rebuild
+        per batch.  The engine is rebuilt (absorbing the tail) only
+        when the tail exceeds max(512, min(n0/8, 4096)) docs.
+        """
+        g = len(self.documents)
+        qn = len(queries)
+        if g == 0 or qn == 0:
+            s = np.full((qn, k), -np.inf, dtype=np.float64)
+            i = np.full((qn, k), -1, dtype=np.int64)
+            return lambda: (s, i)
+        n0 = self._dev_engine_n if self._dev_engine is not None else 0
+        if self._dev_engine is None or g - n0 > max(
+            512, min(n0 // 8, 4096)
+        ):
+            self._dev_engine = None  # rebuild absorbs the tail
+        engine = self.device_engine()
+        n0 = self._dev_engine_n
+        # Re-key queries into the mini segment's tid-space (one batched
+        # lookup; within-query tids ascend because sealed tids are
+        # sorted-key ranks, so the synthetic keys stay sorted).
+        from ..text.intern import Query
+        from ..utils.batchkeys import batch_lookup
+
+        ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
+        kb = np.zeros((ids.size, 16), dtype=np.uint8)
+        if ids.size:
+            kb[:, :4] = ids.astype(">u4").view(np.uint8).reshape(-1, 4)
+        keys_all = kb.reshape(-1).view("S16")
+        counts = np.bincount(qidx, minlength=qn) if ids.size else np.zeros(
+            qn, dtype=np.int64
+        )
+        gqueries = [
+            Query(keys=a)
+            for a in np.split(keys_all, np.cumsum(counts)[:-1])
+        ]
+        fmask = None
+        if keep is not None:
+            fmask = np.asarray(keep, dtype=np.float32)[:n0]
+        fin = engine.search_async(gqueries, k, filter_mask=fmask)
+        tail = (
+            self._tail_topk(ids, qidx, qn, k, keep) if g > n0 else None
+        )
+
+        def finalize():
+            s_f32, dids, _ = fin()
+            s = s_f32.astype(np.float64)
+            dids = np.asarray(dids, dtype=np.int64)
+            s[dids < 0] = -np.inf
+            if tail is None:
+                return s, dids
+            ts, ti = tail
+            # Merge prefix + tail columns, re-rank (score desc, id asc)
+            # per query, keep k — both sides are -inf/-1 padded so the
+            # padding sorts last.
+            S = np.concatenate([s, ts], axis=1)
+            I = np.concatenate([dids, ti], axis=1)
+            w = S.shape[1]
+            qrow = np.repeat(np.arange(qn, dtype=np.int64), w)
+            order = np.lexsort((I.ravel(), -S.ravel(), qrow))
+            m = min(k, w)
+            S2 = S.ravel()[order].reshape(qn, w)[:, :m]
+            I2 = I.ravel()[order].reshape(qn, w)[:, :m]
+            if m < k:
+                S2 = np.pad(
+                    S2, ((0, 0), (0, k - m)), constant_values=-np.inf
+                )
+                I2 = np.pad(
+                    I2, ((0, 0), (0, k - m)), constant_values=-1
+                )
+            return S2, I2
+
+        return finalize
+
+    def _tail_topk(self, ids, qidx, qn, k, keep):
+        """Host top-k over the tail docs [_dev_engine_n, G) — the
+        reference's brute-force growing-chain pass (search.rs:83-135)
+        applied to only the docs the device engine has not absorbed.
+        f32 impacts accumulated in (query, doc, term-ascending) order,
+        matching the device engine's lane accumulation, so prefix/tail
+        near-ties rank identically however the rebuild falls.
+
+        Returns (scores [Q, m] float64 -inf-padded, idx [Q, m] int64
+        GLOBAL growing ids, -1-padded), m = min(k, tail)."""
+        n0 = self._dev_engine_n
+        g = len(self.documents)
+        tn = g - n0
+        m = min(k, tn)
+        scores_out = np.full((qn, m), -np.inf, dtype=np.float64)
+        idx_out = np.full((qn, m), -1, dtype=np.int64)
+        if m == 0:
+            return scores_out, idx_out
+        if self._tail_flat is None or self._tail_flat[0] != n0:
+            tids = (
+                np.concatenate(self._tid[n0:])
+                if tn
+                else np.zeros(0, dtype=np.int64)
+            )
+            tfs = (
+                np.concatenate(self._tf[n0:]).astype(np.float32)
+                if tn
+                else np.zeros(0, dtype=np.float32)
+            )
+            doc_of = np.repeat(
+                np.arange(tn, dtype=np.int64),
+                [t.size for t in self._tid[n0:]],
+            )
+            known = tids >= 0
+            tids, tfs, doc_of = tids[known], tfs[known], doc_of[known]
+            order = np.argsort(tids, kind="stable")
+            tids, tfs, doc_of = tids[order], tfs[order], doc_of[order]
+            if tids.size:
+                tables = self.sealed.score_tables()
+                s0 = self.sealed.token_s0().astype(np.float32)
+                fn = np.asarray(self.fieldnorms, dtype=np.int64)[
+                    n0 + doc_of
+                ]
+                s1 = tables.s1_table[fn].astype(np.float32)
+                impact = (tfs * s0[tids]) / (tfs + s1)
+            else:
+                impact = np.zeros(0, dtype=np.float32)
+            self._tail_flat = (n0, tids, impact.astype(np.float32), doc_of)
+        _, tids, impact, doc_of = self._tail_flat
+        if tids.size == 0 or ids.size == 0:
+            return scores_out, idx_out
+        from ..utils.batchkeys import group_positions
+
+        lo = np.searchsorted(tids, ids, side="left")
+        hi = np.searchsorted(tids, ids, side="right")
+        cnt = hi - lo
+        if int(cnt.sum()) == 0:
+            return scores_out, idx_out
+        src = np.repeat(lo, cnt) + group_positions(cnt)
+        q_of = np.repeat(qidx, cnt)
+        d = doc_of[src]
+        imp = impact[src]
+        t_of = tids[src]
+        # f32 accumulation in (query, doc, tid-ascending) posting order
+        # — np.add.at applies in element order, matching the device.
+        acc_order = np.lexsort((t_of, d, q_of))
+        dense = np.zeros((qn, tn), dtype=np.float32)
+        np.add.at(
+            dense, (q_of[acc_order], d[acc_order]), imp[acc_order]
+        )
+        drop = np.asarray(self.deleted[n0:], dtype=bool)
+        if keep is not None:
+            drop = drop | ~np.asarray(keep, dtype=bool)[n0:]
+        if drop.any():
+            dense[:, drop] = 0.0
+        # Rank rows (score desc, id asc): stable argsort on -scores
+        # keeps ascending doc ids among ties.
+        top = np.argsort(-dense, axis=1, kind="stable")[:, :m]
+        s = np.take_along_axis(dense, top, axis=1).astype(np.float64)
+        live = s > 0.0
+        scores_out[live] = s[live]
+        idx_out[live] = (top + n0)[live]
+        return scores_out, idx_out
+
+    def topk_batch(self, queries, k: int, keep=None):
+        """Per-query top-m growing hits without the dense [Q, G] matrix.
+
+        Returns (scores [Q, m] float64 with -inf padding, idx [Q, m]
+        int64 growing-local ids with -1 padding), m = min(k, G), ranked
+        (score desc, id asc) — ready for the sealed-results lexsort
+        merge.  Cost is O(hits log hits) in the number of actual
+        (query, growing-posting) matches, not O(Q x G): at batch 4096
+        with 10k growing docs the dense pass zeroes and scans 41M cells
+        per batch while typical hit counts are ~100k (the round-3
+        growing bench measured the dense form collapsing batched QPS to
+        0.23x sealed-only).
+
+        keep: optional [G] bool mask (prefilter); deleted docs and
+        score<=0 are always excluded (bulkdelete.rs deleted-flag
+        semantics)."""
+        from ..utils.batchkeys import batch_lookup, group_positions
+
+        qn = len(queries)
+        g = len(self.documents)
+        m = min(k, g)
+        scores = np.full((qn, max(m, 1)), -np.inf, dtype=np.float64)
+        idx = np.full((qn, max(m, 1)), -1, dtype=np.int64)
+        scores, idx = scores[:, :m], idx[:, :m]
+        if m == 0 or qn == 0:
+            return scores, idx
+        tids, impact, doc_of = self._flat_postings()
+        if tids.size == 0:
+            return scores, idx
+        ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
+        if ids.size == 0:
+            return scores, idx
+        lo = np.searchsorted(tids, ids, side="left")
+        hi = np.searchsorted(tids, ids, side="right")
+        cnt = hi - lo
+        total = int(cnt.sum())
+        if total == 0:
+            return scores, idx
+        src = np.repeat(lo, cnt) + group_positions(cnt)
+        q_of = np.repeat(qidx, cnt)
+        d = doc_of[src]
+        imp = impact[src]
+        drop = np.asarray(self.deleted, dtype=bool)
+        if keep is not None:
+            drop = drop | ~np.asarray(keep, dtype=bool)
+        if drop.any():
+            sel = ~drop[d]
+            q_of, d, imp = q_of[sel], d[sel], imp[sel]
+            if q_of.size == 0:
+                return scores, idx
+        # Aggregate per (query, doc), then rank within query.
+        key = q_of * g + d
+        uk, inv = np.unique(key, return_inverse=True)
+        s = np.bincount(inv, weights=imp)
+        pos_ok = s > 0.0
+        uk, s = uk[pos_ok], s[pos_ok]
+        if uk.size == 0:
+            return scores, idx
+        uq, ud = uk // g, uk % g
+        order = np.lexsort((ud, -s, uq))
+        uq, ud, s = uq[order], ud[order], s[order]
+        counts = np.bincount(uq, minlength=qn)
+        pos = group_positions(counts[counts > 0])
+        take = pos < m
+        scores[uq[take], pos[take]] = s[take]
+        idx[uq[take], pos[take]] = ud[take]
+        return scores, idx
+
+    def live_documents(self) -> List[Tuple[int, Document]]:
+        """(payload, document) pairs of live docs, in insertion order
+        (maintain pass C ordering, maintain.rs:167-255)."""
+        return [
+            (self.payloads[i], self.documents[i])
+            for i in range(len(self.documents))
+            if not self.deleted[i]
+        ]

@@ -68,7 +68,10 @@ def _tag(sources) -> str:
 def _declare(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "bm25_fused_range_scores": [vp, vp, vp, vp, vp, i, i, i, i, vp],
+        "bm25_fused_range_scores": [vp, vp, vp, vp, vp, i, i, i, i, ll, i, vp],
+        "bm25_tf_range_scores": [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp,
+        ],
         "bm25_stream_dense_accumulate": [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, i, ll, i, i, vp,
         ],

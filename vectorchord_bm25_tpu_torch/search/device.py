@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vectorchord_bm25_tpu.index.sealed import BLOCK, SealedSegment
+from ..index.sealed import BLOCK, SealedSegment
 
 from ..utils.device import as_device
 
@@ -54,7 +54,7 @@ class DeviceSegment:
     ) -> "DeviceSegment":
         """with_blocks=False skips uploading the posting rows (the pruned
         engine reads its own compact flat postings instead).  f32 impacts
-        only (bf16: ROADMAP.md queue 2)."""
+        only (bf16 block rows: ROADMAP.md queue 1 item 5, ExactEngine)."""
         dev = as_device(device)
         n = seg.n_docs
         if with_blocks:

@@ -20,12 +20,12 @@ query MaxScore cannot certify.  The reductions, per dispatch:
   impact-ordered window prefix into a candidate pool, then
   ``ops/stream_rescore.py`` (S5) rescores the candidates exactly.
 
-``StreamEngine`` subclasses the reference engine: the numpy planning
-(``_win_lists``, ``_assemble``, ``_ms_route``, ``_maxscore_phase``,
-``_maxscore_tables``, ``_s1_by_doc_host``), ``set_deleted``,
-``memory_report`` and ``search`` are the reference's own, running on the
-torch tensors uploaded here.  Only the methods that reach jax are
-replaced.  The reference's ``_throttle_large`` (a jax-only guard against a
+The numpy planning (``_win_lists``, ``_assemble``, ``_ms_route``,
+``_maxscore_phase``, ``_maxscore_tables``, ``_s1_by_doc_host``, and the
+helpers ``_ms_prefix_prep`` and ``_ms_certify``), ``set_deleted``,
+``memory_report`` and ``search`` are copies of the reference's, running on
+the torch tensors uploaded here; the methods that reach jax there are
+rewritten.  The reference's ``_throttle_large`` (a jax-only guard against a
 TPU dispatch pile-up) has no counterpart: each dispatch's lanes or
 accumulator are freed before the next is allocated, and only the
 ``[q, k]`` results wait for ``finalize``.
@@ -38,18 +38,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from vectorchord_bm25_tpu.index.sealed import SealedSegment
-from vectorchord_bm25_tpu.index.stream import StreamIndex, build_stream_index
-from vectorchord_bm25_tpu.search.stream import StreamEngine as _ReferenceEngine
-from vectorchord_bm25_tpu.search.stream import _ms_certify, _ms_prefix_prep
-from vectorchord_bm25_tpu.text.intern import Query
-from vectorchord_bm25_tpu.utils.batchkeys import group_positions
-from vectorchord_bm25_tpu.utils.buckets import bucket_pow2 as _bucket
-
+from ..index.sealed import SealedSegment
+from ..index.stream import _DELETED_BIT, StreamIndex, build_stream_index
 from ..ops.stream_kernel import stream_dense_accumulate
 from ..ops.stream_rescore import rescore_topk
 from ..ops.stream_sparse import stream_sparse_topk
 from ..ops.topk import dense_topk
+from ..text.intern import Query
+from ..utils.batchkeys import batch_lookup, group_positions
+from ..utils.buckets import bucket_pow2 as _bucket
 from ..utils.device import as_device
 
 __all__ = ["StreamEngine", "window_ordinals"]
@@ -57,6 +54,85 @@ __all__ = ["StreamEngine", "window_ordinals"]
 # Lanes a sparse dispatch may hold (the reference's cap, search/stream.py
 # :797, :882, :1081): 512 MB of (doc, score) before the sort's copy.
 _LANE_CAP = 1 << 26
+
+
+def _ms_prefix_prep(
+    order, bounds, tws, ids, qidx, qn, tau_frac, exclude_frac
+):
+    """Host-side MaxScore phase-1 prefix selection (shared by the
+    single-chip engine and the sharded mesh path).
+
+    order/bounds: impact-descending window permutation per term and its
+    (f64) bounds; tws: token -> window-span starts; ids/qidx: matched
+    term ids and their query index; qn: query count.
+
+    Returns (lo, hi, cut, s_rem, excl): per-term window spans into the
+    impact-ordered table, the per-term prefix length (windows with
+    bound >= tau_frac * query-max-bound, zeroed for excluded terms),
+    the per-query certification remainder S = Σ next-window bounds,
+    and the excluded-term mask.
+    """
+    lo = tws[ids].astype(np.int64)
+    hi = tws[ids + 1].astype(np.int64)
+
+    maxb = np.zeros(qn, dtype=np.float64)
+    np.maximum.at(maxb, qidx, bounds[lo])
+    tau = (maxb * tau_frac)[qidx]
+    # Count of (descending) bounds >= tau in each [lo, hi) span.
+    l, r = lo.copy(), hi.copy()
+    for _ in range(int(np.max(hi - lo, initial=1)).bit_length() + 1):
+        m = (l + r) >> 1
+        go = (m < r) & (bounds[np.minimum(m, bounds.size - 1)] >= tau)
+        l = np.where(go, m + 1, l)
+        r = np.where(go, r, m)
+    cut = l - lo
+    # Term-level exclusion (the MaxScore essential-set rule): window
+    # maxima within a common term are nearly flat on Zipf corpora, so
+    # the tau prefix is all-or-nothing there — the only lever that
+    # skips a common term's (huge) posting span in phase 1 is dropping
+    # the WHOLE term.  Per query, exclude terms ascending by term bound
+    # while the inclusive excluded mass stays under
+    # exclude_frac * maxb; certification keeps the result exact and
+    # excluded terms still contribute exactly in the candidate rescore
+    # (search.rs:151-280's skip machinery actually skipping the
+    # common-term lists).
+    excl = np.zeros(qidx.size, dtype=bool)
+    if exclude_frac > 0.0:
+        tb = bounds[lo]
+        t_order = np.lexsort((tb, qidx))
+        tb_s = tb[t_order]
+        q_s = qidx[t_order]
+        cg = np.concatenate(([0.0], np.cumsum(tb_s)))
+        qstart_s = np.concatenate(
+            ([0], np.cumsum(np.bincount(q_s, minlength=qn)))
+        )
+        incl = cg[1:] - cg[qstart_s[q_s]]
+        excl[t_order] = incl < exclude_frac * maxb[q_s]
+        cut = np.where(excl, 0, cut)
+    rem = np.where(
+        cut < hi - lo,
+        bounds[np.minimum(lo + cut, bounds.size - 1)],
+        0.0,
+    )
+    s_rem = np.zeros(qn, dtype=np.float64)
+    np.add.at(s_rem, qidx, rem)
+    return lo, hi, cut, s_rem, excl
+
+
+def _ms_certify(kth_exact, last, s_rem):
+    """Exact-theta certification (shared single-chip / sharded): the k
+    rescored docs exist with these exact scores, so kth_exact is a
+    valid lower bound on the true kth score.  A doc never seen in
+    phase 1 scores at most s_rem; a doc that fell out of the phase-1
+    pool scores at most last + s_rem.  A few f32 ulps of slack keep
+    the comparison conservative.  Returns (fail_unseen, fail_pool)."""
+    eps = 4.0 * np.spacing(
+        np.abs(kth_exact).astype(np.float32)
+    ).astype(np.float64)
+    fail_unseen = ~np.isfinite(kth_exact) | (s_rem >= kth_exact - eps)
+    fail_pool = np.isfinite(last) & (last + s_rem >= kth_exact - eps)
+    return fail_unseen, fail_pool
+
 
 
 def window_ordinals(stream: StreamIndex, wsrc, starts, sizes) -> np.ndarray:
@@ -76,12 +152,16 @@ def window_ordinals(stream: StreamIndex, wsrc, starts, sizes) -> np.ndarray:
     return entry - entry[first]
 
 
-class StreamEngine(_ReferenceEngine):
+class StreamEngine:
     """Batched exact search from the compressed stream, on torch.
 
     Every strategy of the reference (``"auto"``, ``"dense"``, ``"sparse"``,
     ``"maxscore"``); on a CUDA device every dispatch runs the CUDA kernels
     S1-S5, on the CPU their plain PyTorch versions."""
+
+    #: "auto" strategy switches to the sparse sort path at this corpus
+    #: size (same measured crossover as ExactEngine, DESIGN.md).
+    SPARSE_MIN_DOCS = 1 << 21
 
     def __init__(
         self,
@@ -115,7 +195,7 @@ class StreamEngine(_ReferenceEngine):
             arr = np.ascontiguousarray(x, dtype=dtype)
             return torch.from_numpy(arr).to(self.device)
 
-        # The reference's set_deleted re-uploads through _put.
+        # set_deleted re-uploads through _put.
         self._put = put
         # u32 words and u16 meta as the same bits in int32 / int16 (every
         # meta value is below 2^15): torch's unsigned coverage is thin.
@@ -132,6 +212,27 @@ class StreamEngine(_ReferenceEngine):
         self.dev_w_s0 = put(np.append(si.w_s0, 0.0), np.float32)
         self.n_docs = si.n_docs
 
+    def _s1_by_doc_host(self) -> np.ndarray:
+        """[N+1] float32 s1[fieldnorm[d]] with +inf at deleted docs and
+        the pad slot (doc_fn bit 8 = deleted, index/stream.py)."""
+        fn = self._doc_fn_host
+        return np.where(
+            fn < 256,
+            self.stream.s1_table[fn & 0xFF],
+            np.inf,
+        ).astype(np.float32)
+
+    def set_deleted(self, deleted: np.ndarray) -> None:
+        """Set/clear the deleted bit in the fieldnorm table (the
+        scoring-time bitmap; the reference flips DocumentTuple.deleted,
+        bulkdelete.rs:79-111)."""
+        n = self.n_docs
+        fn = self.stream.doc_fn.copy()
+        d = np.asarray(deleted, dtype=bool)[:n]
+        fn[:n] = np.where(d, fn[:n] | _DELETED_BIT, fn[:n] & 0xFF)
+        self._doc_fn_host = fn
+        self.dev_s1bd = self._put(self._s1_by_doc_host())
+
     def _s1_eff(self, filter_mask: Optional[np.ndarray]):
         """dev_s1bd with filtered docs (filter value <= 0) forced to +inf."""
         if filter_mask is None:
@@ -140,6 +241,217 @@ class StreamEngine(_ReferenceEngine):
         fm[: self.n_docs] = np.asarray(filter_mask, dtype=np.float32)
         keep = torch.from_numpy(fm).to(self.device) > 0.0
         return torch.where(keep, self.dev_s1bd, float("inf"))
+
+    def memory_report(self) -> dict:
+        """Device-resident index bytes (equal-index-memory metric)."""
+        db = self.stream.device_bytes()
+        wmeta = sum(
+            int(t.nbytes)
+            for t in (
+                self.dev_w_off,
+                self.dev_w_base,
+                self.dev_w_meta,
+                self.dev_w_s0,
+            )
+        )
+        # The engine serves from the fused [N+1] f32 s1-by-doc table
+        # (4 B/doc) instead of the u16 fieldnorm + 1 KB s1 table.
+        doc_tables = int(self.dev_s1bd.nbytes)
+        total = db["postings"] + doc_tables + wmeta
+        return {
+            "postings": db["postings"],
+            "doc_tables": doc_tables,
+            "s1_table": 0,
+            # 14 B per window: the reference's SummaryTuple costs 24 B
+            # per 128-posting block (tuples.rs:900-971) and is counted
+            # on its side of the parity report too.
+            "window_meta": wmeta,
+            "total": total,
+            "bytes_per_posting": (db["postings"] + wmeta)
+            / max(1, self.stream.n_postings),
+        }
+
+    def _win_lists(self, queries: Sequence[Query]):
+        """Vectorized per-query window-id lists (CSR slices of the
+        stream's window table) + per-query matched-term counts."""
+        si = self.stream
+        seg = self.segment
+        tws = si.token_w_start
+        qn = len(queries)
+        empty = np.zeros(0, dtype=np.int64)
+        ids, qidx = batch_lookup(seg.lookup_tokens, queries)
+        if ids.size == 0:
+            sizes = np.zeros(qn, dtype=np.int64)
+            return (empty, np.zeros(qn + 1, dtype=np.int64), sizes), np.zeros(
+                qn, dtype=np.int64
+            )
+        n_terms = np.bincount(qidx, minlength=qn).astype(np.int64)
+        los = tws[ids]
+        cnt = tws[ids + 1] - los
+        total = int(cnt.sum())
+        if total == 0:
+            sizes = np.zeros(qn, dtype=np.int64)
+            return (empty, np.zeros(qn + 1, dtype=np.int64), sizes), n_terms
+        wsrc = np.repeat(los, cnt) + group_positions(cnt)
+        q_of = np.repeat(qidx, cnt)
+        sizes = np.bincount(q_of, minlength=qn).astype(np.int64)
+        starts = np.concatenate(([0], np.cumsum(sizes)))
+        return (wsrc, starts, sizes), n_terms
+
+    def _assemble(self, lists, sub: np.ndarray):
+        """Pad the subset's window-id lists to a bucketed [q, P] matrix
+        (sparse path; metadata is gathered device-side)."""
+        wsrc, starts, sizes = lists
+        sub = np.asarray(sub, dtype=np.int64)
+        sub_sizes = sizes[sub]
+        q = sub.size
+        p_max = _bucket(int(sub_sizes.max(initial=1)) or 1, 8)
+        ids = np.full((q, p_max), self._pad_win, dtype=np.int32)
+        total = int(sub_sizes.sum())
+        src = None
+        if total:
+            pos = group_positions(sub_sizes)
+            src = wsrc[np.repeat(starts[sub], sub_sizes) + pos]
+            dst_q = np.repeat(np.arange(q, dtype=np.int64), sub_sizes)
+            ids[dst_q, pos] = src
+        return ids, src
+
+    def _maxscore_tables(self):
+        """Impact-descending window order within each term + its bounds
+        (f64, conservatively padded at build) — the MaxScore analog of
+        the reference's per-term wand pair ordering (TokenTuple)."""
+        if self._ms is None:
+            si = self.stream
+            order = np.lexsort((-si.w_maximp, si.w_token)).astype(
+                np.int64
+            )
+            self._ms = (order, si.w_maximp[order].astype(np.float64))
+        return self._ms
+
+    #: Certification tiers for strategy='maxscore': (tau_frac,
+    #: pool_min, exclude_override).  Tier 1 is the cheap pass; queries
+    #: it cannot certify retry on tier 2 with a lower impact threshold
+    #: (smaller s_rem) and a deeper partial pool (smaller pool-
+    #: truncation bound) before the exhaustive fallback — still far
+    #: cheaper than scoring every posting for the retried queries.
+    MS_TIERS = ((0.5, 512, None), (0.25, 2048, 0.0))
+    #: Per-query routing thresholds for strategy='auto' at scale.  A
+    #: query goes to the pruned path only when the tier-1 bound
+    #: structure predicts enough skippable work to beat the exhaustive
+    #: sparse scan: measured at 8.4M docs (artifacts/
+    #: bench_8m_{sparse,maxscore}_r04.json), 4-term similar-idf
+    #: informative queries keep 70% of their windows through the
+    #: phase-1 prefix and the pruned path runs 2.4x SLOWER than
+    #: exhaustive-sparse — pruning must be predicted profitable per
+    #: query, never assumed from corpus size.
+    MS_ROUTE_FRAC = 0.35
+    MS_ROUTE_MIN_WINDOWS = 256
+    #: 'auto' routes to the pruned path only at k <= this.  The pruned
+    #: path's cost grows with k (certification needs the kth EXACT
+    #: score, so pools sort ~16x more entries at k=1000) while its
+    #: traction shrinks (a deep kth score is a low threshold the
+    #: bounds rarely clear): measured at 8.4M docs, k=1000, routing
+    #: LOSES 2.3x on the informative mix (29.15 QPS routed vs 66.56
+    #: exhaustive, artifacts/bench_8m_{auto,sparse}_k1000_r05.json)
+    #: and is at best break-even on the heavy mix (3.08 vs ~3.3),
+    #: while at k=10 it WINS both mixes (DESIGN.md round-5 table).
+    #: 128 covers the top-10/top-100 serving regime the win is
+    #: measured in; explicit strategy='maxscore' still serves any
+    #: k <= MS_MAX_K pruned.
+    MS_ROUTE_MAX_K = 128
+    #: Deepest k the pruned path serves (the reference's WAND serves
+    #: any LIMIT, gucs.rs caps bm25.limit at 65535; the partial pool
+    #: here must hold ~16k candidates, so k=1000 north-star retrieval
+    #: fits with the 16384-entry pool and anything deeper serves
+    #: exhaustively).  VERDICT r3 #5.
+    MS_MAX_K = 1024
+    #: Partial-pool ceiling (entries per query per tier).
+    MS_POOL_CAP = 16384
+
+    def _ms_route(self, queries):
+        """Predicted-work router for strategy='auto' at scale: True for
+        queries the pruned path should serve.
+
+        Cost model: the pruned path pays ~frac x the exhaustive window
+        scan plus fixed rescore/pool overhead, so it wins only when the
+        tier-1 prefix keeps a small fraction of a LARGE window set —
+        i.e. the query carries common terms whose flat low bounds the
+        exclusion rule can drop (the case the reference's WAND skip
+        machinery targets, search.rs:151-280).  Selective queries
+        (small window sets) and flat-impact informative queries route
+        to the exhaustive sparse scan, which is already near the HBM
+        roofline for them."""
+        qn = len(queries)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        if ids.size == 0:
+            return np.zeros(qn, dtype=bool)
+        order, bounds = self._maxscore_tables()
+        tws = self.stream.token_w_start
+        tau_frac, _, excl_over = self.MS_TIERS[0]
+        lo, hi, cut, _, _ = _ms_prefix_prep(
+            order, bounds, tws, ids, qidx, qn, tau_frac,
+            self.ms_exclude if excl_over is None else excl_over,
+        )
+        tot = np.bincount(
+            qidx, weights=(hi - lo).astype(np.float64), minlength=qn
+        )
+        ph1 = np.bincount(
+            qidx, weights=cut.astype(np.float64), minlength=qn
+        )
+        frac = np.where(tot > 0, ph1 / np.maximum(tot, 1.0), 1.0)
+        return (tot >= self.MS_ROUTE_MIN_WINDOWS) & (
+            frac <= self.MS_ROUTE_FRAC
+        )
+
+    def _maxscore_phase(self, queries, k, s1_eff, n_terms):
+        """Tiered two-phase pruned exact top-k (strategy='maxscore').
+
+        Each tier scores only each term's highest-bound windows
+        (bound >= tau_frac * max-bound); any doc outside that prefix
+        can add at most S = Σ-per-term next-window bounds, so after the
+        exact rescore of the surviving candidates, the kth exact score
+        certifies the result (see _ms_tier).  Queries a tier cannot
+        certify retry on the next (lower tau, deeper pool); queries no
+        tier certifies are returned for the exhaustive fallback.
+
+        Returns (pending entries for finalize, fallback query indices).
+        """
+        qn = len(queries)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        if ids.size == 0:
+            return [], np.zeros(0, dtype=np.int64)
+        pending = []
+        active = np.arange(qn, dtype=np.int64)
+        tiers = []
+        for tau_frac, pool_min, excl_over in self.MS_TIERS:
+            if active.size == qn:
+                t_ids, t_qidx, t_n = ids, qidx, n_terms
+            else:
+                amask = np.zeros(qn, dtype=bool)
+                amask[active] = True
+                sel = amask[qidx]
+                remap = np.full(qn, -1, dtype=np.int64)
+                remap[active] = np.arange(active.size)
+                t_ids = ids[sel]
+                t_qidx = remap[qidx[sel]]
+                t_n = n_terms[active]
+            tier_pending, tier_fb, tstats = self._ms_tier(
+                t_ids, t_qidx, active.size, k, s1_eff, t_n,
+                tau_frac, pool_min,
+                self.ms_exclude if excl_over is None else excl_over,
+            )
+            for qs_local, data in tier_pending:
+                pending.append((active[qs_local], data))
+            tiers.append(tstats)
+            active = active[tier_fb]
+            if active.size == 0:
+                break
+        self.last_ms_stats = {
+            "queries": qn,
+            "tiers": tiers,
+            "fallback_queries": int(active.size),
+        }
+        return pending, active
 
     def _window_tables(self):
         return (self.dev_w_off, self.dev_w_base, self.dev_w_meta, self.dev_w_s0)
@@ -462,6 +774,15 @@ class StreamEngine(_ReferenceEngine):
             return scores, ids, payloads
 
         return finalize
+
+    def search(
+        self,
+        queries: Sequence[Query],
+        k: int,
+        filter_mask: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Top-k for a batch of queries (contract: ExactEngine.search)."""
+        return self.search_async(queries, k, filter_mask)()
 
 
 def _host(x):
