@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one GPU: the Block-Max engine (f32
-and bf16 impacts, tf postings, the exhaustive range sweep) and the served
+and bf16 impacts, tf postings, the exhaustive range sweep), the served
 default, the stream engine, with a growing segment and at the scale where
-its ``auto`` strategy leaves the dense path.  The corpora come from the
-port's own generators (``vectorchord_bm25_tpu_torch/data/synth.py``).
+its ``auto`` strategy leaves the dense path, the exact engine (dense, bf16,
+compact, shared and sparse) and the hybrid engine's routes.  The corpora
+come from the port's own generators
+(``vectorchord_bm25_tpu_torch/data/synth.py``).
 
     python3 chip_smoke.py [--docs N] [--sparse-docs N] [--seed S]
 
@@ -60,6 +62,32 @@ not 0 and no result line is printed):
       plain versions, both timed; 3 batches of 4,096 queries, QPS each,
       P1's and S2's launches must grow; ids and scores equal the pruned
       engine's on all 4,096 queries and the CPU-plain engine's on 256;
+  (o) ``engine="exact"``, dense f32 rows: ``Bm25Index(seg, seed,
+      IndexOptions(), engine="exact", device="cuda")`` on the same corpus.
+      On every dispatch's windows E1 (``exact_dense_accumulate``) equals
+      its plain version (``torch.equal``), both timed on the largest
+      dispatch; 5 batches of 4,096 at k=10, QPS each and the dispatches a
+      batch; then phase (e)'s audit (card == CPU-plain, also after deleting
+      1% and under a prefilter; recall@10 = 1.0 against the float64
+      oracle); ``memory_report()["total"]`` equals the reference's formula;
+  (p) the same index with bf16 rows (E1 on bf16 equals its plain version;
+      scores per rank within rtol 6e-3 of the f32 engine's, recall@10
+      against it printed), with ``compact=True`` and as
+      ``ExactEngine(share=<phase (d)'s BlockMaxEngine>)``: E3
+      (``exact_compact_accumulate``) equals its plain version on every
+      dispatch; hit counts equal the dense f32 engine's, a rank may differ
+      only between scores within 1e-4, scores within rtol 1e-5; the shared
+      engine's tensors are Block-Max's (``data_ptr()``);
+  (q) ``engine="hybrid"`` on phase (d)'s RangeIndex: (1) the default
+      ``heavy_mode``: every query goes to the exact engine, the Block-Max
+      engine is never built, results equal phase (o)'s; (2)
+      ``heavy_mode="pruned"``, ``memory_mode="compact"``, ``oneshot_cap=64``:
+      queries by route printed, P1's launches must grow, ids equal phase
+      (o)'s on all 4,096 queries and scores within rtol 1e-5,
+      ``memory_report()`` is one copy by the reference's formula; (3)
+      ``heavy_mode="rangescan"``: P1's and S2's launches grow, the same
+      equality.  ``route_threshold`` starts at the default 0.10 and is
+      lowered (printed) until some query takes the heavy route;
   (i) the served default at scale: a 2,097,152-doc corpus (``--sparse-docs``;
       the same generator and shape, only the doc count raised, the
       smallest size at which ``auto`` leaves the dense path), served by
@@ -77,11 +105,18 @@ not 0 and no result line is printed):
       deleting 1% and under a prefilter; recall@10 = 1.0 against the
       float64 oracle on 32 of them; ``memory_report()["total"]`` equals
       the bytes of the stream's host arrays;
+  (r) ``ExactEngine(seg, device="cuda")`` on phase (i)'s corpus, where
+      ``strategy="auto"`` is the sparse sort path: 3 batches of 512 of each
+      mix; E2 (``exact_sparse_gather``) equals its plain version on every
+      dispatch, both timed on the largest; S4's launches grow; the card
+      equals the CPU-plain engine on 64 queries; recall@10 = 1.0 against
+      the float64 oracle on 256; the peak device memory;
   (k) the host build time of each phase.
 
-Phases (l)-(n) run after (h), while the 131,072-doc corpus is held.  Each
-path is driven with its launch counters at 0 and read just after.  The
-``kernels`` line lists P1 (f32 and bf16), P1-tf and S1-S5, each with its
+Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, and
+(r) after (j).  Each path is driven with its launch counters at 0 and read
+just after.  The ``kernels`` line lists P1 (f32 and bf16), P1-tf, S1-S5 and
+E1 (f32 and bf16), E2 and E3, each with its
 launches, its time and its plain version's from CUDA events, its bound
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its f32
 operations over 67 TFLOP/s, counted from this run's inputs) and the time
@@ -457,21 +492,26 @@ def _kernel_vs_plain(kernel, plain, calls, what):
     return err, cuda_ms(lambda: kernel(*args, **kw)), cuda_ms(lambda: plain(*args, **kw))
 
 
-def _serve(index, queries, counters, what):
-    """Warm up, zero the launch counters, serve ROUNDS batches and read
-    the counters.  Returns (QPS per batch, launches by counter, results)."""
+def _serve(index, queries, counters, what, rounds=ROUNDS):
+    """Warm up, zero the launch counters, serve ``rounds`` batches and read
+    the counters: (module, name) pairs, or (module, name, key) where two
+    modules share a name.  Returns (QPS per batch, launches by name or key,
+    results)."""
     import torch
 
     index.search_batch(queries, K)
     torch.cuda.synchronize()
-    for module, name in counters:
+    for module, name, *_ in counters:
         setattr(module, name, 0)
     qps = []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         t0 = time.perf_counter()
         results = index.search_batch(queries, K)
         qps.append(len(queries) / (time.perf_counter() - t0))
-    launches = {name: getattr(module, name) for module, name in counters}
+    launches = {
+        (key[0] if key else name): getattr(module, name)
+        for module, name, *key in counters
+    }
     if not all(launches.values()):
         raise AssertionError(f"{what}: a kernel of the path never launched: {launches}")
     if len(results) != len(queries) or not all(
@@ -665,6 +705,343 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
     return entries, sweep
 
 
+def _live_lanes(win_lo, win_hi):
+    return int((win_hi - win_lo).clamp_min(0).sum())
+
+
+def e1_bound(a):
+    """E1 on one dispatch ``a`` (the wrapper's arguments): each live lane's
+    doc id and impact, its doc_live entry, each window's row, lanes and
+    ordinal, and the [q, N+1] f32 accumulator written once; a multiply and
+    an add a lane."""
+    post_impact, win_row, n_docs = a[1], a[3], a[8]
+    lanes = _live_lanes(a[4], a[5])
+    return bound(
+        lanes * (4 + post_impact.element_size()) + 4 * min(lanes, n_docs + 1)
+        + 16 * win_row.numel() + 4 * win_row.shape[0] * (n_docs + 1),
+        2 * lanes,
+    )
+
+
+def e3_bound(a):
+    """E3 on one dispatch: each group's impacts and u8 locals, its id and
+    ordinal, each real group's range and two starts, and the accumulator
+    written once; an add a lane."""
+    post_impact, tr_start, grp_ids, n_docs = a[0], a[3], a[4], a[7]
+    g = grp_ids.long()
+    lanes = int((tr_start[g + 1] - tr_start[g]).sum())
+    n_grp = int((a[5] >= 0).sum())
+    return bound(
+        lanes * (1 + post_impact.element_size()) + 8 * grp_ids.numel()
+        + 12 * n_grp + 4 * grp_ids.shape[0] * (n_docs + 1),
+        lanes,
+    )
+
+
+def e2_bound(a):
+    """E2 on one dispatch: each live lane's doc id and impact and its live
+    and filter entries, each window's row and lanes, and one doc and one
+    score written a lane; two multiplies a live lane."""
+    post_impact, win_row, n_docs = a[1], a[4], a[7]
+    lanes = _live_lanes(a[5], a[6])
+    return bound(
+        lanes * (4 + post_impact.element_size()) + 8 * min(lanes, n_docs + 1)
+        + 12 * win_row.numel() + 8 * 128 * win_row.numel(),
+        2 * lanes,
+    )
+
+
+def _held_to(got, want, what, same_ids):
+    """Hold (scores, ids, payloads) to another engine's as the reference's
+    tests/test_compact_exact.py does: the same hits a query, a rank may name
+    another doc only where the two scores are within 1e-4, scores within
+    rtol 1e-5; with ``same_ids`` every id must be equal.  Returns how many
+    scores are not equal bit for bit."""
+    (s, i, _), (s0, i0, _) = got, want
+    if not np.array_equal(i >= 0, i0 >= 0):
+        raise AssertionError(f"{what}: hit counts differ")
+    live = i0 >= 0
+    swapped = live & (i != i0)
+    if same_ids and swapped.any():
+        raise AssertionError(f"{what}: {int(swapped.sum())} ids differ")
+    if swapped.any() and float(np.abs(s[swapped] - s0[swapped]).max()) >= 1e-4:
+        raise AssertionError(f"{what}: ranks differ beyond score ties")
+    np.testing.assert_allclose(s[live], s0[live], rtol=1e-5, err_msg=what)
+    return int((s[live] != s0[live]).sum())
+
+
+def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
+    """Phases (o)-(q): the exact engine (dense f32, bf16, compact, shared)
+    and the hybrid engine's routes on the 131,072-doc corpus and its
+    RangeIndex; ``bm_engine`` is phase (d)'s BlockMaxEngine, which holds
+    phase (e)'s deletes.  Returns the kernels-line entries of E1, E1 on
+    bf16 and E3, and P1's and S2's launches by phase."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch import Bm25Index, IndexOptions
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel, score_kernel, topk
+    from vectorchord_bm25_tpu_torch.search import exact
+    from vectorchord_bm25_tpu_torch.search.exact import ExactEngine
+    from vectorchord_bm25_tpu_torch.search.hybrid import HybridEngine
+
+    rng = np.random.default_rng(args.seed + 6)
+    sample = [queries[i] for i in np.sort(rng.choice(len(queries), AUDIT, replace=False))]
+    n, v, p = seg.n_docs, seg.n_tokens, ri.post_local.size
+    n_post = int(seg.block_n.sum())
+    rows = -(-max(n_post, 1) // 128) + 1  # with the pad row
+    dense_name, compact_name = "exact_dense_accumulate", "exact_compact_accumulate"
+
+    def build(engine_kind, opts, device="cuda"):
+        return Bm25Index(
+            seg, seed, IndexOptions(), engine=engine_kind, engine_options=opts,
+            device=device,
+        )
+
+    def check(engine, name, bound_of, what):
+        """Every dispatch ``engine.search`` hands the kernel ``name``
+        against its plain version; both timed on the largest dispatch."""
+        restore, calls = _record(exact, name)
+        try:
+            engine.search(queries, K)
+        finally:
+            restore()
+        # The window (group) matrix is argument 3 (4); largest dispatch first.
+        matrix = 3 if name == dense_name else 4
+        calls.sort(key=lambda c: -c[0][matrix].numel())
+        err, ms, plain_ms = _kernel_vs_plain(
+            getattr(exact_kernel, name), getattr(exact_kernel, name + "_plain"),
+            calls, what,
+        )
+        big = calls[0][0]
+        kb = bound_of(big)
+        shape = tuple(big[matrix].shape)
+        print(
+            f"{what}: {len(calls)} dispatches a batch, kernel == plain on every "
+            f"one (torch.equal); largest {shape}, {kb['bound_bytes']} B to "
+            f"move: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (both with the "
+            f"accumulator's zero-fill), bound {kb['bound_ms']:.4f} ms "
+            f"({kb['bound_by']}) [{label}]"
+        )
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kb}
+
+    def entry(name, source, line, launches, by_phase, measured):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"vectorchord_bm25_tpu_torch/csrc/{source}",
+            "replaces": f"vectorchord_bm25_tpu/search/exact.py:{line}",
+            "launches": launches,
+            "launches_by_phase": by_phase,
+            **measured,
+            "library_ms": None,
+        }
+
+    def served(phase, what, qps, launches):
+        print(
+            f"{phase} {what}: {len(qps)} x search_batch({len(queries)} queries, "
+            f"k={K}); launches {launches}; QPS per batch "
+            f"{[round(x, 1) for x in qps]} (median {float(np.median(qps)):.1f}) [{label}]"
+        )
+
+    p1_by_phase, s2_by_phase = {}, {}
+
+    # (o) exact, dense f32 rows
+    index = build("exact", {})
+    engine = index.engine()
+    if type(engine) is not ExactEngine or engine.compact or not engine.dev.post_docid.is_cuda:
+        raise AssertionError(f"engine='exact' built {engine!r}")
+    e1 = check(engine, dense_name, e1_bound, "(o) E1 f32")
+    s2 = (topk, "LAUNCHES", "S2")
+    p1 = (score_kernel, "LAUNCHES", "P1")
+    counters = [(exact_kernel, "DENSE_LAUNCHES"), s2]
+    qps, launches, _ = _serve(index, queries, counters, "exact")
+    served("(o)", f"exact ({launches['S2'] // ROUNDS} dispatches a batch)", qps, launches)
+    e1_launches = launches["DENSE_LAUNCHES"]
+    s2_by_phase["(o)"] = launches["S2"]
+    want_bytes = rows * 128 * 8 + 4 * (n + 1)
+    got_bytes = engine.memory_report()["total"]
+    if got_bytes != want_bytes:
+        raise AssertionError(f"exact memory_report total {got_bytes} != {want_bytes}")
+    cpu = build("exact", {}, "cpu")
+    recall, total, ties, n_del = audit(index, cpu, seg, sample)
+    del cpu
+    print(
+        f"(o) {AUDIT} sampled queries: GPU == CPU-plain, also after deleting "
+        f"{n_del} docs (1%) and with a prefilter; recall@{K} vs the float64 "
+        f"oracle {recall} ({total} hits, {ties} boundary ties excused); "
+        f"memory_report total {got_bytes} B == the reference's formula"
+    )
+    # The yardstick of (p) and (q): the dense f32 engine with the 1% deleted,
+    # as every engine below is (bulkdelete, or phase (e)'s deletes).
+    engine = index.engine()
+    f32 = engine.search(queries, K)
+
+    # (p) bf16 rows
+    index_bf = build("exact", {"impact_dtype": "bfloat16"})
+    bf = index_bf.engine()
+    if bf.dev.post_impact.dtype != torch.bfloat16:
+        raise AssertionError("impact_dtype='bfloat16' did not give bf16 rows")
+    e1_bf = check(bf, dense_name, e1_bound, "(p) E1 bf16")
+    counters = [(exact_kernel, "DENSE_BF16_LAUNCHES"), s2]
+    qps, launches, _ = _serve(index_bf, queries, counters, "exact bf16")
+    served("(p)", "exact, bf16 rows", qps, launches)
+    bf_launches = launches["DENSE_BF16_LAUNCHES"]
+    s2_by_phase["(p) bf16"] = launches["S2"]
+    want_bytes = rows * 128 * 6 + 4 * (n + 1)
+    if bf.memory_report()["total"] != want_bytes:
+        raise AssertionError(f"bf16 memory_report total != {want_bytes}")
+    index_bf.bulkdelete(doomed)
+    s_bf, i_bf, _ = index_bf.engine().search(queries, K)
+    s_32, i_32, _ = f32
+    if not np.array_equal(i_bf >= 0, i_32 >= 0):
+        raise AssertionError("bf16 and f32 return different hit counts")
+    live = i_32 >= 0
+    np.testing.assert_allclose(s_bf[live], s_32[live], rtol=6e-3)
+    hit = sum(len(set(a[a >= 0]) & set(b[b >= 0])) for a, b in zip(i_bf, i_32))
+    print(
+        f"(p) bf16: scores per rank within rtol 6e-3 of the f32 engine's on "
+        f"{len(queries)} queries (1% deleted on both), recall@{K} vs the f32 "
+        f"engine {hit / max(1, int(live.sum())):.6f}; memory_report total "
+        f"{want_bytes} B == the reference's formula"
+    )
+    del index_bf, bf
+
+    # (p) compact, and shared with phase (d)'s Block-Max engine
+    index_c = build("exact", {"compact": True})
+    compact = index_c.engine()
+    if not compact.compact:
+        raise AssertionError("compact=True did not give the compact engine")
+    e3 = check(compact, compact_name, e3_bound, "(p) E3 compact")
+    counters = [(exact_kernel, "COMPACT_LAUNCHES"), s2]
+    qps, launches, _ = _serve(index_c, queries, counters, "exact compact")
+    served("(p)", "exact, compact", qps, launches)
+    e3_by_phase = {"(p) compact": launches["COMPACT_LAUNCHES"]}
+    s2_by_phase["(p) compact"] = launches["S2"]
+    cri = compact._ranges
+    want_bytes = 5 * cri.post_local.size + 8 * (cri.tr_range.size + 1) + 4 + 4 * (n + 1)
+    if compact.memory_report()["total"] != want_bytes:
+        raise AssertionError(f"compact memory_report total != {want_bytes}")
+    index_c.bulkdelete(doomed)
+    unequal = _held_to(index_c.engine().search(queries, K), f32, "compact vs dense", False)
+    print(
+        f"(p) compact: hits, ranks and scores held to the dense f32 engine's on "
+        f"{len(queries)} queries ({unequal} scores not bit-equal); "
+        f"memory_report total {want_bytes} B == the reference's formula"
+    )
+    del index_c, compact
+    shared = ExactEngine(seg, share=bm_engine)
+    names = ("dev_post_impact", "dev_post_local", "dev_tr_range", "dev_tr_start")
+    if shared.dev is not bm_engine.dev or any(
+        getattr(shared, x).data_ptr() != getattr(bm_engine, x).data_ptr() for x in names
+    ):
+        raise AssertionError("share= did not alias the Block-Max engine's tensors")
+    e3_shared = check(shared, compact_name, e3_bound, "(p) E3 shared")
+    exact_kernel.COMPACT_LAUNCHES = topk.LAUNCHES = 0
+    got = shared.search(queries, K)
+    e3_by_phase["(p) shared"] = exact_kernel.COMPACT_LAUNCHES
+    s2_by_phase["(p) shared"] = topk.LAUNCHES
+    if not e3_by_phase["(p) shared"]:
+        raise AssertionError("the shared engine never launched E3")
+    unequal = _held_to(got, f32, "shared vs dense", False)
+    print(
+        f"(p) share=: tensors alias the Block-Max engine's (data_ptr); E3 "
+        f"{e3_shared['ms']:.4f} ms vs plain {e3_shared['plain_ms']:.4f} ms; "
+        f"{e3_by_phase['(p) shared']} launches a batch; held to the dense f32 "
+        f"engine's on {len(queries)} queries ({unequal} scores not bit-equal)"
+    )
+    del shared, got
+
+    # (q) hybrid: the routes into the exact engine, P1 and the range sweep
+    def hybrid(opts):
+        index_h = build("hybrid", {"range_index": ri, **opts})
+        if type(index_h.engine()) is not HybridEngine:
+            raise AssertionError("engine='hybrid' did not build the HybridEngine")
+        index_h.bulkdelete(doomed)
+        return index_h, index_h.engine()
+
+    counters = [(exact_kernel, "DENSE_LAUNCHES"), s2]
+    index_h, hyb = hybrid({})
+    routes = np.bincount(hyb._route(queries)[0], minlength=3)
+    qps, launches, _ = _serve(index_h, queries, counters, "hybrid", rounds=3)
+    if hyb._blockmax is not None:
+        raise AssertionError("the default hybrid built the Block-Max engine")
+    if not all(np.array_equal(a, b) for a, b in zip(hyb.search(queries, K), f32)):
+        raise AssertionError("default hybrid != the exact engine")
+    served(
+        "(q1)", f"hybrid, default heavy_mode (one-shot/dense/heavy {routes.tolist()}; "
+        f"Block-Max never built; results == phase (o)'s)", qps, launches,
+    )
+    hybrid_e1 = launches["DENSE_LAUNCHES"]
+    s2_by_phase["(q1)"] = launches["S2"]
+    del index_h, hyb
+
+    threshold = 0.10
+    while True:
+        probe = HybridEngine(seg, ri, route_threshold=threshold, oneshot_cap=64)
+        routes = np.bincount(probe._route(queries)[0], minlength=3)
+        if routes[2] or threshold < 1e-4:
+            break
+        threshold /= 2
+    if not routes[2]:
+        raise AssertionError("no query takes the heavy route at any threshold")
+    print(
+        f"(q) route_threshold {threshold} (default 0.10, halved until a query "
+        f"takes the heavy route), oneshot_cap 64: one-shot/dense/heavy "
+        f"{routes.tolist()} of {len(queries)} queries"
+    )
+    for phase, opts, e_counter in (
+        (
+            "(q2)",
+            {"heavy_mode": "pruned", "memory_mode": "compact", "oneshot_cap": 64},
+            "COMPACT_LAUNCHES",
+        ),
+        ("(q3)", {"heavy_mode": "rangescan", "oneshot_cap": 64}, "DENSE_LAUNCHES"),
+    ):
+        index_h, hyb = hybrid({**opts, "route_threshold": threshold})
+        # _serve raises unless every counter it is given grew: P1 always
+        # (the one-shot and heavy groups), the exact engine's kernel and S2
+        # where some query takes the dense route (S2 also ends the sweep).
+        counters = [p1, (exact_kernel, e_counter), s2]
+        if not routes[1]:
+            counters = [p1] if phase == "(q2)" else [p1, s2]
+        qps, launches, _ = _serve(index_h, queries, counters, phase, rounds=3)
+        p1_by_phase[phase] = launches["P1"]
+        s2_by_phase[phase] = launches.get("S2", 0)
+        unequal = _held_to(hyb.search(queries, K), f32, f"hybrid {phase} vs exact", True)
+        rep = hyb.memory_report()
+        if phase == "(q2)":
+            e3_by_phase[phase] = launches.get(e_counter, 0)
+            want_bytes = 5 * p + 12 * (ri.tr_range.size + 1) + 4 + 4 * (v + 2) + 4 * (n + 1)
+            if rep["total"] != want_bytes or "dense_strategy_bytes" in rep:
+                raise AssertionError(f"compact hybrid memory_report {rep} != one copy {want_bytes}")
+            if hyb.exact.dev_post_impact.data_ptr() != hyb.blockmax.dev_post_impact.data_ptr():
+                raise AssertionError("compact hybrid holds two copies of the postings")
+        else:
+            hybrid_e1 += launches.get(e_counter, 0)
+        served(
+            phase, f"hybrid {opts} (P1 {p1_by_phase[phase]} launches, S2 "
+            f"{s2_by_phase[phase]}; ids == phase (o)'s on all {len(queries)} "
+            f"queries, {unequal} scores not bit-equal; memory_report total "
+            f"{rep['total']} B)", qps, launches,
+        )
+        del index_h, hyb
+    entries = [
+        entry(
+            dense_name, "exact_dense.cu", 148, e1_launches + hybrid_e1,
+            {"(o)": e1_launches, "(q)": hybrid_e1}, e1,
+        ),
+        entry(
+            dense_name + "_bf16", "exact_dense.cu", 148, bf_launches,
+            {"(p)": bf_launches}, e1_bf,
+        ),
+        entry(
+            compact_name, "exact_compact.cu", 95, sum(e3_by_phase.values()),
+            e3_by_phase, {**e3, "shared_ms": e3_shared["ms"]},
+        ),
+    ]
+    return entries, p1_by_phase, s2_by_phase
+
+
 def _checked(module, name, plain, size, errs):
     """Replace ``module.name`` by a wrapper that launches the kernel as the
     engine asked, then runs its plain version on the same inputs and raises
@@ -702,9 +1079,121 @@ def _finite_err(a, b):
     return float(torch.where(live, a - b, 0.0).abs().max()) if a.numel() else 0.0
 
 
+def exact_sparse(args, seg, batches, label, build_times):
+    """Phase (r): the exact engine where its ``auto`` strategy is the sparse
+    sort path, on phase (i)'s corpus and query mixes.  Returns the
+    kernels-line entry of E2 and S4's launches in this phase."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel, stream_sparse
+    from vectorchord_bm25_tpu_torch.search.exact import ExactEngine
+
+    t0 = time.perf_counter()
+    engine = ExactEngine(seg, device="cuda")
+    build_times["(r) exact engine's posting rows"] = time.perf_counter() - t0
+    if engine.strategy != "auto" or seg.n_docs < engine.SPARSE_MIN_DOCS or engine.compact:
+        raise AssertionError(f"{seg.n_docs} docs are not served by the sparse strategy")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    restore, c = _checked(
+        exact_kernel, "exact_sparse_gather", exact_kernel.exact_sparse_gather_plain,
+        lambda a: a[4].numel() * 128, lambda out, want: _finite_err(out[1], want[1]),
+    )
+    try:
+        for queries in batches.values():
+            engine.search(queries, K)
+    finally:
+        restore()
+    if not c["checked"]:
+        raise AssertionError("E2 saw no dispatch")
+    a = c["args"]
+    ms = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
+    kb = e2_bound(a)
+    print(
+        f"(r) exact_sparse_gather: {c['checked']} dispatches equal to the plain "
+        f"version (torch.equal); largest {tuple(a[4].shape)} windows "
+        f"({c['size']} lanes) {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+        f"{kb['bound_ms']:.4f} ms ({kb['bound_by']}) [{label}]"
+    )
+    c["args"] = a = None
+
+    # The main path: every count from 0, 3 batches of each mix.
+    exact_kernel.SPARSE_LAUNCHES = stream_sparse.COMBINE_LAUNCHES = 0
+    for mix, queries in batches.items():
+        qps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            scores, ids, _ = engine.search(queries, K)
+            qps.append(len(queries) / (time.perf_counter() - t0))
+        live = ids >= 0
+        if not live.any() or not (np.isfinite(scores[live]).all() and (scores[live] > 0).all()):
+            raise AssertionError(f"(r) {mix} results are not finite positive hits")
+        print(
+            f"(r) {mix}: 3 x ExactEngine.search({len(queries)} queries, k={K}) at "
+            f"{seg.n_docs} docs, sparse strategy; QPS per batch "
+            f"{[round(x, 1) for x in qps]} [{label}]"
+        )
+    launches = exact_kernel.SPARSE_LAUNCHES
+    s4_launches = stream_sparse.COMBINE_LAUNCHES
+    if not launches or not s4_launches:
+        raise AssertionError(f"(r) launched E2 {launches} times, S4 {s4_launches}")
+
+    # The card against the CPU-plain engine, and against the oracle.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 7)
+
+    def pick(n):
+        return [
+            queries[i]
+            for queries in batches.values()
+            for i in np.sort(rng.choice(len(queries), min(n, len(queries)), replace=False))
+        ]
+
+    sample = pick(SPARSE_AUDIT // 2)
+    cpu = ExactEngine(seg, device="cpu")
+    got, want = engine.search(sample, K), cpu.search(sample, K)
+    del cpu
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("(r) GPU != CPU-plain")
+    sample = pick(AUDIT // 2)
+    scores, ids, pays = engine.search(sample, K)
+    hits = [
+        [(float(sc), int(p)) for sc, i, p in zip(*row) if i >= 0]
+        for row in zip(scores, ids, pays)
+    ]
+    recall, total, ties = recall_vs_oracle(seg, sample, hits, K)
+    if recall != 1.0:
+        raise AssertionError(f"(r) recall@{K} vs oracle {recall} != 1.0")
+    torch.cuda.synchronize()
+    print(
+        f"(r) E2 {launches} launches, S4 {s4_launches}; GPU == CPU-plain on "
+        f"{SPARSE_AUDIT} queries; recall@{K} vs the float64 oracle {recall} on "
+        f"{len(sample)} queries ({total} hits, {ties} boundary ties excused); peak "
+        f"device memory {torch.cuda.max_memory_allocated()} B (index "
+        f"{engine.memory_report()['total']} B); audits took "
+        f"{time.perf_counter() - t0:.1f} s [{label}]"
+    )
+    entry = {
+        "name": "exact_sparse_gather",
+        "route": "cuda",
+        "source": "vectorchord_bm25_tpu_torch/csrc/exact_sparse.cu",
+        "replaces": "vectorchord_bm25_tpu/search/exact.py:185",
+        "launches": launches,
+        "launches_by_phase": {"(r)": launches},
+        "max_abs_err": c["err"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **kb,
+        "library_ms": None,
+    }
+    return entry, s4_launches
+
+
 def sparse_slice(args, label, build_times):
-    """Phases (i)-(j): the served default at scale, where ``auto`` leaves the
-    dense path.  Returns the kernels-line entries of S3, S4 and S5."""
+    """Phases (i)-(j) and (r): the served default at scale, where ``auto``
+    leaves the dense path, then the exact engine on the same corpus.  Returns
+    the kernels-line entries of S3, S4, S5 and E2."""
     import torch
 
     from vectorchord_bm25_tpu_torch import (
@@ -944,7 +1433,9 @@ def sparse_slice(args, label, build_times):
         "sparse_combine": ("stream_sparse.cu", ":337"),
         "stream_rescore": ("stream_rescore.cu", ":366"),
     }
-    return [
+    del index, engine
+    e2_entry, s4_exact = exact_sparse(args, seg, batches, label, build_times)
+    entries = [
         {
             "name": c["name"],
             "route": "cuda",
@@ -959,6 +1450,10 @@ def sparse_slice(args, label, build_times):
         }
         for c in stats
     ]
+    s4_entry = next(e for e in entries if e["name"] == "sparse_combine")
+    s4_entry["launches_by_phase"] = {"(i)": s4_entry["launches"], "(r)": s4_exact}
+    s4_entry["launches"] += s4_exact
+    return entries + [e2_entry]
 
 
 def main() -> int:
@@ -1141,12 +1636,18 @@ def main() -> int:
     t0 = time.perf_counter()
     rest, sweep = blockmax_rest(args, seg, seed, queries, ri, engine, cpu.engine(), label)
     build_times["(l)-(n) phases, all of them"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact_entries, p1_hybrid, s2_exact = exact_hybrid(
+        args, seg, seed, queries, ri, engine, label
+    )
+    build_times["(o)-(q) phases, all of them"] = time.perf_counter() - t0
     # P1 and S2 entries count every main-path run that launched them.
     s2_entry = next(e for e in stream if e["name"] == "dense_topk")
     s2_entry["launches_by_phase"] = {
         "(f)": s2_entry["launches"], "(n)": sweep["dense_topk"]["sweep_launches"],
+        **s2_exact,
     }
-    s2_entry["launches"] += sweep["dense_topk"]["sweep_launches"]
+    s2_entry["launches"] = sum(s2_entry["launches_by_phase"].values())
     s2_entry.update(sweep["dense_topk"])
     p1_bound_fields = p1_bound(imp, starts, lens, rs)
     p1_sweep = sweep["fused_range_scores"]
@@ -1173,9 +1674,11 @@ def main() -> int:
                         "route": "cuda",
                         "source": "vectorchord_bm25_tpu_torch/csrc/score_kernel.cu",
                         "replaces": "vectorchord_bm25_tpu/ops/score_kernel.py:67",
-                        "launches": launches + p1_sweep["sweep_launches"],
+                        "launches": launches + p1_sweep["sweep_launches"]
+                        + sum(p1_hybrid.values()),
                         "launches_by_phase": {
                             "(d)": launches, "(n)": p1_sweep["sweep_launches"],
+                            **p1_hybrid,
                         },
                         "max_abs_err": max_err,
                         "max_abs_err_random": rand_err,
@@ -1188,6 +1691,7 @@ def main() -> int:
                     *rest,
                     *stream,
                     *sparse,
+                    *exact_entries,
                 ]
             }
         )

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Marked ``cuda``: each test skips unless torch sees a CUDA device (nvcc
 builds the kernel at first use).  A CUDA install need not have jax, so run
@@ -601,3 +601,184 @@ def test_launch_failure_raises(card, monkeypatch):
             loc, loc, loc, torch.zeros(256, device=card),
             torch.zeros((1, 1), device=card), st[0], st, st, rs=128, n_docs=255,
         )
+
+
+# --- the exact engine's kernels E1-E3 and the hybrid engine's routes
+
+
+def _exact_recorded(monkeypatch, module, name):
+    """Record every call ``module`` makes to ``name`` while passing it
+    through."""
+    calls, real = [], getattr(module, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(module, name, record)
+    return calls
+
+
+def _exact_queries(gen, vocab, n=48):
+    from vectorchord_bm25_tpu_torch.text.intern import Query as PortQuery
+
+    qs = [
+        PortQuery.from_int_ids(gen.integers(0, vocab, size=int(t)).tolist())
+        for t in gen.integers(1, 7, size=n)
+    ]
+    return qs + [PortQuery.from_int_ids([3, 3, 5]), PortQuery.from_int_ids([10**6])]
+
+
+@pytest.mark.parametrize("impact_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["dense", "sparse", "compact"])
+def test_exact_kernels_equal_plain_on_index_windows(card, gen, monkeypatch, mode, impact_dtype):
+    # Every call the engine makes, on its own windows: kernel == plain, and
+    # the card == the CPU (deletes, a filter, a repeated term, an absent one).
+    from vectorchord_bm25_tpu_torch.index.sealed import segment_from_reference
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel
+    from vectorchord_bm25_tpu_torch.search import exact
+
+    n_docs, vocab = 3000, 40
+    seg = segment_from_reference(build_sealed_segment(make_docs(gen, n_docs, vocab=vocab)))
+    name, counter, opts = {
+        "dense": ("exact_dense_accumulate", "DENSE_LAUNCHES", {"strategy": "dense"}),
+        "sparse": ("exact_sparse_gather", "SPARSE_LAUNCHES", {"strategy": "sparse"}),
+        "compact": ("exact_compact_accumulate", "COMPACT_LAUNCHES", {"compact": True}),
+    }[mode]
+    if mode == "dense" and impact_dtype == "bfloat16":
+        counter = "DENSE_BF16_LAUNCHES"
+    # The wrapper itself, taken before the recorder goes in (E2 is called
+    # from inside its own module, so the recorder replaces it there).
+    kernel = getattr(exact_kernel, name)
+    home = exact_kernel if mode == "sparse" else exact
+    calls = _exact_recorded(monkeypatch, home, name)
+    opts = {**opts, "impact_dtype": impact_dtype}
+    on_card = exact.ExactEngine(seg, device=card, **opts)
+    on_cpu = exact.ExactEngine(seg, device="cpu", **opts)
+    deleted = gen.random(n_docs) < 0.1
+    on_card.set_deleted(deleted)
+    on_cpu.set_deleted(deleted)
+    fmask = gen.random(n_docs) < 0.7
+    queries = _exact_queries(gen, vocab)
+    plain = getattr(exact_kernel, name + "_plain")
+    for kw in ({}, {"filter_mask": fmask}):
+        for k in (10, 5000):
+            del calls[:]
+            before = getattr(exact_kernel, counter)
+            got = on_card.search(queries, k, **kw)
+            assert getattr(exact_kernel, counter) > before
+            assert calls
+            for args, kw_ in calls:
+                out = kernel(*args, **kw_)
+                want = plain(*args, **kw_)
+                torch.cuda.synchronize()
+                pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+                assert all(torch.equal(a, b) for a, b in pairs)
+            del calls[:]
+            want = on_cpu.search(queries, k, **kw)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+    assert on_card.memory_report() == on_cpu.memory_report()
+
+
+def test_exact_kernels_reject_bad_inputs(card):
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel
+
+    pd = torch.zeros((3, 128), dtype=torch.int32, device=card)
+    pi = torch.zeros((3, 128), device=card)
+    live = torch.ones(5, device=card)
+    win = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        exact_kernel.exact_dense_accumulate(pd, pi.double(), live, win, win, win, win, 1, 4)
+    with pytest.raises(ValueError):
+        exact_kernel.exact_dense_accumulate(pd, pi, live, win, win, win, win[:1], 1, 4)
+    with pytest.raises(ValueError):
+        exact_kernel.exact_dense_accumulate(pd, pi, live, win.cpu(), win, win, win, 1, 4)
+    with pytest.raises(ValueError):
+        exact_kernel.exact_dense_accumulate(pd, pi, live, win, win, win, win.cpu(), 1, 4)
+    with pytest.raises(ValueError):
+        exact_kernel.exact_sparse_gather(pd, pi, live, live[:4], win, win, win, 4)
+    loc = torch.zeros(64, dtype=torch.uint8, device=card)
+    tr = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        exact_kernel.exact_compact_accumulate(
+            torch.zeros(64, device=card), loc, tr, tr, win, win, 1, 4, 128
+        )
+
+
+def test_exact_launch_failure_raises(card, monkeypatch):
+    # A nonzero CUDA error from the library raises; nothing falls back.
+    from vectorchord_bm25_tpu_torch.ops import _build, exact_kernel
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *a: 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_build, "library", lambda: Failing())
+    pd = torch.zeros((3, 128), dtype=torch.int32, device=card)
+    pi = torch.zeros((3, 128), device=card)
+    live = torch.ones(5, device=card)
+    win = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        exact_kernel.exact_dense_accumulate(pd, pi, live, win, win, win, win, 1, 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        exact_kernel.exact_sparse_gather(
+            pd, pi.to(torch.bfloat16), live, live, win, win, win, 4
+        )
+    loc = torch.zeros(64, dtype=torch.uint8, device=card)
+    tr = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        exact_kernel.exact_compact_accumulate(
+            torch.zeros(64, device=card), loc, tr[:3], tr, win, win, 1, 4, 128
+        )
+
+
+def test_shared_exact_engine_aliases_blockmax(card, gen):
+    from vectorchord_bm25_tpu_torch.index.sealed import segment_from_reference
+    from vectorchord_bm25_tpu_torch.search.exact import ExactEngine
+
+    seg = segment_from_reference(build_sealed_segment(make_docs(gen, 2000, vocab=30)))
+    bm = BlockMaxEngine(seg, device=card)
+    shared = ExactEngine(seg, share=bm)
+    assert shared.dev is bm.dev and shared.compact
+    for name in ("dev_post_impact", "dev_post_local", "dev_tr_range", "dev_tr_start"):
+        assert getattr(shared, name).data_ptr() == getattr(bm, name).data_ptr()
+        assert getattr(shared, name).is_cuda
+    queries = _exact_queries(gen, 30)
+    got = shared.search(queries, 10)
+    want = ExactEngine(seg, device="cpu", compact=True).search(queries, 10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("memory_mode", ["fast", "compact"])
+@pytest.mark.parametrize("heavy_mode", ["auto", "pruned", "rangescan"])
+def test_hybrid_on_card_equals_cpu(card, gen, heavy_mode, memory_mode):
+    from vectorchord_bm25_tpu_torch.index.sealed import segment_from_reference
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel
+    from vectorchord_bm25_tpu_torch.search.hybrid import HybridEngine
+
+    n_docs, vocab = 3000, 600
+    seg = segment_from_reference(build_sealed_segment(make_docs(gen, n_docs, vocab=vocab)))
+    opts = dict(
+        heavy_mode=heavy_mode, memory_mode=memory_mode, oneshot_cap=48,
+        route_threshold=0.10, chunk=4,
+    )
+    on_card = HybridEngine(seg, device=card, **opts)
+    on_cpu = HybridEngine(seg, device="cpu", **opts)
+    deleted = gen.random(n_docs) < 0.1
+    on_card.set_deleted(deleted)
+    on_cpu.set_deleted(deleted)
+    fmask = gen.random(n_docs) < 0.7
+    queries = _exact_queries(gen, vocab, n=96)
+    routes = np.bincount(on_card._route(queries)[0], minlength=3)
+    assert routes.all(), routes  # every strategy group is exercised
+    counter = "COMPACT_LAUNCHES" if memory_mode == "compact" else "DENSE_LAUNCHES"
+    for kw in ({}, {"filter_mask": fmask}):
+        p1, ex = score_kernel.LAUNCHES, getattr(exact_kernel, counter)
+        got = on_card.search(queries, 10, **kw)
+        assert score_kernel.LAUNCHES > p1 and getattr(exact_kernel, counter) > ex
+        want = on_cpu.search(queries, 10, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert on_card.memory_report() == on_cpu.memory_report()

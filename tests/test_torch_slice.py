@@ -27,9 +27,10 @@ from test_tokenizer import TOY_CORPUS  # noqa: E402
 torch.set_num_threads(2)
 
 N_DOCS, VOCAB = 2048, 300
-# chunk=4: several pruning rounds per batch on this corpus (16 ranges).
-PORT_OPTS = {"chunk": 4}
-REF_OPTS = {"use_pallas": "interpret", **PORT_OPTS}
+# chunk=4: several pruning rounds per batch on this corpus (16 ranges).  The
+# port takes the reference's options as they are: it accepts use_pallas and
+# ignores it (the tensors' device picks the kernel).
+REF_OPTS = {"use_pallas": "interpret", "chunk": 4}
 
 
 def hits_of(results):
@@ -58,7 +59,7 @@ def pair(corpus):
     )
     port = Bm25Index.build(
         docs, payloads=payloads, seed=seed, engine="blockmax",
-        engine_options=PORT_OPTS, device="cpu",
+        engine_options=REF_OPTS, device="cpu",
     )
     return ref, port, queries
 
@@ -255,12 +256,33 @@ def test_from_reference_stream_checkpoint(stream_pair, rng, tmp_path):
 
 
 def test_from_reference_keeps_unported_engine(corpus):
+    # Every engine of the reference is ported now: from_reference keeps the
+    # reference's engine and its options, and serves them.
     docs, payloads, queries = corpus
-    ref = RefIndex.build(docs[:50], engine="exact")
+    for engine, opts in (
+        ("exact", {"strategy": "sparse", "impact_dtype": "bfloat16"}),
+        ("exact", {"compact": True}),
+        ("hybrid", {"use_pallas": "interpret", "heavy_mode": "pruned", "chunk": 4}),
+    ):
+        ref = RefIndex.build(docs[:300], engine=engine, engine_options=opts)
+        port = Bm25Index.from_reference(ref, device="cpu")
+        assert port.engine_kind == engine and port.engine_options == opts
+        assert_batch_equal(ref, port, queries[:16])
+        assert port.engine().memory_report() == ref.engine().memory_report()
+
+
+def test_from_reference_serves_reference_engine_options(corpus):
+    # A reference blockmax index built with use_pallas in its engine_options
+    # crosses with no override and serves, equal to the reference bit for bit.
+    docs, payloads, queries = corpus
+    ref = RefIndex.build(
+        docs[:300], engine="blockmax",
+        engine_options={"use_pallas": "interpret", "chunk": 4},
+    )
     port = Bm25Index.from_reference(ref, device="cpu")
-    assert port.engine_kind == "exact"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search_batch(queries[:2], 5)
+    assert port.engine_options == {"use_pallas": "interpret", "chunk": 4}
+    assert_batch_equal(ref, port, queries[:16])
+    assert port.engine().chunk == 4
 
 
 def test_from_reference_checkpoint(pair, rng, tmp_path):
@@ -271,9 +293,10 @@ def test_from_reference_checkpoint(pair, rng, tmp_path):
     ref.bulkdelete(lambda p: p == 200_003)
     save_index(ref, str(tmp_path / "idx"))
     loaded = load_index(str(tmp_path / "idx"))
-    port = Bm25Index.from_reference(
-        loaded, device="cpu", engine_options=PORT_OPTS
-    )
+    # The checkpoint's meta.json carries the reference's engine_options,
+    # use_pallas included: they serve with no override.
+    port = Bm25Index.from_reference(loaded, device="cpu")
+    assert port.engine_options == REF_OPTS
     for q in queries[:6]:
         assert hits_of([port.search(q, k=10)]) == hits_of([ref.search(q, k=10)])
     ref.maintain()
@@ -283,10 +306,15 @@ def test_from_reference_checkpoint(pair, rng, tmp_path):
 
 @pytest.mark.parametrize("engine", ["exact", "hybrid"])
 def test_unported_engines_raise(corpus, engine):
+    # No engine is left unported: what used to raise NotImplementedError
+    # serves, equal to the reference; only an unknown engine raises.
     docs, payloads, queries = corpus
-    index = Bm25Index.build(docs[:50], engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.search_batch(queries[:2], 5)
+    seed = random_seed()
+    index = Bm25Index.build(docs[:300], seed=seed, engine=engine, device="cpu")
+    ref = RefIndex.build(docs[:300], seed=seed, engine=engine)
+    assert_batch_equal(ref, index, queries[:16], k=5)
+    with pytest.raises(ValueError, match="unknown engine"):
+        Bm25Index.build(docs[:50], engine=engine + "?", device="cpu")
 
 
 def test_no_cpu_fallback(corpus, monkeypatch):

@@ -30,11 +30,12 @@ from vectorchord_bm25_tpu.index import sealed as ref_sealed  # noqa: E402
 from vectorchord_bm25_tpu.index import stream as ref_stream  # noqa: E402
 from vectorchord_bm25_tpu.index.bm25index import Bm25Index as RefIndex  # noqa: E402
 from vectorchord_bm25_tpu.search import exact as ref_exact  # noqa: E402
+from vectorchord_bm25_tpu.search import hybrid as ref_hybrid  # noqa: E402
 from vectorchord_bm25_tpu.text import intern as ref_intern  # noqa: E402
 from vectorchord_bm25_tpu_torch import Bm25Index  # noqa: E402
 from vectorchord_bm25_tpu_torch.data import synth  # noqa: E402
 from vectorchord_bm25_tpu_torch.index import ranges, sealed, stream  # noqa: E402
-from vectorchord_bm25_tpu_torch.search import exact  # noqa: E402
+from vectorchord_bm25_tpu_torch.search import exact, hybrid  # noqa: E402
 from vectorchord_bm25_tpu_torch.text import intern  # noqa: E402
 
 from test_sealed import make_docs  # noqa: E402
@@ -130,6 +131,34 @@ def test_port_runs_without_jax():
             assert all(len(h) == 5 for h in got), (strategy, got)
             assert other.engine().strategy == strategy
         assert other.engine().last_ms_stats["routed_queries"] == len(qs)
+        want = Bm25Index.build(docs, engine="exact", device="cpu").search_batch(qs, k=5)
+        want = [[(h.score, h.payload) for h in hits] for hits in want]
+        assert all(len(h) == 5 for h in want), want
+        for opts in (
+            {"strategy": "dense"}, {"strategy": "sparse"}, {"compact": True},
+            {"impact_dtype": "bfloat16"},
+        ):
+            index = Bm25Index.build(docs, engine="exact", engine_options=opts, device="cpu")
+            got = [[(h.score, h.payload) for h in hits] for hits in index.search_batch(qs, k=5)]
+            assert all(len(h) == 5 for h in got), (opts, got)
+            if "impact_dtype" not in opts:
+                assert got == want, opts
+        for heavy_mode in ("auto", "pruned", "rangescan"):
+            for memory_mode in ("fast", "compact"):
+                opts = {
+                    "heavy_mode": heavy_mode, "memory_mode": memory_mode,
+                    "oneshot_cap": 2, "route_threshold": 0.3, "use_pallas": None,
+                }
+                index = Bm25Index.build(docs, engine="hybrid", engine_options=opts, device="cpu")
+                got = [
+                    [(h.score, h.payload) for h in hits]
+                    for hits in index.search_batch(qs + [Query.from_int_ids([39])], k=5)
+                ]
+                assert got[:2] == want, opts
+                engine = index.engine()
+                assert (engine._blockmax is None) == (
+                    heavy_mode == "auto" and memory_mode == "fast"
+                ), opts
         keys, doc_ids, tfs, doc_start = synth_corpus_postings(500, 2000, 20)
         assert keys.size == doc_ids.size == tfs.size
         loaded = sorted(
@@ -234,6 +263,48 @@ def test_oracles_equal_reference(rng):
             want = ref_exact.oracle_topk(ref_seg, ref_q, 10, deleted, fmask, dtype)
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w)
+
+
+def test_exact_and_hybrid_planning_equals_reference(rng):
+    # The port's copies of the exact engine's window and group lists and of
+    # the hybrid router give the reference's arrays on the same queries; the
+    # lists carry one array more, the term ordinals.
+    ref_seg, seg = _both_segments(rng, n=1500, vocab=60)
+    queries = [
+        ref_intern.Query.from_int_ids(rng.integers(0, 70, size=int(n)).tolist())
+        for n in rng.integers(1, 7, size=64)
+    ] + [ref_intern.Query(keys=np.zeros(0, dtype="S16"))]
+    sub = np.array([3, 0, 17, 64, 40])
+    ref_dense, dense = ref_exact.ExactEngine(ref_seg), exact.ExactEngine(seg, device="cpu")
+    (*ref_wins, ), ref_terms = ref_dense._win_lists(queries)
+    wins, n_terms = dense._win_lists(queries)
+    np.testing.assert_array_equal(n_terms, ref_terms)
+    assert len(wins) == len(ref_wins) + 1
+    for got, want in zip(wins, ref_wins):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(
+        dense._assemble_windows(wins, sub), ref_dense._assemble_windows(tuple(ref_wins), sub)
+    ):
+        np.testing.assert_array_equal(got, want)
+    ref_compact = ref_exact.ExactEngine(ref_seg, compact=True)
+    compact = exact.ExactEngine(seg, device="cpu", compact=True)
+    ref_lists, lists = ref_compact._grp_lists(queries), compact._grp_lists(queries)
+    assert len(lists) == len(ref_lists) + 1
+    for got, want in zip(lists, ref_lists):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        compact._assemble_compact(lists, sub)[0], ref_compact._assemble_compact(ref_lists, sub)
+    )
+    # An empty batch of lists (no known term) keeps the shapes.
+    none = [ref_intern.Query.from_int_ids([10**6])]
+    assert [x.size for x in dense._win_lists(none)[0]] == [0, 0, 0, 2, 1, 0]
+    assert [x.size for x in compact._grp_lists(none)] == [0, 2, 1, 0]
+    for opts in ({}, {"route_threshold": 0.02, "oneshot_cap": 6}):
+        got = hybrid.HybridEngine(seg, device="cpu", **opts)._route(queries)
+        want = ref_hybrid.HybridEngine(ref_seg, **opts)._route(queries)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+            assert g.dtype == w.dtype
 
 
 def test_generators_equal_bench():

@@ -25,6 +25,10 @@ __all__ = [
     "build_sealed_segment",
     "build_sealed_segment_from_postings",
     "segment_from_reference",
+    "BlockMaxEngine",
+    "ExactEngine",
+    "HybridEngine",
+    "StreamEngine",
     "oracle_scores",
     "oracle_topk",
 ]
@@ -40,6 +44,10 @@ _HOME = {
     "build_sealed_segment": ".index.sealed",
     "build_sealed_segment_from_postings": ".index.sealed",
     "segment_from_reference": ".index.sealed",
+    "BlockMaxEngine": ".search.blockmax",
+    "ExactEngine": ".search.exact",
+    "HybridEngine": ".search.hybrid",
+    "StreamEngine": ".search.stream",
     "oracle_scores": ".search.exact",
     "oracle_topk": ".search.exact",
 }

@@ -41,18 +41,11 @@
 // is bound by memory traffic (and by the latency of the scattered window
 // starts), far below the card's arithmetic rate.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "impact.cuh"
 
 namespace {
 
 constexpr int kMaxRangeSize = 256;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename Impact>
 __global__ void fused_range_scores_kernel(
@@ -80,7 +73,7 @@ __global__ void fused_range_scores_kernel(
       // as the TPU kernel's one-hot matmul drops them.  No bounds branch:
       // one cost 14% of the kernel's time at the slice's shapes on an
       // H100 at 700 W.
-      atomicAdd(&acc[post_local[p]], widen(post_impact[p]));
+      atomicAdd(&acc[post_local[p]], bm25::widen(post_impact[p]));
     }
     __syncthreads();
   }

@@ -1,11 +1,10 @@
 """Bm25Index on torch: the top-level mutable index facade (counterpart of
 ``index/bm25index.py``, whose body it copies).
 
-The sealed segment is served by the port's ``StreamEngine`` (the default)
-or ``BlockMaxEngine`` on ``device``, and a non-empty growing segment by
-the port's ``GrowingSegment`` on the same device.  The engines the port
-lacks (``exact``, ``hybrid``) raise ``NotImplementedError`` when first
-used.  ``from_reference`` takes over an index of the JAX package (e.g. a
+The sealed segment is served by the port's ``StreamEngine`` (the default),
+``BlockMaxEngine``, ``ExactEngine`` or ``HybridEngine`` on ``device``, and
+a non-empty growing segment by the port's ``GrowingSegment`` on the same
+device.  ``from_reference`` takes over an index of the JAX package (e.g. a
 checkpoint read by its ``load_index``) by value.
 
 Combines the immutable sealed segment (device-resident, engine-scored)
@@ -48,13 +47,6 @@ from .growing import GrowingSegment
 from .sealed import SealedSegment, build_sealed_segment, segment_from_reference
 
 __all__ = ["Bm25Index", "BoundQuery", "SearchHit"]
-
-# ROADMAP.md items that bring the reference's other engines to the port.
-_NOT_PORTED = {
-    "exact": "queue 1: ExactEngine",
-    "hybrid": "queue 1: HybridEngine",
-}
-
 
 def _eval_predicate(predicate, payloads: np.ndarray) -> np.ndarray:
     """Evaluate a payload predicate over an int64 array, preferring one
@@ -203,8 +195,7 @@ class Bm25Index:
         engine options), e.g. a checkpoint read by the JAX package's
         ``index/storage.py:load_index``.  Everything is copied by value
         into the port's own classes.  ``engine_options``, when given,
-        replaces the reference's.  An engine the port lacks raises when
-        first used, as in the constructor."""
+        replaces the reference's."""
         if engine_options is None:
             engine_options = ref.engine_options
         so = ref.search_options
@@ -244,12 +235,14 @@ class Bm25Index:
                 from ..search.blockmax import BlockMaxEngine
 
                 self._engine = BlockMaxEngine(self.sealed, device=self.device, **kw)
+            elif self.engine_kind == "hybrid":
+                from ..search.hybrid import HybridEngine
+
+                self._engine = HybridEngine(self.sealed, device=self.device, **kw)
             else:
-                raise NotImplementedError(
-                    f"engine={self.engine_kind!r} is not ported yet "
-                    f"(ROADMAP.md {_NOT_PORTED[self.engine_kind]}); use "
-                    f"engine='stream' or 'blockmax'"
-                )
+                from ..search.exact import ExactEngine
+
+                self._engine = ExactEngine(self.sealed, device=self.device, **kw)
             self._engine.set_deleted(self.deleted)
             self._engine_deleted_dirty = False
         elif self._engine_deleted_dirty:

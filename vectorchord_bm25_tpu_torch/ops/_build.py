@@ -82,6 +82,15 @@ def _declare(lib):
         "bm25_stream_rescore": [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp,
         ],
+        "bm25_exact_dense_accumulate": [
+            vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, ll, i, i, i, vp,
+        ],
+        "bm25_exact_sparse_gather": [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp,
+        ],
+        "bm25_exact_compact_accumulate": [
+            vp, vp, vp, vp, vp, vp, vp, i, i, i, ll, i, i, i, i, i, vp,
+        ],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

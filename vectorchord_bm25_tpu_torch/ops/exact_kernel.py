@@ -1,0 +1,358 @@
+"""The exact engine's gathers and scatters (counterpart of the jitted
+``_score_and_topk*`` functions of ``search/exact.py``).
+
+Three kernels, each the part of one reference function that touches every
+posting lane; the top-k that follows is ``ops/topk.py`` (dense, compact) or
+``ops/stream_sparse.py`` (sparse):
+
+- ``exact_dense_accumulate`` (E1, ``csrc/exact_dense.cu``): the gather of
+  masked 128-lane windows of the ``[R+1, 128]`` posting rows (f32 or bf16
+  impacts), times ``doc_live[doc]``, scatter-added into a ``[q, N+1]``
+  accumulator (``_score_and_topk``, ``search/exact.py:148-182``);
+- ``exact_sparse_gather`` (E2, ``csrc/exact_sparse.cu``): the same gather
+  into ``[q, P*128]`` (doc, score) lanes, times live and filter per lane,
+  dead lanes ``(n_docs, 0.0)`` (``_score_and_topk_sparse``, ``:217-225``);
+  ``exact_sparse_topk`` adds the stable sort, S4 and the selection;
+- ``exact_compact_accumulate`` (E3, ``csrc/exact_compact.cu``): the range
+  index's 5 B/posting streams read as (term, range) groups and
+  scatter-added into ``[q, N+1]`` (``_score_and_topk_compact``, ``:95-145``).
+
+A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+PyTorch version beside it, which the CPU tests hold against the reference.
+
+Exactness.  The reference's scatter-add adds each (query, doc)'s terms in
+window order, which is term order inside a query.  E1 and E3 take each
+window's term ordinal and launch once per ordinal, ascending, every launch
+over the whole window matrix (a warp whose window carries another ordinal
+leaves at once, so nothing is sorted on the host): inside one ordinal a
+(query, doc) is hit at most once, since a term's postings are unique per
+doc, so the adds land in the reference's order with no atomics.  Kernels,
+plain versions and reference agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .stream_kernel import check_tensors
+from .stream_sparse import sparse_lanes_topk
+from .topk import new_accumulator
+
+__all__ = [
+    "exact_compact_accumulate",
+    "exact_compact_accumulate_plain",
+    "exact_dense_accumulate",
+    "exact_dense_accumulate_plain",
+    "exact_sparse_gather",
+    "exact_sparse_gather_plain",
+    "exact_sparse_topk",
+]
+
+# CUDA kernel launches: E1 on f32 and on bf16 rows and E3 (one per term
+# ordinal of a dispatch), and E2 (one per dispatch).  chip_smoke.py reads
+# them to show the main path went through the kernels.
+DENSE_LAUNCHES = 0
+DENSE_BF16_LAUNCHES = 0
+SPARSE_LAUNCHES = 0
+COMPACT_LAUNCHES = 0
+
+ROW = 128  # lanes per posting row (index/sealed.py BLOCK)
+_IMPACT = (torch.float32, torch.bfloat16)
+
+
+def _check_ordinals(ords, like, n_ord, name):
+    check_tensors(like, ((ords, torch.int32, name, 2),))
+    if ords.shape != like.shape:
+        raise ValueError(f"{name} has shape {tuple(ords.shape)}, need {tuple(like.shape)}")
+    if n_ord < 0:
+        raise ValueError(f"n_ord must be >= 0, got {n_ord}")
+
+
+def _flat_rows(acc):
+    """The accumulator's padded rows as one flat tensor, and the row stride."""
+    stride = acc.stride(0)
+    return acc.as_strided((acc.shape[0] * stride,), (1,)), stride
+
+
+def _check_rows(post_docid, post_impact, doc_live, n_docs, wins):
+    if post_impact.dtype not in _IMPACT:
+        raise TypeError(f"post_impact must be float32 or bfloat16, got {post_impact.dtype}")
+    check_tensors(post_docid, (
+        (post_docid, torch.int32, "post_docid", 2),
+        (post_impact, post_impact.dtype, "post_impact", 2),
+        (doc_live, torch.float32, "doc_live", 1),
+        *((w, torch.int32, name, 2) for name, w in wins),
+    ))
+    if post_docid.shape[1] != ROW or post_impact.shape != post_docid.shape:
+        raise ValueError("post_docid and post_impact must both be [R+1, 128]")
+    if doc_live.numel() != n_docs + 1:
+        raise ValueError(f"doc_live has {doc_live.numel()} entries, need {n_docs + 1}")
+    shapes = {tuple(w.shape) for _, w in wins}
+    if len(shapes) != 1 or min(shapes.pop()) < 1:
+        raise ValueError("win_row, win_lo and win_hi must share one [q, P] shape, q, P >= 1")
+
+
+def _gather_rows(post_docid, post_impact, doc_live, rows, lo, hi):
+    """The reference's masked gather of posting rows: (d, sc) with ``sc =
+    where(valid, impact, 0) * doc_live[d]`` for every lane."""
+    lane = torch.arange(ROW, dtype=torch.int32, device=rows.device)
+    r = rows.long()
+    d = post_docid[r]  # [..., 128]
+    valid = (lane >= lo[..., None]) & (lane < hi[..., None])
+    sc = torch.where(valid, post_impact[r].float(), 0.0) * doc_live[d.long()]
+    return d, valid, sc
+
+
+def exact_dense_accumulate_plain(
+    post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
+    n_ord: int, n_docs: int,
+):
+    """Plain PyTorch version of ``exact_dense_accumulate``: per term ordinal
+    in ascending order, the reference's gather of that ordinal's windows,
+    every lane added into the accumulator (lanes outside a window add 0.0)."""
+    q, p = win_row.shape
+    acc = new_accumulator(q, n_docs, win_row.device)
+    flat, stride = _flat_rows(acc)
+    rows, lo, hi = win_row.reshape(-1), win_lo.reshape(-1), win_hi.reshape(-1)
+    ords = win_ord.reshape(-1)
+    for o in range(n_ord):
+        sel = torch.nonzero(ords == o).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        d, _, sc = _gather_rows(post_docid, post_impact, doc_live, rows[sel], lo[sel], hi[sel])
+        idx = (sel // p)[:, None] * stride + d.long()
+        flat.index_add_(0, idx.reshape(-1), sc.reshape(-1))
+    return acc
+
+
+def exact_dense_accumulate(
+    post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
+    n_ord: int, n_docs: int,
+):
+    """``[q, n_docs + 1]`` f32 accumulator of every window's impacts.
+
+    post_docid [R+1, 128] int32 (pad row R, pad doc N), post_impact [R+1,
+    128] f32 or bf16, doc_live [N+1] f32; win_row/win_lo/win_hi [q, P] int32
+    posting rows and their live lanes [lo, hi) (pad: row R, lo = hi = 0);
+    win_ord [q, P] int32, each window's term ordinal inside its query, -1
+    for a pad; n_ord, one more than the largest ordinal.  The result is a
+    row view of a 16-B-aligned allocation (``ops.topk.new_accumulator``);
+    the filter is the caller's.  A CUDA tensor launches the kernel once per
+    ordinal, ascending, or raises; a CPU tensor runs the plain version."""
+    global DENSE_LAUNCHES, DENSE_BF16_LAUNCHES
+
+    wins = (("win_row", win_row), ("win_lo", win_lo), ("win_hi", win_hi))
+    _check_rows(post_docid, post_impact, doc_live, n_docs, wins)
+    _check_ordinals(win_ord, win_row, n_ord, "win_ord")
+    args = (
+        post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
+        n_ord, n_docs,
+    )
+    if post_docid.device.type == "cpu":
+        return exact_dense_accumulate_plain(*args)
+    if post_docid.device.type != "cuda":
+        raise ValueError(f"unsupported device {post_docid.device}")
+    q, p = win_row.shape
+    if q * p >= 1 << 31:
+        raise ValueError(f"{q * p} windows exceed the kernel's int32 window index")
+
+    from ._build import library
+
+    lib = library()
+    dev = post_docid.device
+    acc = new_accumulator(q, n_docs, dev)
+    bf16 = post_impact.dtype == torch.bfloat16
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for o in range(n_ord):
+            err = lib.bm25_exact_dense_accumulate(
+                post_docid.data_ptr(), post_impact.data_ptr(), doc_live.data_ptr(),
+                win_row.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
+                win_ord.data_ptr(), acc.data_ptr(), q * p, p, o,
+                acc.stride(0), n_docs, post_docid.shape[0], int(bf16), stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"exact_dense_accumulate kernel launch failed: cudaError {err}"
+                )
+            if bf16:
+                DENSE_BF16_LAUNCHES += 1
+            else:
+                DENSE_LAUNCHES += 1
+    return acc
+
+
+def exact_sparse_gather_plain(
+    post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi, n_docs: int
+):
+    """Plain PyTorch version of ``exact_sparse_gather``, the reference's
+    statements (``search/exact.py:217-229``)."""
+    q, p = win_row.shape
+    d, valid, sc = _gather_rows(post_docid, post_impact, doc_live, win_row, win_lo, win_hi)
+    sc = sc * filter_mask[d.long()]
+    d = torch.where(valid, d, n_docs)  # pads sort last
+    return d.reshape(q, p * ROW), sc.reshape(q, p * ROW)
+
+
+def exact_sparse_gather(
+    post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi, n_docs: int
+):
+    """Every lane of a ``[q, P]`` window matrix as (doc, score).
+
+    Tables and windows as ``exact_dense_accumulate`` takes them; filter_mask
+    [N+1] f32 (1 keeps the doc; slot N is 1).  Returns (doc [q, P*128] int32,
+    sc [q, P*128] f32): a live lane its doc and ``(impact * doc_live[doc]) *
+    filter_mask[doc]`` in f32, a dead lane ``n_docs`` and 0.0.  A CUDA tensor
+    launches E2 or raises; a CPU tensor runs the plain version."""
+    global SPARSE_LAUNCHES
+
+    wins = (("win_row", win_row), ("win_lo", win_lo), ("win_hi", win_hi))
+    _check_rows(post_docid, post_impact, doc_live, n_docs, wins)
+    check_tensors(post_docid, ((filter_mask, torch.float32, "filter_mask", 1),))
+    if filter_mask.numel() != n_docs + 1:
+        raise ValueError(f"filter_mask has {filter_mask.numel()} entries, need {n_docs + 1}")
+    args = (post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi, n_docs)
+    if post_docid.device.type == "cpu":
+        return exact_sparse_gather_plain(*args)
+    if post_docid.device.type != "cuda":
+        raise ValueError(f"unsupported device {post_docid.device}")
+    q, p = win_row.shape
+    if q * p >= (1 << 31) // ROW:
+        raise ValueError(f"{q * p} windows exceed the kernel's int32 lane index")
+
+    from ._build import library
+
+    lib = library()
+    dev = post_docid.device
+    doc = torch.empty((q, p * ROW), dtype=torch.int32, device=dev)
+    sc = torch.empty((q, p * ROW), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.bm25_exact_sparse_gather(
+            post_docid.data_ptr(), post_impact.data_ptr(), doc_live.data_ptr(),
+            filter_mask.data_ptr(), win_row.data_ptr(), win_lo.data_ptr(),
+            win_hi.data_ptr(), doc.data_ptr(), sc.data_ptr(), q * p, n_docs,
+            post_docid.shape[0], int(post_impact.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"exact_sparse_gather kernel launch failed: cudaError {err}")
+    SPARSE_LAUNCHES += 1
+    return doc, sc
+
+
+def exact_sparse_topk(
+    post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi,
+    k: int, n_docs: int, seg_steps: int,
+):
+    """The reference's ``_score_and_topk_sparse``: E2's lanes through the
+    stable sort, S4 and the selection of ``sparse_lanes_topk``."""
+    doc, sc = exact_sparse_gather(
+        post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi, n_docs
+    )
+    return sparse_lanes_topk(doc, sc, k, n_docs, seg_steps)
+
+
+def _check_compact(post_impact, post_local, tr_range, tr_start, grp_ids, rs):
+    if post_impact.dtype not in _IMPACT:
+        raise TypeError(f"post_impact must be float32 or bfloat16, got {post_impact.dtype}")
+    check_tensors(post_impact, (
+        (post_impact, post_impact.dtype, "post_impact", 1),
+        (post_local, torch.uint8, "post_local", 1),
+        (tr_range, torch.int32, "tr_range", 1),
+        (tr_start, torch.int32, "tr_start", 1),
+        (grp_ids, torch.int32, "grp_ids", 2),
+    ))
+    if post_local.shape != post_impact.shape:
+        raise ValueError("post_impact and post_local must be equal length")
+    if tr_start.numel() != tr_range.numel() + 1:
+        raise ValueError("tr_start must have one entry more than tr_range")
+    if not 1 <= rs <= 256:
+        raise ValueError(f"range_size must be in [1, 256], got {rs}")
+    if min(grp_ids.shape) < 1:
+        raise ValueError(f"grp_ids must be [q, G] with q, G >= 1, got {tuple(grp_ids.shape)}")
+
+
+def exact_compact_accumulate_plain(
+    post_impact, post_local, tr_range, tr_start, grp_ids, grp_ord, n_ord: int,
+    n_docs: int, range_size: int,
+):
+    """Plain PyTorch version of ``exact_compact_accumulate``: per term
+    ordinal in ascending order, the reference's fixed-width gather of that
+    ordinal's groups (``search/exact.py:123-133``), every lane added into the
+    accumulator (lanes past a group's length add 0.0 to the pad doc)."""
+    q, g_width = grp_ids.shape
+    rs = range_size
+    dev = grp_ids.device
+    acc = new_accumulator(q, n_docs, dev)
+    flat, stride = _flat_rows(acc)
+    groups, ords = grp_ids.reshape(-1), grp_ord.reshape(-1)
+    rs_iota = torch.arange(rs, dtype=torch.int32, device=dev)
+    for o in range(n_ord):
+        sel = torch.nonzero(ords == o).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        g = groups[sel].long()
+        start = tr_start[g]
+        length = tr_start[g + 1] - start  # contiguous groups
+        rngs = tr_range[g].clamp_max((n_docs // rs) + 1)
+        valid = rs_iota < length[:, None]
+        gidx = torch.where(valid, start[:, None] + rs_iota, 0).long()  # [T, RS]
+        sc = torch.where(valid, post_impact[gidx].float(), 0.0)
+        doc = torch.where(valid, rngs[:, None] * rs + post_local[gidx].int(), n_docs)
+        idx = (sel // g_width)[:, None] * stride + doc.long()
+        flat.index_add_(0, idx.reshape(-1), sc.reshape(-1))
+    return acc
+
+
+def exact_compact_accumulate(
+    post_impact, post_local, tr_range, tr_start, grp_ids, grp_ord, n_ord: int,
+    n_docs: int, range_size: int,
+):
+    """``[q, n_docs + 1]`` f32 accumulator of every group's impacts.
+
+    post_impact [P] f32 or bf16 and post_local [P] u8, the range index's
+    posting streams; tr_range [M+1] int32 (pad slot M: INT_MAX), tr_start
+    [M+2] int32 (slots M and M+1 hold the total: the pad group is empty);
+    grp_ids [q, G] int32 (term, range) group ids (pad = M); grp_ord [q, G]
+    int32, each group's term ordinal inside its query, -1 for a pad; n_ord,
+    one more than the largest ordinal.  The live mask and the filter are
+    the caller's, after the sum.  A CUDA
+    tensor launches the kernel once per ordinal, ascending, or raises; a CPU
+    tensor runs the plain version."""
+    global COMPACT_LAUNCHES
+
+    _check_compact(post_impact, post_local, tr_range, tr_start, grp_ids, range_size)
+    _check_ordinals(grp_ord, grp_ids, n_ord, "grp_ord")
+    args = (
+        post_impact, post_local, tr_range, tr_start, grp_ids, grp_ord, n_ord,
+        n_docs, range_size,
+    )
+    if post_impact.device.type == "cpu":
+        return exact_compact_accumulate_plain(*args)
+    if post_impact.device.type != "cuda":
+        raise ValueError(f"unsupported device {post_impact.device}")
+    q, g_width = grp_ids.shape
+    if q * g_width >= 1 << 31:
+        raise ValueError(f"{q * g_width} groups exceed the kernel's int32 group index")
+
+    from ._build import library
+
+    lib = library()
+    dev = post_impact.device
+    acc = new_accumulator(q, n_docs, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for o in range(n_ord):
+            err = lib.bm25_exact_compact_accumulate(
+                post_impact.data_ptr(), post_local.data_ptr(), tr_range.data_ptr(),
+                tr_start.data_ptr(), grp_ids.data_ptr(), grp_ord.data_ptr(),
+                acc.data_ptr(), q * g_width, g_width, o, acc.stride(0), n_docs,
+                range_size, tr_range.numel(), post_impact.numel(),
+                int(post_impact.dtype == torch.bfloat16), stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"exact_compact_accumulate kernel launch failed: cudaError {err}"
+                )
+            COMPACT_LAUNCHES += 1
+    return acc

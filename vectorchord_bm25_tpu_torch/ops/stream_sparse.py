@@ -30,6 +30,7 @@ from .topk import _pack, select_keys
 __all__ = [
     "sparse_combine",
     "sparse_combine_plain",
+    "sparse_lanes_topk",
     "stream_sparse_decode",
     "stream_sparse_decode_plain",
     "stream_sparse_topk",
@@ -154,19 +155,16 @@ def sparse_combine(df, sf, n_docs: int, seg_steps: int):
     return keys
 
 
-def stream_sparse_topk(
-    words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, k: int, n_docs: int,
-    seg_steps: int,
-):
-    """The reference's ``_stream_sparse``: (scores [Q, k] f32 desc, ids
-    [Q, k] int32) of each row's run sums; rows with fewer than k candidates
-    pad with -inf, whose ids follow the reference (the lowest docs of the
-    row's other lanes, then 0 past its lanes) and mean nothing."""
-    doc, sc = stream_sparse_decode(words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, n_docs)
+def sparse_lanes_topk(doc, sc, k: int, n_docs: int, seg_steps: int):
+    """(scores [Q, k] f32 desc, ids [Q, k] int32) of each row's run sums
+    over its ``[Q, L]`` (doc, score) lanes, dead lanes ``(n_docs, 0.0)``:
+    the stable sort by doc, S4 and the selection.  Rows with fewer than k
+    candidates pad with -inf, whose ids follow the reference (the lowest
+    docs of the row's other lanes, then 0 past its lanes) and mean nothing.
+    Shared by the stream engine's and the exact engine's sparse strategies."""
     df, perm = torch.sort(doc, dim=1, stable=True)
-    del doc
     sf = sc.gather(1, perm)
-    del sc, perm
+    del perm
     keys = sparse_combine(df, sf, n_docs, seg_steps)
     del df, sf
     kk = min(k, keys.shape[1])
@@ -177,3 +175,13 @@ def stream_sparse_topk(
         scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
         ids = torch.nn.functional.pad(ids, (0, pad), value=0)
     return scores, ids
+
+
+def stream_sparse_topk(
+    words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, k: int, n_docs: int,
+    seg_steps: int,
+):
+    """The reference's ``_stream_sparse``: S3's lanes through
+    ``sparse_lanes_topk``."""
+    doc, sc = stream_sparse_decode(words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, n_docs)
+    return sparse_lanes_topk(doc, sc, k, n_docs, seg_steps)

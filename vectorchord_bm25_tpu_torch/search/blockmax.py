@@ -258,8 +258,13 @@ class BlockMaxEngine:
         device="cuda",
         impact_dtype: str = "float32",
         posting_mode: str = "impact",
+        use_pallas=None,
     ):
-        """posting_mode:
+        """use_pallas: accepted so a reference index's engine options (e.g.
+        from a checkpoint's ``meta.json``) serve unchanged, and ignored: the
+        tensors' device picks the kernel.
+
+        posting_mode:
         - "impact": precomputed per-posting f32/bf16 scores (5/3 B per
           posting; no query-time math).
         - "tf": equal-index-memory form, 2 B/posting lossless — u8 tf

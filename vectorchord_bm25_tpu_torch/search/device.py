@@ -40,7 +40,7 @@ class DeviceSegment:
 
     doc_live: torch.Tensor  # [N+1] float32 (1.0 live, 0.0 deleted/pad)
     post_docid: torch.Tensor  # [R+1, 128] int32 flat postings (pad = N)
-    post_impact: torch.Tensor  # [R+1, 128] f32 precomputed scores (pad = 0)
+    post_impact: torch.Tensor  # [R+1, 128] f32/bf16 precomputed scores (pad = 0)
     token_flat_start: Optional[np.ndarray] = None  # host [V+1] int64 CSR
     host: SealedSegment = None
 
@@ -51,10 +51,12 @@ class DeviceSegment:
         deleted: Optional[np.ndarray] = None,
         device="cuda",
         with_blocks: bool = True,
+        impact_dtype: str = "float32",
     ) -> "DeviceSegment":
         """with_blocks=False skips uploading the posting rows (the pruned
-        engine reads its own compact flat postings instead).  f32 impacts
-        only (bf16 block rows: ROADMAP.md queue 1 item 5, ExactEngine)."""
+        engine reads its own compact flat postings instead).
+        impact_dtype="bfloat16" drops impact memory to 2 B/posting at
+        ~0.4% relative score rounding (rank ties may reorder)."""
         dev = as_device(device)
         n = seg.n_docs
         if with_blocks:
@@ -69,13 +71,17 @@ class DeviceSegment:
             rows, csr = 0, None
             pd = np.full(BLOCK, n, dtype=np.int32)
             pi = np.zeros(BLOCK, dtype=np.float32)
+        impact = torch.from_numpy(pi.reshape(rows + 1, BLOCK)).to(dev)
+        if impact_dtype == "bfloat16":
+            # Round to nearest even, as the reference's jnp cast does.
+            impact = impact.to(torch.bfloat16)
         return cls(
             n_docs=n,
             n_tokens=seg.n_tokens,
             n_rows=rows,
             doc_live=torch.from_numpy(live_mask(n, deleted)).to(dev),
             post_docid=torch.from_numpy(pd.reshape(rows + 1, BLOCK)).to(dev),
-            post_impact=torch.from_numpy(pi.reshape(rows + 1, BLOCK)).to(dev),
+            post_impact=impact,
             token_flat_start=csr,
             host=seg,
         )
