@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one GPU: the Block-Max engine (f32
-and bf16 impacts, tf postings, the exhaustive range sweep), the served
-default, the stream engine, with a growing segment and at the scale where
-its ``auto`` strategy leaves the dense path, the exact engine (dense, bf16,
-compact, shared and sparse) and the hybrid engine's routes.  The corpora
+and bf16 impacts, tf postings, the exhaustive range sweep; at 131,072 and
+at 2,097,152 docs), the served default, the stream engine, with a growing
+segment and at the scale where its ``auto`` strategy leaves the dense path,
+the exact engine (dense, bf16, compact, shared and sparse), the hybrid
+engine's routes, and a restart (checkpoint, WAL replay, reopen).  The corpora
 come from the port's own generators
 (``vectorchord_bm25_tpu_torch/data/synth.py``).
 
@@ -20,15 +21,23 @@ not 0 and no result line is printed):
       windows the engine hands it at the slice's shapes (Q=4096, T=4,
       C=32, RS=128 at the default size; must be equal) and on random
       windows with colliding slots (rtol 1e-5, atol 1e-6), with both
-      times from CUDA events;
+      times from CUDA events; and the rest of the round, B1-bounds
+      (``range_bounds``), B1-select (``round_select``) and B1-merge
+      (``round_merge``), each against its plain version on every call of a
+      4,096-query batch (``torch.equal`` on every output and on every tensor
+      updated in place; R=1,024, k=16), timed on the first round's inputs
+      beside the library call nearest to it (``torch.topk`` on the same rows
+      or packed keys, which computes only the selection);
   (d) the slice: ``Bm25Index(..., engine="blockmax", device="cuda")``
       over a 131,072-doc synthetic corpus (bench.py's default size,
       trec-covid scale) serving ``search_batch(k=10)`` in 4,096-query
-      batches; the kernel's launch count must grow;
+      batches; P1's and the three B1 kernels' launch counts must grow;
   (e) correctness at that size: 256 sampled queries equal the same
       engine on the CPU (plain kernel), also after deleting 1% of the
       payloads and under a prefilter; recall@10 = 1.0 against the
       float64 oracle, excusing f32 boundary ties as bench.py does;
+      ``last_rounds`` on the card equals the CPU-plain engine's (also in
+      (l), (m) and (s));
   (f) the served default: ``Bm25Index(seg, seed, IndexOptions(),
       device="cuda")`` (engine "stream", dense below 2^21 docs) on the same
       corpus.  On every dispatch the engine hands its kernels, S1
@@ -111,12 +120,25 @@ not 0 and no result line is printed):
       dispatch, both timed on the largest; S4's launches grow; the card
       equals the CPU-plain engine on 64 queries; recall@10 = 1.0 against
       the float64 oracle on 256; the peak device memory;
+  (s) ``BlockMaxEngine`` on phase (i)'s corpus (16,384 ranges, chunk 256):
+      B1 equal to its plain versions on every call of the 512-query
+      informative batch and timed at that size; 3 batches, rounds and QPS
+      each; the card equals the CPU-plain engine on 32 queries;
+  (t) restart, on phase (f)'s stream index (after (h)) and phase (d)'s
+      Block-Max index (after (q)), each with its deletes: ``save_index``,
+      ``open_index(dir, device="cuda")``, one 4,096-query batch equal to the
+      live index's; 1,024 inserts and another 1% deleted through the opened
+      index with no checkpoint, reopened, the WAL replays, equal to the live
+      index after the same mutations; ``maintain``, save, open: ``wal.log``
+      empty, one generation left, results equal; bytes on disk and the host
+      seconds of each step;
   (k) the host build time of each phase.
 
 Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, and
-(r) after (j).  Each path is driven with its launch counters at 0 and read
-just after.  The ``kernels`` line lists P1 (f32 and bf16), P1-tf, S1-S5 and
-E1 (f32 and bf16), E2 and E3, each with its
+(r) and (s) after (j).  Each path is driven with its launch counters at 0
+and read just after.  The ``kernels`` line lists P1 (f32 and bf16), P1-tf,
+B1-bounds, B1-select, B1-merge, S1-S5 and E1 (f32 and bf16), E2 and E3,
+each with its
 launches, its time and its plain version's from CUDA events, its bound
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its f32
 operations over 67 TFLOP/s, counted from this run's inputs) and the time
@@ -155,6 +177,25 @@ def cuda_ms(fn, iters=20, warmup=3):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_ms_fresh(fn, fresh, iters=20, warmup=3):
+    """Mean milliseconds of ``fn(*fresh())`` from CUDA events, for a function
+    that updates an argument in place: every call gets arguments of its own,
+    all made before the clock starts."""
+    import torch
+
+    argsets = [fresh() for _ in range(iters + warmup)]
+    for a in argsets[:warmup]:
+        fn(*a)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for a in argsets[warmup:]:
+        fn(*a)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -274,6 +315,351 @@ def audit(index, cpu, seg, sample):
         if bad:
             raise AssertionError(f"deleted or filtered payloads returned: {bad[:5]}")
     return recall, total, ties, n_del
+
+
+B1_NAMES = ("range_bounds", "round_select", "round_merge")
+B1_COUNTERS = ("BOUNDS_LAUNCHES", "SELECT_LAUNCHES", "MERGE_LAUNCHES")
+B1_REPLACES = (82, 114, 194)  # lines of the reference's search/blockmax.py
+
+
+def b1_counters():
+    """``_serve`` counters of the three B1 kernels (keys: their names)."""
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    return [(br, counter, name) for counter, name in zip(B1_COUNTERS, B1_NAMES)]
+
+
+def b1_zero():
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    for counter in B1_COUNTERS:
+        setattr(br, counter, 0)
+
+
+def b1_read():
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    return {name: getattr(br, counter) for counter, name in zip(B1_COUNTERS, B1_NAMES)}
+
+
+def b1_check(engine, queries, label, phase):
+    """Serve ``queries`` once through ``engine`` (a BlockMaxEngine on the
+    card) with every B1 launch held against its plain version on the same
+    inputs: ``torch.equal`` on every output and on every tensor updated in
+    place, every round.  Then time each kernel, its plain version and the
+    library call nearest to it on the first round's inputs (CUDA events; the
+    in-place ones on fresh copies each call), and compute its bound from
+    those inputs.  Returns {name: measured fields}."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+    from vectorchord_bm25_tpu_torch.ops import topk
+    from vectorchord_bm25_tpu_torch.search import blockmax
+
+    st = {name: {"checked": 0, "err": 0.0, "first": None} for name in B1_NAMES}
+    real = {name: getattr(blockmax, name) for name in B1_NAMES}
+
+    def seen(name, first, err=0.0):
+        c = st[name]
+        c["checked"] += 1
+        c["err"] = max(c["err"], err)
+        if c["first"] is None:
+            c["first"] = first
+
+    def bounds(*a, **kw):
+        out = real["range_bounds"](*a, **kw)
+        want = br.range_bounds_plain(*a, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"{phase} range_bounds != its plain version")
+        seen("range_bounds", (a, kw), float((out - want).abs().max()))
+        return out
+
+    def select(ub_work, topk_s, *rest, flag=None, **kw):
+        first = (ub_work.clone(), topk_s.clone(), rest, kw)
+        twin = ub_work.clone()
+        out = real["round_select"](ub_work, topk_s, *rest, flag=flag, **kw)
+        want = br.round_select_plain(twin, topk_s, *rest, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(out, want)) or not torch.equal(ub_work, twin):
+            raise AssertionError(f"{phase} round_select != its plain version")
+        seen("round_select", first)
+        return out
+
+    def merge(acc, cand_r, live, filt, topk_s, topk_d, **kw):
+        ts, td = topk_s.clone(), topk_d.clone()
+        first = (acc, cand_r, live, filt, ts.clone(), td.clone(), kw)
+        out = real["round_merge"](acc, cand_r, live, filt, topk_s, topk_d, **kw)
+        br.round_merge_plain(acc, cand_r, live, filt, ts, td, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(topk_s, ts) and torch.equal(topk_d, td)):
+            raise AssertionError(f"{phase} round_merge != its plain version")
+        seen("round_merge", first, _finite_err(topk_s, ts))
+        return out
+
+    for name, fn in zip(B1_NAMES, (bounds, select, merge)):
+        setattr(blockmax, name, fn)
+    try:
+        engine.search(queries, K)
+    finally:
+        for name in B1_NAMES:
+            setattr(blockmax, name, real[name])
+    if not all(c["checked"] for c in st.values()):
+        raise AssertionError(f"{phase} a B1 kernel saw no call: {st}")
+
+    # B1-bounds: the query terms, their CSR spans ((range, ub) a group) and
+    # the [Q, R] row written once; an add a group and a multiply a range.
+    a, kw = st["range_bounds"]["first"]
+    tts, _, _, q_tid = a
+    n_ranges = kw["n_ranges"]
+    q, t = q_tid.shape
+    tid = q_tid.long()
+    groups = int((tts[tid + 1] - tts[tid]).sum())
+    out = {}
+    out["range_bounds"] = {
+        "ms": cuda_ms(lambda: br.range_bounds(*a, **kw)),
+        "plain_ms": cuda_ms(lambda: br.range_bounds_plain(*a, **kw)),
+        **bound(12 * q * t + 8 * groups + 4 * q * n_ranges, groups + q * n_ranges),
+        "library_ms": None,
+    }
+    # B1-select: the row read once, an active query's C taken ranges written
+    # back, the threshold, cand_r, start and length written, the active
+    # queries' spans searched; a compare a bound and log2(span) a search.
+    ub0, ts0, rest, kw = st["round_select"]["first"]
+    c = kw["chunk"]
+    active = ub0.amax(dim=1) > ts0[:, -1].clamp_min(0.0)
+    n_active = int(active.sum())
+    spans = int((tts[tid + 1] - tts[tid])[active].sum())
+    flag0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def fresh():
+        return ub0.clone(), flag0.clone()
+
+    out["round_select"] = {
+        "ms": cuda_ms_fresh(
+            lambda ub, flag: br.round_select(ub, ts0, *rest, flag=flag, **kw), fresh
+        ),
+        "plain_ms": cuda_ms_fresh(
+            lambda ub, flag: br.round_select_plain(ub, ts0, *rest, flag=flag, **kw), fresh
+        ),
+        **bound(
+            4 * q * n_ranges + 4 * n_active * c + 4 * q + 4 * q * c + 8 * q * t * c
+            + 12 * q * t + 4 * spans,
+            q * n_ranges + n_active * t * c * max(1, int(kw["lmax"]).bit_length()),
+        ),
+        # The library's top-C over the same rows: no tie rule, no mask, no
+        # threshold, no locate.
+        "library_ms": cuda_ms(lambda: torch.topk(ub0, c, dim=1)),
+        "active_queries": n_active,
+    }
+    # B1-merge: the [Q, C, RS] scores read once, cand_r, the live and filter
+    # entries of the lanes that scored, the top-k read and written; two
+    # multiplies and a compare a lane that scored.
+    acc, cand_r, live, filt, ts1, td1, kw = st["round_merge"]["first"]
+    n_docs = kw["n_docs"]
+    k = ts1.shape[1]
+    rs = acc.shape[2]
+    scored = int((acc > 0).sum())
+    docs = cand_r[:, :, None] * rs + torch.arange(rs, dtype=torch.int32, device="cuda")
+    dc = docs.clamp_max(n_docs).long()
+    masked = acc * live[dc] * filt[dc]
+    ok = (masked > 0) & (docs < n_docs)
+    keys = torch.cat(
+        [
+            topk._pack(ts1, td1),
+            topk._pack(
+                torch.where(ok, masked, float("-inf")).reshape(q, -1),
+                torch.where(ok, docs, 2**31 - 1).reshape(q, -1),
+            ),
+        ],
+        dim=1,
+    )
+    del docs, dc, masked, ok
+
+    def fresh_topk():
+        return ts1.clone(), td1.clone()
+
+    out["round_merge"] = {
+        "ms": cuda_ms_fresh(
+            lambda s, d: br.round_merge(acc, cand_r, live, filt, s, d, **kw), fresh_topk
+        ),
+        "plain_ms": cuda_ms_fresh(
+            lambda s, d: br.round_merge_plain(acc, cand_r, live, filt, s, d, **kw),
+            fresh_topk, iters=10,
+        ),
+        **bound(4 * acc.numel() + 4 * cand_r.numel() + 8 * scored + 16 * q * k, 3 * scored),
+        # The library's selection over the same packed keys, already masked
+        # and packed: it does neither.
+        "library_ms": cuda_ms(lambda: torch.topk(keys, k, dim=1, largest=False)),
+        "scored_lanes": scored,
+    }
+    del keys
+    for name in B1_NAMES:
+        out[name]["max_abs_err"] = st[name]["err"]
+        out[name]["checked"] = st[name]["checked"]
+    print(
+        f"{phase} B1 == plain (torch.equal) on every call: bounds "
+        f"{st['range_bounds']['checked']}, select {st['round_select']['checked']}, "
+        f"merge {st['round_merge']['checked']}; Q,T,C,RS,R,k="
+        f"{(q, t, c, rs, n_ranges, k)}, {groups} groups, {n_active} active "
+        f"queries and {scored} scored lanes in round 1 [{label}]"
+    )
+    for name in B1_NAMES:
+        m = out[name]
+        lib = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
+        print(
+            f"{phase} {name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+            f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}, {m['bound_bytes']} B), "
+            f"library {lib} [{label}]"
+        )
+    return out
+
+
+def device_profile(fn, what, label):
+    """One call of ``fn`` under ``torch.profiler``: the card's busy time, its
+    share of the call's wall time, and the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if not rows:
+        print(f"{what}: the profiler saw no device time")
+        return
+    print(
+        f"{what}: one profiled batch {wall_ms:.3f} ms, the card busy {busy_ms:.3f} "
+        f"ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle); by kernel: "
+        + "; ".join(f"{key[:48]} {ms:.3f} ms x{n}" for ms, n, key in rows[:8])
+        + f" [{label}]"
+    )
+
+
+def rounds_equal(gpu_engine, cpu_engine, sample, what):
+    """``last_rounds`` of the card's engine equals the CPU-plain engine's on
+    the same queries (and so do the results)."""
+    got = gpu_engine.search(sample, K)
+    want = cpu_engine.search(sample, K)
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: GPU != CPU-plain")
+    if gpu_engine.last_rounds != cpu_engine.last_rounds:
+        raise AssertionError(
+            f"{what}: last_rounds {gpu_engine.last_rounds} on the card, "
+            f"{cpu_engine.last_rounds} on the CPU"
+        )
+    return gpu_engine.last_rounds
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(
+        os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path) for f in files
+    )
+
+
+def restart(index, queries, new_docs, label, what):
+    """Phase (t): ``index`` (live, on the card) survives a restart.  (1)
+    save, open: one batch equals the live index's, scores bit for bit; (2)
+    through the opened index insert ``new_docs`` and delete another 1% of
+    the sealed docs with no checkpoint, drop it, open again: the WAL
+    replays and the batch equals the live index's after the same mutations;
+    (3) maintain, save, open: the WAL is empty, one generation is left,
+    results equal.  Every time printed is a host time."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vectorchord_bm25_tpu_torch import open_index, save_index
+
+    def doomed_too(p):
+        return (np.asarray(p) * 2654435761) % 100 == 1
+
+    def clock(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def opened_index(path):
+        opened, sec = clock(open_index, path, device="cuda")
+        engine, sec_engine = clock(opened.engine)
+        if not opened.device.type == "cuda" or type(engine) is not type(index.engine()):
+            raise AssertionError(f"(t) {what}: opened {engine!r} on {opened.device}")
+        return opened, sec, sec_engine
+
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "idx")
+        _, times["save 1"] = clock(save_index, index, path)
+        size_1 = dir_bytes(path)
+        opened, times["open 1"], times["engine 1"] = opened_index(path)
+        want = hits_of(index.search_batch(queries, K))
+        if hits_of(opened.search_batch(queries, K)) != want:
+            raise AssertionError(f"(t) {what}: the opened index != the live index")
+        n_hits = sum(map(len, want))
+
+        base = int(max(index.sealed.doc_payload.max(), max(index.growing.payloads, default=0))) + 1
+        t0 = time.perf_counter()
+        for j, doc in enumerate(new_docs):
+            opened.insert(doc, base + j)
+        n_del = opened.bulkdelete(doomed_too)
+        times[f"{len(new_docs)} inserts + 1 delete, each fsynced"] = time.perf_counter() - t0
+        for j, doc in enumerate(new_docs):
+            index.insert(doc, base + j)
+        if index.bulkdelete(doomed_too) != n_del or not n_del:
+            raise AssertionError(f"(t) {what}: bulkdelete counts differ or deleted nothing")
+        wal_bytes = os.path.getsize(os.path.join(path, "wal.log"))
+        opened._wal.close()
+        del opened
+        again, times["open 2 (WAL replay)"], times["engine 2"] = opened_index(path)
+        want = hits_of(index.search_batch(queries, K))
+        got = hits_of(again.search_batch(queries, K))
+        if got != want or len(again.growing) != len(index.growing):
+            raise AssertionError(f"(t) {what}: after the WAL replay != the live index")
+        n_grow = sum(p >= base for hits in got for _, p in hits)
+        if any(doomed_too(p) for hits in got for _, p in hits):
+            raise AssertionError(f"(t) {what}: a deleted payload came back")
+
+        _, times["maintain"] = clock(again.maintain)
+        want = hits_of(again.search_batch(queries, K))
+        _, times["save 2"] = clock(save_index, again, path)
+        gens = [n for n in os.listdir(path) if n.startswith("gen-")]
+        if os.path.getsize(os.path.join(path, "wal.log")) or len(gens) != 1:
+            raise AssertionError(f"(t) {what}: WAL not empty or generations {gens}")
+        size_2 = dir_bytes(path)
+        again._wal.close()
+        third, times["open 3"], times["engine 3"] = opened_index(path)
+        if hits_of(third.search_batch(queries, K)) != want or len(third.growing):
+            raise AssertionError(f"(t) {what}: after maintain + save != before")
+        third._wal.close()
+    print(
+        f"(t) {what}: (1) save + open: {len(queries)} queries == the live index "
+        f"({n_hits} hits, scores bit for bit), {size_1} B on disk; (2) "
+        f"{len(new_docs)} inserts and {n_del} deletes through the WAL "
+        f"({wal_bytes} B), no checkpoint, reopened: == the live index, "
+        f"{n_grow} growing hits; (3) maintain + save + open: wal.log empty, "
+        f"generations {gens}, {size_2} B on disk, results equal"
+    )
+    print(
+        f"(t) {what} host times: "
+        + "; ".join(f"{name} {sec:.2f} s" for name, sec in times.items())
+        + f" [{label}]"
+    )
+    return times
 
 
 def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_times):
@@ -429,6 +815,18 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
         f"{AUDIT} queries, {n_new} growing hits; growing engine S1 launches "
         f"{grow_launches}"
     )
+    # (t) this index, with its deletes and its growing segment, restarted
+    picks = rng.choice(seg.n_docs, 1024, replace=False)
+    new_docs = [
+        Document(
+            keys=keys[int(doc_start[d]) : int(doc_start[d + 1])],
+            values=tfs[int(doc_start[d]) : int(doc_start[d + 1])],
+        )
+        for d in picks
+    ]
+    t0 = time.perf_counter()
+    restart(index, queries, new_docs, label, "served default (stream)")
+    build_times["(t) stream"] = time.perf_counter() - t0
     return [
         {
             "name": "stream_dense_accumulate",
@@ -524,7 +922,8 @@ def _serve(index, queries, counters, what, rounds=ROUNDS):
 def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
     """Phases (l)-(n): the rest of the Block-Max engine on the 131,072-doc
     corpus and its RangeIndex.  Returns the kernels-line entries of P1 on
-    bf16 and P1-tf, and the rangescan's P1 and S2 launch counts."""
+    bf16 and P1-tf, the rangescan's P1 and S2 launch counts, and B1's
+    launches by phase."""
     import torch
 
     from vectorchord_bm25_tpu_torch import Bm25Index, IndexOptions
@@ -545,6 +944,7 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
 
     f32_fresh = BlockMaxEngine(seg, ri, device="cuda")  # bf16's yardstick, no deletes
     entries = []
+    b1_by_phase = {}
     for phase, mode, opts in (
         ("(l)", "bf16", {"impact_dtype": "bfloat16"}),
         ("(m)", "tf", {"posting_mode": "tf"}),
@@ -575,10 +975,14 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
             f"({kb['bound_by']}) [{label}]"
         )
         del calls
-        qps, launches, _ = _serve(index, queries, [(score_kernel, counter)], mode)
+        qps, launches, _ = _serve(
+            index, queries, [(score_kernel, counter), *b1_counters()], mode
+        )
+        b1_by_phase[phase] = {name: launches[name] for name in B1_NAMES}
         print(
             f"{phase} {mode}: {ROUNDS} x search_batch({len(queries)} queries, "
-            f"k={K}); {launches[counter]} kernel launches; QPS per batch "
+            f"k={K}); {launches[counter]} kernel launches, B1 "
+            f"{b1_by_phase[phase]}; QPS per batch "
             f"{[round(x, 1) for x in qps]} (median {float(np.median(qps)):.1f}) [{label}]"
         )
         # Device bytes by the reference's formula (search/blockmax.py:475-507).
@@ -595,6 +999,7 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
             got = index.search_batch(sample, K)
             if hits_of(got) != hits_of(cpu.search_batch(sample, K)):
                 raise AssertionError("bf16: GPU != CPU-plain")
+            n_rounds = rounds_equal(engine, cpu.engine(), sample, "bf16")
             s_bf, i_bf, _ = engine.search(queries, K)
             s_32, i_32, _ = f32_fresh.search(queries, K)
             if not np.array_equal(i_bf >= 0, i_32 >= 0):
@@ -604,15 +1009,18 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
             hit = sum(len(set(a[a >= 0]) & set(b[b >= 0])) for a, b in zip(i_bf, i_32))
             recall = hit / max(1, int(live.sum()))
             print(
-                f"{phase} bf16: GPU == CPU-plain on {AUDIT} queries; scores per "
+                f"{phase} bf16: GPU == CPU-plain on {AUDIT} queries (last_rounds "
+                f"{n_rounds} on both); scores per "
                 f"rank within rtol 6e-3 of the f32 engine's on {len(queries)} "
                 f"queries, recall@{K} vs the f32 engine {recall:.6f}; "
                 f"memory_report total {got_bytes} B == the reference's formula"
             )
         else:
             recall, total, ties, n_del = audit(index, cpu, seg, sample)
+            n_rounds = rounds_equal(index.engine(), cpu.engine(), sample, "tf")
             print(
-                f"{phase} tf: {AUDIT} sampled queries: GPU == CPU-plain, also "
+                f"{phase} tf: {AUDIT} sampled queries: GPU == CPU-plain (last_rounds "
+                f"{n_rounds} on both after the deletes), also "
                 f"after deleting {n_del} docs (1%) and with a prefilter; recall@{K} "
                 f"vs the float64 oracle {recall} ({total} hits, {ties} ties excused); "
                 f"post_tf {engine.dev_post_tf.dtype}; memory_report total "
@@ -702,7 +1110,7 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
         f"({int((swept[1] >= 0).sum())} hits); GPU == CPU-plain on {AUDIT} "
         f"(1% deleted, as phase (e) left the engine) [{label}]"
     )
-    return entries, sweep
+    return entries, sweep, b1_by_phase
 
 
 def _live_lanes(win_lo, win_hi):
@@ -775,7 +1183,7 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
     and the hybrid engine's routes on the 131,072-doc corpus and its
     RangeIndex; ``bm_engine`` is phase (d)'s BlockMaxEngine, which holds
     phase (e)'s deletes.  Returns the kernels-line entries of E1, E1 on
-    bf16 and E3, and P1's and S2's launches by phase."""
+    bf16 and E3, and P1's, S2's and B1's launches by phase."""
     import torch
 
     from vectorchord_bm25_tpu_torch import Bm25Index, IndexOptions
@@ -843,7 +1251,7 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
             f"{[round(x, 1) for x in qps]} (median {float(np.median(qps)):.1f}) [{label}]"
         )
 
-    p1_by_phase, s2_by_phase = {}, {}
+    p1_by_phase, s2_by_phase, b1_by_phase = {}, {}, {}
 
     # (o) exact, dense f32 rows
     index = build("exact", {})
@@ -1004,8 +1412,11 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
         counters = [p1, (exact_kernel, e_counter), s2]
         if not routes[1]:
             counters = [p1] if phase == "(q2)" else [p1, s2]
+        # B1 runs wherever P1 does: the one-shot and pruned groups' rounds.
+        counters += b1_counters()
         qps, launches, _ = _serve(index_h, queries, counters, phase, rounds=3)
         p1_by_phase[phase] = launches["P1"]
+        b1_by_phase[phase] = {name: launches[name] for name in B1_NAMES}
         s2_by_phase[phase] = launches.get("S2", 0)
         unequal = _held_to(hyb.search(queries, K), f32, f"hybrid {phase} vs exact", True)
         rep = hyb.memory_report()
@@ -1019,8 +1430,8 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
         else:
             hybrid_e1 += launches.get(e_counter, 0)
         served(
-            phase, f"hybrid {opts} (P1 {p1_by_phase[phase]} launches, S2 "
-            f"{s2_by_phase[phase]}; ids == phase (o)'s on all {len(queries)} "
+            phase, f"hybrid {opts} (P1 {p1_by_phase[phase]} launches, B1 "
+            f"{b1_by_phase[phase]}, S2 {s2_by_phase[phase]}; ids == phase (o)'s on all {len(queries)} "
             f"queries, {unequal} scores not bit-equal; memory_report total "
             f"{rep['total']} B)", qps, launches,
         )
@@ -1039,7 +1450,7 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
             e3_by_phase, {**e3, "shared_ms": e3_shared["ms"]},
         ),
     ]
-    return entries, p1_by_phase, s2_by_phase
+    return entries, p1_by_phase, s2_by_phase, b1_by_phase
 
 
 def _checked(module, name, plain, size, errs):
@@ -1435,6 +1846,7 @@ def sparse_slice(args, label, build_times):
     }
     del index, engine
     e2_entry, s4_exact = exact_sparse(args, seg, batches, label, build_times)
+    b1_large = blockmax_large(args, seg, batches["informative"], label, build_times)
     entries = [
         {
             "name": c["name"],
@@ -1453,7 +1865,63 @@ def sparse_slice(args, label, build_times):
     s4_entry = next(e for e in entries if e["name"] == "sparse_combine")
     s4_entry["launches_by_phase"] = {"(i)": s4_entry["launches"], "(r)": s4_exact}
     s4_entry["launches"] += s4_exact
-    return entries + [e2_entry]
+    return entries + [e2_entry], b1_large
+
+
+def blockmax_large(args, seg, queries, label, build_times):
+    """Phase (s): the Block-Max engine on phase (i)'s corpus, where a query's
+    bound row has 16,384 ranges (64 KB of shared memory a block) and the
+    default chunk is 256.  Returns B1's measured fields at that size, its
+    launches and the rounds a batch."""
+    from vectorchord_bm25_tpu_torch.index.ranges import build_range_index
+    from vectorchord_bm25_tpu_torch.ops import score_kernel
+    from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine
+
+    # Ranges of 128 docs, as at 131,072 docs: 16,384 of them here (the
+    # default at this size is 256 docs a range, 8,192 ranges).
+    t0 = time.perf_counter()
+    ri = build_range_index(seg, range_size=128)
+    build_times["(s) range index"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = BlockMaxEngine(seg, ri, device="cuda")
+    build_times["(s) Block-Max engine upload"] = time.perf_counter() - t0
+    print(
+        f"(s) Block-Max at {seg.n_docs} docs: {ri.n_ranges} ranges of "
+        f"{ri.range_size}, chunk {engine.chunk}; range index host build "
+        f"{build_times['(s) range index']:.1f} s; device index "
+        f"{engine.memory_report()['total']} B"
+    )
+    measured = b1_check(engine, queries, label, "(s)")
+    score_kernel.LAUNCHES = 0
+    b1_zero()
+    qps, rounds = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scores, ids, _ = engine.search(queries, K)
+        qps.append(len(queries) / (time.perf_counter() - t0))
+        rounds.append(engine.last_rounds)
+    launches = b1_read()
+    p1_launches = score_kernel.LAUNCHES
+    if not all(launches.values()) or not p1_launches:
+        raise AssertionError(f"(s) a kernel never launched: {launches}, P1 {p1_launches}")
+    live = ids >= 0
+    if not live.any() or not (np.isfinite(scores[live]).all() and (scores[live] > 0).all()):
+        raise AssertionError("(s) results are not finite positive hits")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 8)
+    n_sample = min(RECALL_QUERIES, len(queries))
+    sample = [queries[i] for i in np.sort(rng.choice(len(queries), n_sample, replace=False))]
+    cpu = BlockMaxEngine(seg, ri, device="cpu")
+    n_rounds = rounds_equal(engine, cpu, sample, "(s)")
+    del cpu
+    print(
+        f"(s) 3 x BlockMaxEngine.search({len(queries)} queries, k={K}); rounds a "
+        f"batch {rounds}; P1 {p1_launches} launches, B1 {launches}; QPS per batch "
+        f"{[round(x, 1) for x in qps]}; GPU == CPU-plain on {n_sample} queries "
+        f"(last_rounds {n_rounds} on both; {time.perf_counter() - t0:.1f} s) [{label}]"
+    )
+    return {"measured": measured, "launches": launches, "p1_launches": p1_launches,
+            "rounds": rounds}
 
 
 def main() -> int:
@@ -1478,6 +1946,7 @@ def main() -> int:
 
     from vectorchord_bm25_tpu_torch import (
         Bm25Index,
+        Document,
         IndexOptions,
         build_sealed_segment_from_postings,
     )
@@ -1593,28 +2062,35 @@ def main() -> int:
         f"(c) random windows with colliding slots: max abs err {rand_err:.3g} "
         f"(rtol 1e-5, atol 1e-6)"
     )
+    # (c) the round outside P1: B1-bounds, B1-select, B1-merge, every round
+    b1 = b1_check(engine, queries, label, "(c)")
 
     # (d) the slice: the facade serves 4096-query batches on the card
     index.search_batch(queries, K)  # warm-up (allocator, first launches)
     torch.cuda.synchronize()
     score_kernel.LAUNCHES = 0
+    b1_zero()
     qps = []
     for _ in range(ROUNDS):
         t0 = time.perf_counter()
         results = index.search_batch(queries, K)
         qps.append(len(queries) / (time.perf_counter() - t0))
     launches = score_kernel.LAUNCHES
-    if launches == 0:
-        raise AssertionError("the slice never launched the CUDA kernel")
+    b1_by_phase = {"(d)": b1_read()}
+    if launches == 0 or not all(b1_by_phase["(d)"].values()):
+        raise AssertionError(
+            f"the slice launched P1 {launches} times, B1 {b1_by_phase['(d)']}"
+        )
     if len(results) != len(queries) or not all(
         np.isfinite(h.score) and h.score > 0 for hits in results for h in hits
     ):
         raise AssertionError("slice results are not finite positive hits")
     print(
         f"(d) slice: {ROUNDS} x search_batch({len(queries)} queries, k={K}); "
-        f"{launches} kernel launches; {engine.last_rounds} pruning rounds in "
+        f"{launches} P1 launches, B1 {b1_by_phase['(d)']}; {engine.last_rounds} pruning rounds in "
         f"the last batch; QPS per batch {[round(x, 1) for x in qps]} [{label}]"
     )
+    device_profile(lambda: index.search_batch(queries, K), "(d) profile", label)
 
     # (e) correctness at that size
     rng = np.random.default_rng(args.seed + 2)
@@ -1625,22 +2101,41 @@ def main() -> int:
         f"(e) {AUDIT} sampled queries: GPU == CPU-plain; recall@{K} vs the "
         f"float64 oracle {recall} ({total} hits, {ties} boundary ties excused)"
     )
+    n_rounds = rounds_equal(index.engine(), cpu.engine(), sample, "(e)")
     print(
         f"(e) after deleting {n_del} docs (1%) and with a prefilter: "
-        f"GPU == CPU-plain on {AUDIT} queries"
+        f"GPU == CPU-plain on {AUDIT} queries; last_rounds {n_rounds} on the "
+        f"card and on the CPU"
     )
 
     stream = stream_slice(
         args, seg, seed, queries, keys, tfs, doc_start, label, build_times
     )
     t0 = time.perf_counter()
-    rest, sweep = blockmax_rest(args, seg, seed, queries, ri, engine, cpu.engine(), label)
+    rest, sweep, b1_rest = blockmax_rest(
+        args, seg, seed, queries, ri, engine, cpu.engine(), label
+    )
     build_times["(l)-(n) phases, all of them"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    exact_entries, p1_hybrid, s2_exact = exact_hybrid(
+    exact_entries, p1_hybrid, s2_exact, b1_hybrid = exact_hybrid(
         args, seg, seed, queries, ri, engine, label
     )
     build_times["(o)-(q) phases, all of them"] = time.perf_counter() - t0
+    b1_by_phase.update(b1_rest)
+    b1_by_phase.update(b1_hybrid)
+    # (t) phase (d)'s index, with phase (e)'s deletes, restarted
+    t0 = time.perf_counter()
+    picks = np.random.default_rng(args.seed + 9).choice(seg.n_docs, 1024, replace=False)
+    new_docs = [
+        Document(
+            keys=keys[int(doc_start[d]) : int(doc_start[d + 1])],
+            values=tfs[int(doc_start[d]) : int(doc_start[d + 1])],
+        )
+        for d in picks
+    ]
+    restart(index, queries, new_docs, label, "Block-Max")
+    build_times["(t) Block-Max"] = time.perf_counter() - t0
+    del new_docs
     # P1 and S2 entries count every main-path run that launched them.
     s2_entry = next(e for e in stream if e["name"] == "dense_topk")
     s2_entry["launches_by_phase"] = {
@@ -1658,7 +2153,23 @@ def main() -> int:
     )
     # The 131,072-doc corpus and its indexes go before phase (i)'s corpus.
     del index, engine, cpu, seg, queries, keys, tfs, doc_start, sample, ri
-    sparse = sparse_slice(args, label, build_times)
+    sparse, b1_large = sparse_slice(args, label, build_times)
+    b1_by_phase["(s)"] = b1_large["launches"]
+    p1_hybrid["(s)"] = b1_large["p1_launches"]
+    b1_entries = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "vectorchord_bm25_tpu_torch/csrc/blockmax_round.cu",
+            "replaces": f"vectorchord_bm25_tpu/search/blockmax.py:{line}",
+            "launches": sum(by[name] for by in b1_by_phase.values()),
+            "launches_by_phase": {ph: by[name] for ph, by in b1_by_phase.items()},
+            **b1[name],
+            "r16384": b1_large["measured"][name],
+            "rounds_a_batch_r16384": b1_large["rounds"],
+        }
+        for name, line in zip(B1_NAMES, B1_REPLACES)
+    ]
     # (k) where the host time went
     print(
         "(k) host build: "
@@ -1689,6 +2200,7 @@ def main() -> int:
                         **p1_sweep,
                     },
                     *rest,
+                    *b1_entries,
                     *stream,
                     *sparse,
                     *exact_entries,

@@ -782,3 +782,214 @@ def test_hybrid_on_card_equals_cpu(card, gen, heavy_mode, memory_mode):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
     assert on_card.memory_report() == on_cpu.memory_report()
+
+
+# --- the Block-Max round outside the scoring kernel: B1-bounds, B1-select,
+# B1-merge (ops/blockmax_round.py) against their plain versions
+
+
+def _round_csr(gen, vocab, n_ranges, max_groups, card, bounds=(0.5, 1.25, 3.0)):
+    """A random (term, range) group CSR in the engine's device layout, with
+    bounds drawn from a few values (ties): (token_tr_start, tr_range,
+    tr_start, tr_ub) on the card."""
+    counts = gen.integers(0, max_groups + 1, size=vocab)
+    counts[0], counts[1] = max_groups, 0
+    tts = np.zeros(vocab + 2, dtype=np.int32)
+    tts[1 : vocab + 1] = np.cumsum(counts)
+    tts[vocab + 1] = tts[vocab]
+    m = int(tts[vocab])
+    tr_range = np.full(m + 1, np.iinfo(np.int32).max, dtype=np.int32)
+    for v in range(vocab):
+        tr_range[tts[v] : tts[v + 1]] = np.sort(
+            gen.choice(n_ranges, size=counts[v], replace=False)
+        )
+    tr_start = np.zeros(m + 2, dtype=np.int32)
+    tr_start[1 : m + 1] = np.cumsum(gen.integers(1, 9, size=m))
+    tr_start[m + 1] = tr_start[m]
+    ub = gen.choice(np.float32(bounds), size=m)
+    tr_ub = np.append(ub, np.float32(0.0)).astype(np.float32)
+    return [torch.from_numpy(x).to(card) for x in (tts, tr_range, tr_start, tr_ub)]
+
+
+def _round_q_tid(gen, n_q, t, vocab, card):
+    q_tid = gen.integers(0, vocab, size=(n_q, t)).astype(np.int32)
+    q_tid[0, :] = vocab  # pads only
+    for qi in range(1, n_q, 3):
+        q_tid[qi, gen.integers(1, t) :] = vocab
+    return torch.from_numpy(q_tid).to(card)
+
+
+@pytest.mark.parametrize(
+    "n_ranges,max_groups,t",
+    [(37, 11, 4), (1024, 300, 4), (16384, 900, 8), (60000, 500, 4)],
+)
+def test_range_bounds_matches_plain(card, gen, n_ranges, max_groups, t):
+    # 60,000 ranges: the row no longer fits shared memory.
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    vocab, lmax = 24, 1024
+    tts, tr_range, _, tr_ub = _round_csr(gen, vocab, n_ranges, max_groups, card)
+    q_tid = _round_q_tid(gen, 33, t, vocab, card)
+    before = br.BOUNDS_LAUNCHES
+    got = br.range_bounds(tts, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax)
+    torch.cuda.synchronize()
+    assert br.BOUNDS_LAUNCHES == before + 1
+    want = br.range_bounds_plain(tts, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax)
+    assert torch.equal(got, want) and (got > 0).any()
+    cpu = br.range_bounds(
+        tts.cpu(), tr_range.cpu(), tr_ub.cpu(), q_tid.cpu(), n_ranges=n_ranges, lmax=lmax
+    )
+    assert torch.equal(got.cpu(), cpu)
+    assert br.BOUNDS_LAUNCHES == before + 1  # the CPU call launched nothing
+
+
+def test_round_keeps_subnormals(card, gen):
+    # A subnormal bound or score is not flushed to zero: the kernels equal
+    # the plain versions on the CPU (torch's own scatter_add_ on the card
+    # adds with a global atomic, which does flush, so it is no yardstick).
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    csr = _round_csr(gen, 24, 200, 60, card, bounds=(1e-41, 3e-41, 0.5))
+    tts, tr_range, tr_start, tr_ub = csr
+    q_tid = _round_q_tid(gen, 33, 4, 24, card)
+    cpu = [x.cpu() for x in (*csr, q_tid)]
+    ub = br.range_bounds(tts, tr_range, tr_ub, q_tid, n_ranges=200, lmax=64)
+    ub_cpu = br.range_bounds(cpu[0], cpu[1], cpu[3], cpu[4], n_ranges=200, lmax=64)
+    assert torch.equal(ub.cpu(), ub_cpu)
+    tiny = (ub_cpu > 0) & (ub_cpu < 1e-38)
+    assert tiny.any()
+    topk_s = torch.full((33, 4), float("-inf"))
+    got = br.round_select(
+        ub, topk_s.to(card), tr_range, tr_start, tts, q_tid, chunk=150, lmax=64
+    )
+    want = br.round_select(ub_cpu, topk_s, cpu[1], cpu[2], cpu[0], cpu[4], chunk=150, lmax=64)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(ub.cpu(), ub_cpu)
+    # A subnormal bound is above the threshold 0: its range is scored.
+    picked_tiny = tiny.gather(1, want[0].long())
+    assert (want[2].sum(dim=1)[picked_tiny.any(dim=1)] > 0).any()
+    acc = torch.from_numpy(gen.choice(np.float32([0.0, 1e-41, 2e-41, 0.75]), size=(33, 4, 64)))
+    cand_r = torch.from_numpy(np.stack([gen.permutation(200)[:4] for _ in range(33)]).astype(np.int32))
+    ones = torch.ones(200 * 64 + 1)
+    s_cpu = torch.full((33, 300), float("-inf"))
+    d_cpu = torch.full((33, 300), np.iinfo(np.int32).max, dtype=torch.int32)
+    s_gpu, d_gpu = s_cpu.to(card), d_cpu.to(card)
+    br.round_merge(acc, cand_r, ones, ones, s_cpu, d_cpu, n_docs=200 * 64)
+    br.round_merge(
+        acc.to(card), cand_r.to(card), ones.to(card), ones.to(card), s_gpu, d_gpu,
+        n_docs=200 * 64,
+    )
+    assert torch.equal(s_gpu.cpu(), s_cpu) and torch.equal(d_gpu.cpu(), d_cpu)
+    assert ((s_cpu > 0) & (s_cpu < 1e-38)).any()
+
+
+@pytest.mark.parametrize(
+    "n_ranges,max_groups,chunk,k",
+    [(37, 11, 1, 5), (37, 11, 37, 5), (1024, 300, 32, 16), (1024, 300, 1024, 1),
+     (16384, 900, 256, 16), (60000, 500, 64, 16)],
+)
+def test_round_select_matches_plain(card, gen, n_ranges, max_groups, chunk, k):
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    vocab, lmax, n_q = 24, 1024, 33
+    tts, tr_range, tr_start, tr_ub = _round_csr(gen, vocab, n_ranges, max_groups, card)
+    q_tid = _round_q_tid(gen, n_q, 4, vocab, card)
+    ub0 = br.range_bounds(tts, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax)
+    kth = torch.from_numpy(
+        gen.choice(np.float32([-np.inf, 0.0, 0.5, 1.25, 3.0, 50.0]), size=n_q)
+    ).to(card)
+    topk_s = (kth[:, None] + torch.arange(k - 1, -1, -1, device=card)).float().contiguous()
+    taken = torch.from_numpy(gen.random((n_q, n_ranges)) < 0.5).to(card)
+    taken[2] = True  # a row with nothing left
+    for ub in (ub0, torch.where(taken, float("-inf"), ub0).contiguous()):
+        a, b = ub.clone(), ub.clone()
+        before = br.SELECT_LAUNCHES
+        got = br.round_select(a, topk_s, tr_range, tr_start, tts, q_tid, chunk=chunk, lmax=lmax)
+        torch.cuda.synchronize()
+        assert br.SELECT_LAUNCHES == before + 1
+        want = br.round_select_plain(
+            b, topk_s, tr_range, tr_start, tts, q_tid, chunk=chunk, lmax=lmax
+        )
+        for g, w, name in zip(got, want, ("cand_r", "start", "length", "flag")):
+            assert torch.equal(g, w), name
+        assert torch.equal(a, b)  # the rows after masking
+        assert bool(got[3]) and got[2].any() and not got[2][0].any()
+
+
+def test_round_select_refuses_bad_chunk(card, gen):
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    tts, tr_range, tr_start, tr_ub = _round_csr(gen, 24, 37, 11, card)
+    q_tid = _round_q_tid(gen, 4, 4, 24, card)
+    ub = br.range_bounds(tts, tr_range, tr_ub, q_tid, n_ranges=37, lmax=16)
+    topk_s = torch.full((4, 3), float("-inf"), device=card)
+    for chunk in (0, 38):
+        with pytest.raises(ValueError, match="chunk"):
+            br.round_select(ub, topk_s, tr_range, tr_start, tts, q_tid, chunk=chunk, lmax=16)
+    with pytest.raises(ValueError, match="expected"):
+        br.round_select(ub, topk_s.cpu(), tr_range, tr_start, tts, q_tid, chunk=4, lmax=16)
+
+
+@pytest.mark.parametrize(
+    "c,rs,n_docs,k",
+    [(3, 32, 300, 8), (32, 128, 131072, 16), (64, 128, 20000 - 7, 16),
+     (5, 16, 80, 64), (8, 128, 9000, 4096), (2, 128, 40000, 16384)],
+)
+def test_round_merge_matches_plain(card, gen, c, rs, n_docs, k):
+    # (64, 128): the candidates go through the key buffer in two tiles;
+    # k = 16,384: the buffer no longer fits shared memory.
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    n_q = 17
+    n_ranges = -(-n_docs // rs)
+    live = torch.from_numpy((gen.random(n_docs + 1) < 0.8).astype(np.float32)).to(card)
+    filt = torch.from_numpy((gen.random(n_docs + 1) < 0.7).astype(np.float32)).to(card)
+    got_s = torch.full((n_q, k), float("-inf"), device=card)
+    got_d = torch.full((n_q, k), np.iinfo(np.int32).max, dtype=torch.int32, device=card)
+    want_s, want_d = got_s.clone(), got_d.clone()
+    unseen = [gen.permutation(n_ranges) for _ in range(n_q)]
+    for round_no in range(min(3, n_ranges // c)):
+        cand_r = torch.from_numpy(
+            np.stack([u[round_no * c : (round_no + 1) * c] for u in unseen]).astype(np.int32)
+        ).to(card)
+        acc = gen.choice(np.float32([0.0, 0.0, 0.75, 1.5, 2.25]), size=(n_q, c, rs))
+        acc[0] = 0.0
+        acc = torch.from_numpy(acc).to(card)
+        before = br.MERGE_LAUNCHES
+        out = br.round_merge(acc, cand_r, live, filt, got_s, got_d, n_docs=n_docs)
+        torch.cuda.synchronize()
+        assert br.MERGE_LAUNCHES == before + 1 and out[0].data_ptr() == got_s.data_ptr()
+        br.round_merge_plain(acc, cand_r, live, filt, want_s, want_d, n_docs=n_docs)
+        assert torch.equal(got_s, want_s) and torch.equal(got_d, want_d), round_no
+    assert torch.isfinite(got_s).any() and not torch.isfinite(got_s[0]).any()
+
+
+@pytest.mark.parametrize("mode", [{}, {"impact_dtype": "bfloat16"}, {"posting_mode": "tf"}])
+def test_blockmax_rounds_on_card_equal_cpu(card, gen, mode):
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    n_docs = 40 * 64 - 13
+    seg = build_sealed_segment(make_docs(gen, n_docs, vocab=30))
+    ri = build_range_index(seg, range_size=64)
+    on_card = BlockMaxEngine(seg, ri, chunk=4, device=card, **mode)
+    on_cpu = BlockMaxEngine(seg, ri, chunk=4, device="cpu", **mode)
+    deleted = gen.random(n_docs) < 0.1
+    on_card.set_deleted(deleted)
+    on_cpu.set_deleted(deleted)
+    queries = [
+        Query.from_int_ids(gen.integers(0, 30, size=int(n)).tolist())
+        for n in gen.integers(1, 7, size=48)
+    ]
+    for k, chunk in ((1, None), (10, None), (3000, None), (10, ri.n_ranges)):
+        counts = (br.BOUNDS_LAUNCHES, br.SELECT_LAUNCHES, br.MERGE_LAUNCHES)
+        got = on_card.search(queries, k, chunk=chunk)
+        want = on_cpu.search(queries, k, chunk=chunk)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert on_card.last_rounds == on_cpu.last_rounds >= 1
+        # One bounds launch a batch, one select a round and the one that
+        # ends the loop, one merge a round.
+        assert br.BOUNDS_LAUNCHES == counts[0] + 1
+        assert br.MERGE_LAUNCHES == counts[2] + on_card.last_rounds
+        assert br.SELECT_LAUNCHES - counts[1] in (on_card.last_rounds, on_card.last_rounds + 1)

@@ -4,11 +4,12 @@ reference's results.
 
 - an AST scan of every port module and ``chip_smoke.py``;
 - a subprocess with ``jax``, ``vectorchord_bm25_tpu`` and ``bench``
-  blocked that builds and serves every ported engine, strategy and mode;
+  blocked that builds and serves every ported engine, strategy and mode,
+  and saves, reopens with a WAL and serves again;
 - the copies against the originals on the same inputs: interning, the
-  segment, range-index and stream builds, the oracles and the synthetic
-  generators (whose output depends on the numpy version, so the copy is
-  held to ``bench.py``'s on the same seed here);
+  segment, range-index and stream builds, the oracles, the on-disk codecs
+  and the synthetic generators (whose output depends on the numpy version,
+  so the copy is held to ``bench.py``'s on the same seed here);
 - the reference's state crossing into the port by value.
 """
 
@@ -27,14 +28,17 @@ torch = pytest.importorskip("torch")
 import bench  # noqa: E402
 from vectorchord_bm25_tpu.index import ranges as ref_ranges  # noqa: E402
 from vectorchord_bm25_tpu.index import sealed as ref_sealed  # noqa: E402
+from vectorchord_bm25_tpu.index import storage as ref_storage  # noqa: E402
 from vectorchord_bm25_tpu.index import stream as ref_stream  # noqa: E402
 from vectorchord_bm25_tpu.index.bm25index import Bm25Index as RefIndex  # noqa: E402
 from vectorchord_bm25_tpu.search import exact as ref_exact  # noqa: E402
+from vectorchord_bm25_tpu.ops import bitpack as ref_bitpack  # noqa: E402
 from vectorchord_bm25_tpu.search import hybrid as ref_hybrid  # noqa: E402
 from vectorchord_bm25_tpu.text import intern as ref_intern  # noqa: E402
 from vectorchord_bm25_tpu_torch import Bm25Index  # noqa: E402
 from vectorchord_bm25_tpu_torch.data import synth  # noqa: E402
-from vectorchord_bm25_tpu_torch.index import ranges, sealed, stream  # noqa: E402
+from vectorchord_bm25_tpu_torch.index import ranges, sealed, storage, stream  # noqa: E402
+from vectorchord_bm25_tpu_torch.ops import bitpack  # noqa: E402
 from vectorchord_bm25_tpu_torch.search import exact, hybrid  # noqa: E402
 from vectorchord_bm25_tpu_torch.text import intern  # noqa: E402
 
@@ -69,6 +73,8 @@ def _absolute_imports(path):
 def test_no_module_imports_jax_or_the_reference():
     sources = _port_sources()
     assert len(sources) > 20
+    scanned = {os.path.relpath(p, PORT) for p in sources}
+    assert {"ops/blockmax_round.py", "ops/bitpack.py", "index/storage.py"} <= scanned
     bad = [
         f"{os.path.relpath(p, REPO)}:{line} imports {name}"
         for p in sources
@@ -161,6 +167,28 @@ def test_port_runs_without_jax():
                 ), opts
         keys, doc_ids, tfs, doc_start = synth_corpus_postings(500, 2000, 20)
         assert keys.size == doc_ids.size == tfs.size
+        # Persist: save, reopen with the WAL attached, mutate without a
+        # checkpoint, reopen again (the WAL replays) and serve.
+        import os, tempfile
+        from vectorchord_bm25_tpu_torch import load_index, open_index, save_index
+        with tempfile.TemporaryDirectory() as d:
+            for kind in ("stream", "blockmax"):
+                path = os.path.join(d, kind)
+                save_index(Bm25Index.build(docs, engine=kind, device="cpu"), path)
+                index = open_index(path, device="cpu")
+                index.insert(Document.from_int_ids([1, 2, 3]), 7000)
+                assert index.bulkdelete_payloads([4, 9]) == 2
+                assert os.path.getsize(os.path.join(path, "wal.log")) > 0
+                want = [[(h.score, h.payload) for h in hits] for hits in index.search_batch(qs, k=300)]
+                index._wal.close()
+                again = open_index(path, device="cpu")
+                got = [[(h.score, h.payload) for h in hits] for hits in again.search_batch(qs, k=300)]
+                assert got == want and any(p == 7000 for _, p in got[0]), kind
+                assert again.engine_kind == kind and len(again.growing) == 1
+                again.maintain()
+                save_index(again, path)
+                assert os.path.getsize(os.path.join(path, "wal.log")) == 0
+                assert load_index(path, device="cpu").n_docs == 299
         loaded = sorted(
             m for m, v in sys.modules.items()
             if v is not None
@@ -305,6 +333,69 @@ def test_exact_and_hybrid_planning_equals_reference(rng):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
             assert g.dtype == w.dtype
+
+
+def _codec_blocks(rng, n_blocks):
+    """[B, 128] doc ids ascending from a per-block base and term
+    frequencies of mixed widths (a block of zeros, one above 16 bits)."""
+    bases = rng.integers(0, 1 << 20, size=n_blocks).astype(np.uint32)
+    gaps = rng.integers(0, 1 << rng.integers(1, 12, size=(n_blocks, 1)), size=(n_blocks, 128))
+    docids = (bases[:, None] + np.cumsum(gaps, axis=1)).astype(np.uint32)
+    tfs = rng.integers(0, 1 << rng.integers(1, 20, size=(n_blocks, 1)), size=(n_blocks, 128))
+    tfs[0] = 0
+    return bases, docids, tfs.astype(np.uint32)
+
+
+def _numpy_codecs(monkeypatch):
+    """Hold the copies to the reference's numpy branch, which they copy,
+    whether or not the reference's native codec library is built here."""
+    from vectorchord_bm25_tpu.native import loader
+
+    for name in ("compress_blocks", "decompress_blocks", "bytepack_blocks", "byteunpack_blocks"):
+        monkeypatch.setattr(loader, name, lambda *a, **k: None)
+
+
+@pytest.mark.parametrize("bits", [0, 1, 7, 13, 32])
+def test_bitpack_equals_reference(rng, bits):
+    values = rng.integers(0, 1 << bits, size=128, dtype=np.uint64).astype(np.uint32)
+    packed = bitpack.pack_u32_np(values, bits)
+    want = ref_bitpack.pack_u32_np(values, bits)
+    assert packed.dtype == want.dtype and packed.tobytes() == want.tobytes()
+    np.testing.assert_array_equal(bitpack.unpack_u32_np(packed, bits, 128), values)
+    np.testing.assert_array_equal(
+        bitpack.unpack_u32_np(packed, bits, 128), ref_bitpack.unpack_u32_np(want, bits, 128)
+    )
+
+
+@pytest.mark.parametrize("with_bases", [True, False])
+def test_full_block_codecs_equal_reference(rng, monkeypatch, with_bases):
+    _numpy_codecs(monkeypatch)
+    bases, docids, tfs = _codec_blocks(rng, 9)
+    vals, b = (docids, bases) if with_bases else (tfs, None)
+    got, want = storage._bitpack_full(vals, b), ref_storage._bitpack_full(vals, b)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    back = storage._bitunpack_full(*got, b)
+    np.testing.assert_array_equal(back, vals)
+    np.testing.assert_array_equal(back, ref_storage._bitunpack_full(*want, b))
+
+
+@pytest.mark.parametrize("with_bases", [True, False])
+def test_partial_block_codecs_equal_reference(rng, monkeypatch, with_bases):
+    _numpy_codecs(monkeypatch)
+    bases, docids, tfs = _codec_blocks(rng, 9)
+    ns = rng.integers(0, 128, size=9)
+    ns[:2] = [0, 127]
+    vals, b = (docids, bases) if with_bases else (tfs, None)
+    got = storage._bytepack_partial(vals, ns, b)
+    want = ref_storage._bytepack_partial(vals, ns, b)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    back = storage._byteunpack_partial(*got, ns, b, fill=77)
+    np.testing.assert_array_equal(back, ref_storage._byteunpack_partial(*want, ns, b, fill=77))
+    for i, n in enumerate(ns):
+        np.testing.assert_array_equal(back[i, :n], vals[i, :n])
+        assert (back[i, n:] == 77).all()
 
 
 def test_generators_equal_bench():

@@ -6,11 +6,15 @@ code it needs (segment build, range index, compressed stream, tokenizer
 interning, options, oracles, numpy query planning) is its own copy, and
 the modules that touch the device are ported.  State built by the
 reference crosses by value (``Bm25Index.from_reference``,
-``segment_from_reference``).  Public API:
+``segment_from_reference``) or by file: the checkpoint format of
+``index/storage.py`` is the reference's, so either package opens what the
+other saved.  Public API:
 
     from vectorchord_bm25_tpu_torch import Bm25Index, Query, Document
     index = Bm25Index.build(docs, engine="blockmax", device="cuda")
     hits = index.search_batch(queries, k=10)
+    save_index(index, directory)
+    index = open_index(directory, device="cuda")  # replays and attaches the WAL
 """
 
 __version__ = "0.1.0"
@@ -31,6 +35,10 @@ __all__ = [
     "StreamEngine",
     "oracle_scores",
     "oracle_topk",
+    "save_index",
+    "load_index",
+    "open_index",
+    "Wal",
 ]
 
 # Where each public name lives in the port.
@@ -50,6 +58,10 @@ _HOME = {
     "StreamEngine": ".search.stream",
     "oracle_scores": ".search.exact",
     "oracle_topk": ".search.exact",
+    "save_index": ".index.storage",
+    "load_index": ".index.storage",
+    "open_index": ".index.storage",
+    "Wal": ".index.storage",
 }
 
 

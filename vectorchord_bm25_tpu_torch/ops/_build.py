@@ -66,7 +66,7 @@ def _tag(sources) -> str:
 
 
 def _declare(lib):
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     signatures = {
         "bm25_fused_range_scores": [vp, vp, vp, vp, vp, i, i, i, i, ll, i, vp],
         "bm25_tf_range_scores": [
@@ -91,6 +91,9 @@ def _declare(lib):
         "bm25_exact_compact_accumulate": [
             vp, vp, vp, vp, vp, vp, vp, i, i, i, ll, i, i, i, i, i, vp,
         ],
+        "bm25_range_bounds": [vp, vp, vp, vp, vp, i, i, i, f, vp],
+        "bm25_round_select": [*([vp] * 10), i, i, i, i, i, vp],
+        "bm25_round_merge": [*([vp] * 7), i, i, i, i, i, i, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -9,10 +9,12 @@ The same algorithm as the reference, on torch tensors:
    with a (score desc, doc asc) order and raise the threshold;
 3. stop when no remaining range's bound exceeds the threshold.
 
-The reference runs step 2 inside ``lax.while_loop`` on the device.  Here
-it is a Python ``while`` whose condition is one device-to-host bool per
-round — the one sync a round.  Step 2's kernel depends on the posting
-form (``ops/score_kernel.py``):
+The reference runs all of it as one device program, step 2 inside
+``lax.while_loop``.  Here every step is a kernel (``ops/blockmax_round.py``:
+B1-bounds for step 1; per round B1-select, the scoring kernel, B1-merge),
+and the loop is a Python ``while`` that reads one device flag a round, the
+one sync a round.  The scoring kernel depends on the posting form
+(``ops/score_kernel.py``):
 
 - ``posting_mode="impact"``: P1 ``fused_range_scores`` over precomputed
   f32 impacts, or bf16 ones (``impact_dtype="bfloat16"``: half the
@@ -38,8 +40,15 @@ import torch
 
 from ..index.ranges import RangeIndex, build_range_index, ranges_from_reference
 from ..index.sealed import SealedSegment, segment_from_reference
+from ..ops.blockmax_round import (
+    locate as _locate,
+    range_bounds,
+    round_merge,
+    round_select,
+    term_windows as _term_windows,
+)
 from ..ops.score_kernel import fused_range_scores, tf_range_scores
-from ..ops.topk import dense_topk, lex_topk
+from ..ops.topk import dense_topk
 from ..text.intern import Query
 from ..utils.batchkeys import batch_lookup, group_positions
 from ..utils.buckets import bucket_pow2 as _bucket
@@ -49,38 +58,6 @@ from .device import DeviceSegment
 __all__ = ["BlockMaxEngine"]
 
 _INT_MAX = int(np.iinfo(np.int32).max)
-
-
-def _term_windows(tr_range, tr_start, tr_ub, token_tr_start, q_tid, lmax):
-    """Each query term's (range, span start, span length, ub) window from
-    the CSR, ``[Q, T, lmax]`` each, ranges ascending with INT_MAX pads."""
-    m_pad = tr_range.shape[0] - 1  # index of the pad slot
-    tid = q_tid.long()
-    base = token_tr_start[tid]  # [Q, T]
-    count = token_tr_start[tid + 1] - base
-    l_iota = torch.arange(lmax, dtype=torch.int32, device=q_tid.device)
-    widx = (base[..., None] + l_iota).clamp_max(m_pad).long()  # [Q, T, L]
-    lmask = l_iota < count[..., None]
-    qt_range = torch.where(lmask, tr_range[widx], _INT_MAX)  # ascending
-    qt_start = torch.where(lmask, tr_start[widx], 0)
-    qt_len = torch.where(lmask, tr_start[widx + 1] - tr_start[widx], 0)
-    qt_ub = torch.where(lmask, tr_ub[widx], 0.0) if tr_ub is not None else None
-    return qt_range, qt_start, qt_len, qt_ub
-
-
-def _locate(qt_range, qt_start, qt_len, cand_r, lmax, cand_ok=None):
-    """Each (query term, candidate range) posting span: (start, length)
-    ``[Q, T, C]``, length 0 where the term has no postings in the range
-    or the candidate is not ``cand_ok``."""
-    q, t, _ = qt_range.shape
-    cand_qt = cand_r[:, None, :].expand(q, t, cand_r.shape[1]).contiguous()
-    idx = torch.searchsorted(qt_range, cand_qt).clamp_max(lmax - 1)
-    found = qt_range.gather(2, idx) == cand_qt
-    if cand_ok is not None:
-        found &= cand_ok[:, None, :]
-    start = torch.where(found, qt_start.gather(2, idx), 0)
-    length = torch.where(found, qt_len.gather(2, idx), 0)
-    return start, length
 
 
 def _blockmax_kernel(
@@ -109,43 +86,30 @@ def _blockmax_kernel(
 ):
     """Block-Max search; returns (topk_s [Q,k] f32, topk_d [Q,k] i32,
     rounds)."""
-    q, t = q_tid.shape
+    q = q_tid.shape[0]
     rs, c = range_size, chunk
     dev = q_tid.device
-    neg_inf = float("-inf")
 
-    qt_range, qt_start, qt_len, qt_ub = _term_windows(
-        tr_range, tr_start, tr_ub, token_tr_start, q_tid, lmax
+    # Phase 1 (B1-bounds): dense per-range upper bounds, each range's terms
+    # summed in ascending t, times the reference's float-safety scale.
+    ub_work = range_bounds(
+        token_tr_start, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax
     )
-
-    # Phase 1: dense per-range upper bounds (sum over terms).  A term has
-    # at most one group per range, so adding one term at a time needs no
-    # atomics and sums each range's terms in ascending t.
-    safe_r = torch.where(qt_range == _INT_MAX, n_ranges, qt_range).long()
-    ub_work = torch.zeros((q, n_ranges + 1), dtype=torch.float32, device=dev)
-    for ti in range(t):
-        ub_work.scatter_add_(1, safe_r[:, ti], qt_ub[:, ti])
-    # The reference's float-safety scale for a T-term f32 accumulation.
-    scale = torch.tensor(1.0 + (t + 2) * 1.2e-7, dtype=torch.float32)
-    ub_work = ub_work[:, :n_ranges] * scale
-
-    topk_s = torch.full((q, k), neg_inf, dtype=torch.float32, device=dev)
+    topk_s = torch.full((q, k), float("-inf"), dtype=torch.float32, device=dev)
     topk_d = torch.full((q, k), _INT_MAX, dtype=torch.int32, device=dev)
-    rs_iota = torch.arange(rs, dtype=torch.int32, device=dev)
+    # One zeroed flag a round: B1-select raises it if any query is active.
+    flags = torch.zeros(max(max_rounds, 1), dtype=torch.int32, device=dev)
 
     rounds = 0
     while rounds < max_rounds:
-        # score > 0 rule: the threshold starts at 0.
-        thresh = topk_s[:, k - 1].clamp_min(0.0)
-        if not bool((ub_work.amax(dim=1) > thresh).any()):
+        # B1-select: the C highest-bound ranges above the threshold and
+        # their posting spans; ub_work and the flag are updated in place.
+        cand_r, start, length, active = round_select(
+            ub_work, topk_s, tr_range, tr_start, token_tr_start, q_tid,
+            chunk=c, lmax=lmax, flag=flags[rounds : rounds + 1],
+        )
+        if not bool(active):  # the round's one device-to-host read
             break
-        cand_ub, cand_r = torch.topk(ub_work, c, dim=1)  # [Q, C]
-        ub_work = ub_work.scatter(1, cand_r, neg_inf)
-        # Refilled already-processed (-inf) ranges and ranges at or below
-        # the threshold must not be rescored.
-        cand_ok = cand_ub > thresh[:, None]
-        cand_r = cand_r.int()
-        start, length = _locate(qt_range, qt_start, qt_len, cand_r, lmax, cand_ok)
 
         if posting_mode == "tf":
             acc = tf_range_scores(
@@ -157,22 +121,9 @@ def _blockmax_kernel(
                 post_impact, post_local, start, length, rs=rs
             )  # [Q, C, RS]
 
-        # Deleted/filtered docs are masked on the accumulated per-doc
-        # scores (the factors are per-doc, so they distribute over terms).
-        cand_docs = cand_r[:, :, None] * rs + rs_iota  # [Q, C, RS]
-        cand_docs_c = cand_docs.clamp_max(n_docs).long()
-        acc = acc * doc_live[cand_docs_c] * filter_mask[cand_docs_c]
-        flat_s = acc.reshape(q, c * rs)
-        flat_d = cand_docs.reshape(q, c * rs)
-        ok = (flat_s > 0.0) & (flat_d < n_docs)
-        flat_s = torch.where(ok, flat_s, neg_inf)
-        flat_d = torch.where(ok, flat_d, _INT_MAX)
-
-        topk_s, topk_d = lex_topk(
-            torch.cat([topk_s, flat_s], dim=1),
-            torch.cat([topk_d, flat_d], dim=1),
-            k,
-        )
+        # B1-merge: live/filter mask, score > 0 rule, lexicographic merge
+        # into topk_s / topk_d in place.
+        round_merge(acc, cand_r, doc_live, filter_mask, topk_s, topk_d, n_docs=n_docs)
         rounds += 1
     return topk_s, topk_d, rounds
 
@@ -247,8 +198,9 @@ def _finish(segment, scores: np.ndarray, ids: np.ndarray, k: int):
 class BlockMaxEngine:
     """Batched Block-Max pruned search over one sealed segment, on torch.
 
-    On a CUDA device every pruning round runs a CUDA kernel (P1, or P1-tf
-    in ``posting_mode="tf"``), on the CPU its plain PyTorch version."""
+    On a CUDA device the bounds and every pruning round run CUDA kernels
+    (B1-bounds; B1-select, P1 or P1-tf in ``posting_mode="tf"``, B1-merge),
+    on the CPU their plain PyTorch versions."""
 
     def __init__(
         self,
