@@ -4,7 +4,9 @@ and bf16 impacts, tf postings, the exhaustive range sweep; at 131,072 and
 at 2,097,152 docs), the served default, the stream engine, with a growing
 segment and at the scale where its ``auto`` strategy leaves the dense path,
 the exact engine (dense, bf16, compact, shared and sparse), the hybrid
-engine's routes, and a restart (checkpoint, WAL replay, reopen).  The corpora
+engine's routes, a restart (checkpoint, WAL replay, reopen), and the
+sharded index (8 shards stacked on the card: its device build, every
+engine, a restart, and serving at 2,097,152 docs).  The corpora
 come from the port's own generators
 (``vectorchord_bm25_tpu_torch/data/synth.py``).
 
@@ -132,14 +134,44 @@ not 0 and no result line is printed):
       index after the same mutations; ``maintain``, save, open: ``wal.log``
       empty, one generation left, results equal; bytes on disk and the host
       seconds of each step;
+  (u) the sharded index on phase (d)'s postings in 8 shards:
+      ``ShardedIndex.build_from_postings(..., 8, device="cuda",
+      device_build=True)``, where D1-sort (``posting_sort``) equals its plain
+      version on all six columns and SH-stats (``shard_stats``) its plain
+      version and the host's (N, sum dl) and doc offsets, and the segments
+      equal ``device_build=False``'s.  Then engines ``stream``, ``exact``,
+      ``hybrid`` (fast and compact) and ``blockmax`` (impact and tf) on those
+      shards: one 4,096-query batch at k=10 with every call of every kernel
+      on the path (S1, S2, E1, E3, B1, P1 or P1-tf, SH-merge) held
+      ``torch.equal`` to its plain version, then 3 batches with the counters
+      from 0 (each must grow), QPS each; 256 queries equal the same sharded
+      index on the CPU (plain kernels); recall@10 = 1.0 against the float64
+      oracle.  Then the stream index restarts: save, open with the WAL,
+      1,024 inserts and 1% deleted through it, a prefilter, maintain, reopen
+      (the WAL replays), each step equal to the live index; bytes on disk
+      and host seconds;
+  (v) the device build of phase (i)'s postings (2,097,152 docs, 8 shards of
+      262,144): D1-sort and SH-stats held as in (u); D1-sort timed with
+      its plain version and five chained stable ``torch.sort`` passes, SH-stats
+      with its plain version and ``torch.sum``; host seconds of packing,
+      sort, flush and upload, and the peak device memory;
+  (w) (v)'s index serving both 512-query mixes, ``strategy="auto"`` (dense
+      per shard: 262,144 docs a shard is below 2^21) and ``"maxscore"``:
+      one batch with every kernel call held to its plain version (S1, S2,
+      SH-merge; S3-S5 under MaxScore), then 5 batches, QPS each; results held
+      to phase (i)'s single index by the reference's rule (the same hit
+      counts, a rank may differ only between scores within 1e-4, scores
+      within rtol 2e-5); 32 queries equal the CPU-plain sharded index under
+      both strategies; recall@10 = 1.0 on them; SH-merge timed on its largest
+      call beside ``torch.topk`` on the packed keys;
   (k) the host build time of each phase.
 
-Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, and
-(r) and (s) after (j).  Each path is driven with its launch counters at 0
-and read just after.  The ``kernels`` line lists P1 (f32 and bf16), P1-tf,
-B1-bounds, B1-select, B1-merge, S1-S5 and E1 (f32 and bf16), E2 and E3,
-each with its
-launches, its time and its plain version's from CUDA events, its bound
+Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, (u)
+after (t), and (r), (s), (v) and (w) after (j).  Each path is driven with
+its launch counters at 0 and read just after.  The ``kernels`` line lists
+P1 (f32 and bf16), P1-tf, B1-bounds, B1-select, B1-merge, S1-S5, E1 (f32
+and bf16), E2, E3, SH-merge, SH-stats and D1-sort, each with its launches
+by phase and in all, its time and its plain version's from CUDA events, its bound
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its f32
 operations over 67 TFLOP/s, counted from this run's inputs) and the time
 of one PyTorch call computing the same function where there is one
@@ -174,6 +206,27 @@ def cuda_ms(fn, iters=20, warmup=3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean milliseconds of fn() on the card alone: the launches queue up
+    behind a sleeping kernel, so for a call that the host launches slower
+    than the card runs it, the events time the card and not the host's
+    launch pace (which ``cuda_ms`` measures)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # about 50 ms: longer than the enqueueing
     start.record()
     for _ in range(iters):
         fn()
@@ -1464,11 +1517,11 @@ def _checked(module, name, plain, size, errs):
 
     real = getattr(module, name)
     stats = {"name": name, "real": real, "plain": plain, "checked": 0,
-             "err": 0.0, "args": None, "size": -1}
+             "err": 0.0, "args": None, "kw": {}, "size": -1}
 
-    def wrapper(*args):
-        out = real(*args)
-        want = plain(*args)
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        want = plain(*args, **kw)
         torch.cuda.synchronize()
         pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
         if not all(torch.equal(a, b) for a, b in pairs):
@@ -1476,7 +1529,7 @@ def _checked(module, name, plain, size, errs):
         stats["err"] = max(stats["err"], errs(out, want))
         stats["checked"] += 1
         if size(args) > stats["size"]:
-            stats["args"], stats["size"] = args, size(args)
+            stats["args"], stats["kw"], stats["size"] = args, kw, size(args)
         return out
 
     setattr(module, name, wrapper)
@@ -1635,7 +1688,6 @@ def sparse_slice(args, label, build_times):
             seg, SPARSE_BATCH, args.vocab, seed=args.seed + 2, mix="heavy"
         ),
     }
-    del keys, doc_ids, tfs, doc_start
     build_times["(i) corpus, segment and queries"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     index = Bm25Index(seg, args.seed.to_bytes(16, "little"), IndexOptions(), device="cuda")
@@ -1745,6 +1797,7 @@ def sparse_slice(args, label, build_times):
     stream_sparse.DECODE_LAUNCHES = stream_sparse.COMBINE_LAUNCHES = 0
     stream_rescore.LAUNCHES = 0
     heavy_stats = None
+    single = {}  # each mix's last results, which phase (w) is held to
     for mix, queries in batches.items():
         qps = []
         for _ in range(ROUNDS):
@@ -1755,6 +1808,7 @@ def sparse_slice(args, label, build_times):
             np.isfinite(h.score) and h.score > 0 for hits in results for h in hits
         ):
             raise AssertionError(f"{mix} results are not finite positive hits")
+        single[mix] = hits_of(results)
         st = engine.last_ms_stats
         if mix == "heavy":
             heavy_stats = st
@@ -1847,6 +1901,10 @@ def sparse_slice(args, label, build_times):
     del index, engine
     e2_entry, s4_exact = exact_sparse(args, seg, batches, label, build_times)
     b1_large = blockmax_large(args, seg, batches["informative"], label, build_times)
+    sharded = sharded_large(
+        args, seg, batches, single, keys, doc_ids, tfs, doc_start, label, build_times
+    )
+    del keys, doc_ids, tfs, doc_start
     entries = [
         {
             "name": c["name"],
@@ -1865,7 +1923,7 @@ def sparse_slice(args, label, build_times):
     s4_entry = next(e for e in entries if e["name"] == "sparse_combine")
     s4_entry["launches_by_phase"] = {"(i)": s4_entry["launches"], "(r)": s4_exact}
     s4_entry["launches"] += s4_exact
-    return entries + [e2_entry], b1_large
+    return entries + [e2_entry], b1_large, sharded
 
 
 def blockmax_large(args, seg, queries, label, build_times):
@@ -1922,6 +1980,693 @@ def blockmax_large(args, seg, queries, label, build_times):
     )
     return {"measured": measured, "launches": launches, "p1_launches": p1_launches,
             "rounds": rounds}
+
+
+# ---------------------------------------------------------------------------
+# Phases (u)-(w): the sharded index on the card.
+
+SHARDS = 8
+SHARD_ROUNDS = 3
+SHARD_MODES = (
+    ("stream", {}),
+    ("exact", {}),
+    ("hybrid", {}),
+    ("hybrid", {"memory_mode": "compact"}),
+    ("blockmax", {}),
+    ("blockmax", {"posting_mode": "tf"}),
+)
+# Where the port's new kernels replace the reference: the collective merge
+# of the sharded bodies, the global statistics step, the device build's sort.
+SHARD_REPLACES = {
+    "shard_merge": "vectorchord_bm25_tpu/parallel/shard.py:826",
+    "shard_stats": "vectorchord_bm25_tpu/parallel/shard.py:2285",
+    "posting_sort": "vectorchord_bm25_tpu/parallel/devbuild.py:244",
+}
+# Entries of kernels measured before (u) whose launches had no phase split.
+FIRST_PHASE = {
+    "stream_dense_accumulate": "(f)",
+    "stream_sparse_decode": "(i)",
+    "stream_rescore": "(i)",
+    "fused_range_scores_bf16": "(l)",
+    "tf_range_scores": "(m)",
+}
+
+
+def mode_name(engine, opts):
+    return engine + "".join(f" {v}" for v in opts.values())
+
+
+def cpu_twin(index):
+    """The same sharded index on the CPU, where every kernel is its plain
+    version: a shallow copy whose tensors are copied to the CPU (its host
+    state, segments and stream indexes are shared, so no rebuild)."""
+    import copy
+
+    import torch
+
+    from vectorchord_bm25_tpu_torch.index.growing import GrowingSegment
+    from vectorchord_bm25_tpu_torch.parallel.shard import _GlobalStats
+
+    if len(index.growing):
+        raise AssertionError("cpu_twin copies no growing segment")
+    twin = copy.copy(index)
+    for name, value in vars(index).items():
+        if isinstance(value, torch.Tensor):
+            setattr(twin, name, value.cpu())
+    twin.device = torch.device("cpu")
+    twin.growing = GrowingSegment(_GlobalStats(twin), device="cpu")
+    return twin
+
+
+def sharded_hits(results):
+    """(scores, ids, payloads) arrays as hit lists of (score, payload)."""
+    scores, ids, pays = results
+    return [
+        [(float(s), int(p)) for s, i, p in zip(*row) if i >= 0]
+        for row in zip(scores, ids, pays)
+    ]
+
+
+def same_results(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def shard_checks(engine, opts):
+    """The kernels a sharded body launches, as ``_checked`` specs (module,
+    name, plain, size, errs), their launch counters (module, counter) and
+    whether the path must call them, by kernel name.  B1 is held by
+    ``b1_check``.  Under ``strategy="maxscore"`` S3-S5 must run; S1, S2 and
+    SH-merge run only for a query some shard fails to certify."""
+    from vectorchord_bm25_tpu_torch.ops import (
+        exact_kernel, score_kernel, shard_kernels, stream_kernel, stream_rescore,
+        stream_sparse, topk,
+    )
+    from vectorchord_bm25_tpu_torch.parallel import shard
+    from vectorchord_bm25_tpu_torch.search import blockmax
+
+    def first_err(out, want):
+        return _finite_err(out[0], want[0])
+
+    ms = opts.get("strategy") == "maxscore"
+    specs = {
+        "shard_merge": (
+            (shard, "shard_merge", shard_kernels.shard_merge_plain,
+             lambda a: a[0].numel(), first_err),
+            (shard_kernels, "MERGE_LAUNCHES"), not ms,
+        ),
+    }
+    if engine in ("exact", "hybrid", "stream"):
+        specs["dense_topk"] = (
+            (shard, "dense_topk", topk.dense_topk_plain, lambda a: a[0].numel(), first_err),
+            (topk, "LAUNCHES"), not ms,
+        )
+    if engine == "stream":
+        specs["stream_dense_accumulate"] = (
+            (shard, "stream_dense_accumulate", stream_kernel.stream_dense_accumulate_plain,
+             lambda a: a[6].numel(), _finite_err),
+            (stream_kernel, "LAUNCHES"), not ms,
+        )
+        if ms:
+            specs["stream_sparse_decode"] = (
+                (stream_sparse, "stream_sparse_decode", stream_sparse.stream_sparse_decode_plain,
+                 lambda a: a[6].numel(), lambda o, w: _finite_err(o[1], w[1])),
+                (stream_sparse, "DECODE_LAUNCHES"), True,
+            )
+            specs["sparse_combine"] = (
+                (stream_sparse, "sparse_combine", stream_sparse.sparse_combine_plain,
+                 lambda a: a[0].numel(), lambda o, w: 0.0),
+                (stream_sparse, "COMBINE_LAUNCHES"), True,
+            )
+            specs["stream_rescore"] = (
+                (stream_rescore, "stream_rescore", stream_rescore.stream_rescore_plain,
+                 lambda a: a[6].numel(), _finite_err),
+                (stream_rescore, "LAUNCHES"), True,
+            )
+    elif engine in ("exact", "hybrid") and opts.get("memory_mode") != "compact":
+        specs["exact_dense_accumulate"] = (
+            (shard, "exact_dense_accumulate", exact_kernel.exact_dense_accumulate_plain,
+             lambda a: a[3].numel(), _finite_err),
+            (exact_kernel, "DENSE_LAUNCHES"), True,
+        )
+    elif engine == "hybrid":
+        specs["exact_compact_accumulate"] = (
+            (shard, "exact_compact_accumulate", exact_kernel.exact_compact_accumulate_plain,
+             lambda a: a[4].numel(), _finite_err),
+            (exact_kernel, "COMPACT_LAUNCHES"), True,
+        )
+    elif opts.get("posting_mode") == "tf":
+        specs["tf_range_scores"] = (
+            (blockmax, "tf_range_scores", score_kernel.tf_range_scores_plain,
+             lambda a: a[6].numel(), _finite_err),
+            (score_kernel, "TF_LAUNCHES"), True,
+        )
+    else:
+        specs["fused_range_scores"] = (
+            (blockmax, "fused_range_scores", score_kernel.fused_range_scores_plain,
+             lambda a: a[2].numel(), _finite_err),
+            (score_kernel, "LAUNCHES"), True,
+        )
+    return specs
+
+
+def serve_sharded(index, opts, queries, phase, what, label, rounds=SHARD_ROUNDS):
+    """One batch with every kernel call of ``index``'s path held against its
+    plain version (``torch.equal``), then ``rounds`` batches with the launch
+    counters from 0.  Returns (launches by kernel name, the checked stats
+    by name, QPS per batch, the last results)."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round
+
+    specs = shard_checks(index.engine, opts)
+    checks = {name: _checked(*spec) for name, (spec, _, _) in specs.items()}
+    counters = {name: counter for name, (_, counter, _) in specs.items()}
+    required = {name for name, (_, _, must) in specs.items() if must}
+    if index.engine == "blockmax":
+        counters.update({n: (blockmax_round, c) for n, c in zip(B1_NAMES, B1_COUNTERS)})
+        required.update(B1_NAMES)
+    try:
+        if index.engine == "blockmax":
+            b1_check(index, queries, label, phase)
+        else:
+            index.search(queries, K)
+    finally:
+        for restore, _ in checks.values():
+            restore()
+    stats = {name: st for name, (_, st) in checks.items()}
+    checked = {n: st["checked"] for n, st in stats.items()}
+    if not all(checked[n] for n in required if n in checked):
+        raise AssertionError(f"{phase} {what}: a kernel of the path saw no call: {checked}")
+
+    index.search(queries, K)  # warm-up
+    torch.cuda.synchronize()
+    for module, counter in counters.values():
+        setattr(module, counter, 0)
+    qps = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        results = index.search(queries, K)
+        qps.append(len(queries) / (time.perf_counter() - t0))
+    launches = {name: getattr(m, c) for name, (m, c) in counters.items()}
+    if not all(launches[n] for n in required):
+        raise AssertionError(f"{phase} {what}: a kernel of the path never launched: {launches}")
+    scores, ids, _ = results
+    live = ids >= 0
+    if not live.any() or not (np.isfinite(scores[live]).all() and (scores[live] > 0).all()):
+        raise AssertionError(f"{phase} {what}: results are not finite positive hits")
+    print(
+        f"{phase} {what}: every call equal to its plain version (torch.equal), calls "
+        f"checked {checked}; {rounds} x search({len(queries)} queries, k={K}); launches "
+        f"{launches}; QPS per batch {[round(x, 1) for x in qps]} (median "
+        f"{float(np.median(qps)):.1f}) [{label}]"
+    )
+    return launches, stats, qps, results
+
+
+def sharded_build(keys, doc_ids, tfs, doc_start, phase, label, timed=False):
+    """``ShardedIndex.build_from_postings(..., SHARDS, device="cuda",
+    device_build=True)``: D1-sort held ``torch.equal`` to its plain version
+    on all six columns, SH-stats to its plain version and to the host's
+    offsets.  Returns (index, host seconds by step, launches of D1-sort and
+    SH-stats, D1-sort's check (with its unsorted input columns if
+    ``timed``), SH-stats' checked stats)."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch import ShardedIndex
+    from vectorchord_bm25_tpu_torch.models.fieldnorm import FIELDNORM_TO_LENGTH
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels
+    from vectorchord_bm25_tpu_torch.parallel import devbuild, shard
+
+    secs = {"packing": 0.0, "sort": 0.0, "flush": 0.0, "index upload": 0.0}
+    real = {
+        "cols": devbuild._postings_to_shard_cols,
+        "sort": devbuild.posting_sort,
+        "flush": devbuild.build_sealed_segment_from_postings,
+        "init": ShardedIndex._init_from_shards,
+    }
+    sort = {"checked": 0, "input": None, "shape": None}
+
+    def clocked(step, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[step] += time.perf_counter() - t0
+            return out
+        return run
+
+    def checked_sort(cols):
+        unsorted = [c.clone() for c in cols]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real["sort"](cols)
+        torch.cuda.synchronize()
+        secs["sort"] += time.perf_counter() - t0
+        want = shard_kernels.posting_sort_plain(unsorted)
+        torch.cuda.synchronize()
+        if not all(torch.equal(c, w) for c, w in zip(cols, want)):
+            raise AssertionError(f"{phase} posting_sort != its plain version")
+        del want
+        sort["checked"] += 1
+        sort["shape"] = tuple(cols[0].shape)
+        sort["input"] = unsorted if timed else None
+        return cols
+
+    restore_stats, stats_check = _checked(
+        devbuild, "shard_stats", shard_kernels.shard_stats_plain,
+        lambda a: a[0].numel(), lambda o, w: 0.0,
+    )
+    devbuild._postings_to_shard_cols = clocked("packing", real["cols"])
+    devbuild.posting_sort = checked_sort
+    devbuild.build_sealed_segment_from_postings = clocked("flush", real["flush"])
+    ShardedIndex._init_from_shards = clocked("index upload", real["init"])
+    shard_kernels.SORT_LAUNCHES = shard_kernels.STATS_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        index = ShardedIndex.build_from_postings(
+            keys, doc_ids, tfs, doc_start, SHARDS, device="cuda", device_build=True,
+        )
+    finally:
+        restore_stats()
+        devbuild._postings_to_shard_cols = real["cols"]
+        devbuild.posting_sort = real["sort"]
+        devbuild.build_sealed_segment_from_postings = real["flush"]
+        ShardedIndex._init_from_shards = real["init"]
+    secs["total"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"posting_sort": shard_kernels.SORT_LAUNCHES}
+    if not (sort["checked"] and stats_check["checked"] and launches["posting_sort"]
+            and shard_kernels.STATS_LAUNCHES):
+        raise AssertionError(f"{phase} the device build skipped D1-sort or SH-stats")
+
+    # SH-stats against the host: (N, sum dl) and the offsets.
+    restore_stats, stats_step = _checked(
+        shard, "shard_stats", shard_kernels.shard_stats_plain,
+        lambda a: a[0].numel(), lambda o, w: 0.0,
+    )
+    try:
+        n, sdl, _ = index.global_stats_step()
+    finally:
+        restore_stats()
+    launches["shard_stats"] = shard_kernels.STATS_LAUNCHES
+    host_sdl = sum(int(FIELDNORM_TO_LENGTH[v.segment.doc_fieldnorm].sum()) for v in index.views)
+    counts = np.array([v.segment.n_docs for v in index.views])
+    host_off = np.cumsum(counts) - counts
+    if n != doc_start.size - 1 or sdl != host_sdl or not np.array_equal(index.doc_offsets, host_off):
+        raise AssertionError(f"{phase} SH-stats {(n, sdl)} != host {(doc_start.size - 1, host_sdl)}")
+    print(
+        f"{phase} device build: {SHARDS} shards of {counts.tolist()} docs; D1-sort on "
+        f"{sort['shape']} columns == its plain version (torch.equal, all six); SH-stats == "
+        f"its plain version and the host's (N {n}, sum dl {sdl}, offsets "
+        f"{host_off.tolist()}); host seconds: "
+        + "; ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; peak device memory {peak} B [{label}]"
+    )
+    return index, secs, launches, sort, stats_step
+
+
+def segments_equal_host(index, keys, doc_ids, tfs, doc_start, phase):
+    """The device-built shards equal ``device_build=False``'s: every array
+    tests/test_sharded_mutation.py:255-268 compares."""
+    from vectorchord_bm25_tpu_torch import build_sealed_segment_from_postings
+
+    n = doc_start.size - 1
+    bounds = np.linspace(0, n, SHARDS + 1).astype(np.int64)
+    for i, view in enumerate(index.views):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        p0, p1 = int(doc_start[lo]), int(doc_start[hi])
+        host = build_sealed_segment_from_postings(
+            keys[p0:p1], np.asarray(doc_ids[p0:p1], dtype=np.int64) - lo,
+            np.asarray(tfs[p0:p1], dtype=np.int64), hi - lo,
+            payloads=np.arange(lo, hi), doc_grouped=True,
+        )
+        dev = view.segment
+        if (host.n_docs, host.sum_dl) != (dev.n_docs, dev.sum_dl) or not all(
+            np.array_equal(getattr(host, f), getattr(dev, f))
+            for f in ("token_keys", "token_df", "block_docids", "block_tfs",
+                      "doc_fieldnorm", "block_wand_fn", "block_wand_tf")
+        ):
+            raise AssertionError(f"{phase} shard {i}: device build != host build")
+    print(f"{phase} the {SHARDS} device-built segments == device_build=False's (every array)")
+
+
+def sharded_restart(index, queries, new_docs, label):
+    """Phase (u)'s restart of the stream sharded index: save, open with the
+    WAL attached, 1,024 inserts and 1% deleted through it, a prefilter,
+    maintain, drop it, open again (the WAL replays), each result equal to
+    the live index after the same mutations."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vectorchord_bm25_tpu_torch import open_sharded_index, save_sharded_index
+
+    def clock(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def check(opened, what, **kw):
+        if not same_results(opened.search(queries, K, **kw), index.search(queries, K, **kw)):
+            raise AssertionError(f"(u) restart: {what}: the opened index != the live index")
+
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded")
+        _, times["save"] = clock(save_sharded_index, index, path)
+        size_1 = dir_bytes(path)
+        opened, times["open"] = clock(open_sharded_index, path, device="cuda")
+        if opened.device.type != "cuda" or opened.n_shards != index.n_shards:
+            raise AssertionError(f"(u) restart: opened on {opened.device}")
+        check(opened, "save + open")
+        base = int(index.global_payloads.max()) + 1
+        t0 = time.perf_counter()
+        for j, doc in enumerate(new_docs):
+            opened.insert(doc, base + j)
+        n_del = opened.bulkdelete(doomed)
+        times[f"{len(new_docs)} inserts + 1 delete, each fsynced"] = time.perf_counter() - t0
+        for j, doc in enumerate(new_docs):
+            index.insert(doc, base + j)
+        if index.bulkdelete(doomed) != n_del or not n_del:
+            raise AssertionError("(u) restart: bulkdelete counts differ or deleted nothing")
+        check(opened, "inserts + deletes")
+        check(opened, "a prefilter", filter_fn=keep)
+        _, times["maintain"] = clock(opened.maintain)
+        index.maintain()
+        check(opened, "maintain")
+        wal_bytes = os.path.getsize(os.path.join(path, "wal.log"))
+        opened._wal.close()
+        del opened
+        again, times["open 2 (WAL replay)"] = clock(open_sharded_index, path, device="cuda")
+        check(again, "the WAL replayed")
+        got = sharded_hits(index.search(queries, K, filter_fn=keep))
+        if any(doomed(p) or not keep(p) for hits in got for _, p in hits):
+            raise AssertionError("(u) restart: a deleted or filtered payload came back")
+        n_new = sum(p >= base for hits in got for _, p in hits)
+        _, times["save 2"] = clock(save_sharded_index, again, path)
+        if os.path.getsize(os.path.join(path, "wal.log")):
+            raise AssertionError("(u) restart: the WAL is not empty after a checkpoint")
+        size_2 = dir_bytes(path)
+        again._wal.close()
+    print(
+        f"(u) stream sharded restart: save + open == the live index; {len(new_docs)} "
+        f"inserts and {n_del} deletes through the WAL ({wal_bytes} B), a prefilter "
+        f"({n_new} hits of inserted docs), maintain, reopened with the WAL replayed: == "
+        f"the live index; {size_1} B on disk, {size_2} B after maintain + save"
+    )
+    print("(u) restart host times: " + "; ".join(
+        f"{k} {v:.2f} s" for k, v in times.items()) + f" [{label}]")
+
+
+def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, build_times):
+    """Phase (u): the sharded index on the 131,072-doc corpus (phase (d)'s
+    postings, 8 shards).  Returns launches by kernel name and phase."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch import Document, IndexOptions, ShardedIndex
+
+    t0 = time.perf_counter()
+    built, secs, build_launches, _, _ = sharded_build(keys, doc_ids, tfs, doc_start, "(u)", label)
+    segments_equal_host(built, keys, doc_ids, tfs, doc_start, "(u)")
+    build_times["(u) device build"] = secs["total"]
+    shards = [v.segment for v in built.views]
+    launches = {name: {"(u) build": n} for name, n in build_launches.items()}
+    rng = np.random.default_rng(args.seed + 10)
+    sample = [queries[i] for i in np.sort(rng.choice(len(queries), AUDIT, replace=False))]
+    stream_index = None
+    for engine, opts in SHARD_MODES:
+        what = mode_name(engine, opts)
+        if engine == "stream":
+            index = built
+        else:
+            index = ShardedIndex(shards, IndexOptions(), device="cuda", engine=engine, **opts)
+        got, _, _, _ = serve_sharded(index, opts, queries, "(u)", what, label)
+        for name, n in got.items():
+            launches.setdefault(name, {})[f"(u) {what}"] = n
+        cpu = cpu_twin(index)
+        results = index.search(sample, K)
+        if not same_results(results, cpu.search(sample, K)):
+            raise AssertionError(f"(u) {what}: GPU != the CPU-plain sharded index")
+        recall, total, ties = recall_vs_oracle(seg, sample, sharded_hits(results), K)
+        if recall != 1.0:
+            raise AssertionError(f"(u) {what}: recall@{K} vs oracle {recall} != 1.0")
+        print(
+            f"(u) {what}: GPU == CPU-plain sharded index on {AUDIT} queries; recall@{K} "
+            f"vs the float64 oracle {recall} ({total} hits, {ties} ties excused); "
+            f"device index {index.memory_report()['total']} B"
+        )
+        if engine == "stream":
+            stream_index = index
+        del index, cpu
+    picks = rng.choice(seg.n_docs, 1024, replace=False)
+    new_docs = [
+        Document(
+            keys=keys[int(doc_start[d]) : int(doc_start[d + 1])],
+            values=tfs[int(doc_start[d]) : int(doc_start[d + 1])],
+        )
+        for d in picks
+    ]
+    sharded_restart(stream_index, queries, new_docs, label)
+    build_times["(u) all of it"] = time.perf_counter() - t0
+    del stream_index, built
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sort_timings(sort, label):
+    """D1-sort at phase (v)'s size: the kernel, its plain version and the
+    five chained stable ``torch.sort`` passes that order the same rows
+    (CUDA events, each run on a fresh copy of the unsorted columns)."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels
+
+    unsorted = sort["input"]
+    work = [c.clone() for c in unsorted]
+
+    def timed(fn, iters):
+        total = 0.0
+        for _ in range(iters):
+            for w, u in zip(work, unsorted):
+                w.copy_(u)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        return total / iters
+
+    def five_sorts():
+        # The plain version's five stable passes, without its final gathers.
+        perm = None
+        for col in (4, 3, 2, 1, 0):
+            key = work[col].long() if col == 4 else work[col].long() & 0xFFFFFFFF
+            if perm is not None:
+                key = key.gather(1, perm)
+            order = key.sort(dim=1, stable=True).indices
+            perm = order if perm is None else perm.gather(1, order)
+        return perm
+
+    timed(lambda: shard_kernels.posting_sort(work), 1)  # warm-up
+    ms = timed(lambda: shard_kernels.posting_sort(work), 3)
+    plain_ms = timed(lambda: shard_kernels.posting_sort_plain(work), 2)
+    library_ms = timed(five_sorts, 2)
+    d, p = unsorted[0].shape
+    out = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        # The six columns read once and written once; a comparison sort
+        # needs p log2 p comparisons a row.
+        **bound(2 * 6 * 4 * d * p, d * p * int(np.log2(p))),
+    }
+    print(
+        f"(v) D1-sort on [{d}, {p}] x 6 columns: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, five chained stable torch.sort {library_ms:.3f} ms, "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) [{label}]"
+    )
+    del work
+    return out
+
+
+def stats_timings(index, st, label):
+    """SH-stats at phase (v)'s size: kernel, plain, ``torch.sum`` of the f64
+    lengths."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.models.fieldnorm import FIELDNORM_TO_LENGTH
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels
+
+    a = (index.dev_doc_fn, index.dev_doc_live, index.dev_n_local)
+    table = torch.from_numpy(FIELDNORM_TO_LENGTH.astype(np.float64)).cuda()
+    lengths = table[a[0].long()] * a[1].double()
+    d, m = a[0].shape
+    out = {
+        "ms": device_ms(lambda: shard_kernels.shard_stats(*a)),
+        "plain_ms": device_ms(lambda: shard_kernels.shard_stats_plain(*a)),
+        "library_ms": device_ms(lambda: torch.sum(lengths, dim=1)),
+        "launch_paced_ms": cuda_ms(lambda: shard_kernels.shard_stats(*a)),
+        "max_abs_err": st["err"],
+        # fieldnorm (1 B) and live flag (4 B) read a slot; a multiply and an
+        # add a slot.
+        **bound(5 * d * m + 8 * d + 8 * d + 8 * (d + 1), 2 * d * m),
+    }
+    print(
+        f"(v) SH-stats on [{d}, {m}], device time: kernel {out['ms']:.4f} ms, "
+        f"plain {out['plain_ms']:.4f} ms, torch.sum of the f64 lengths "
+        f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}); launched back to back by the host "
+        f"{out['launch_paced_ms']:.4f} ms a call [{label}]"
+    )
+    return out
+
+
+def merge_timings(st, label):
+    """SH-merge on its largest call of phase (w): kernel, plain,
+    ``torch.topk`` on the packed keys."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels
+
+    a = st["args"]
+    d, q, w = a[0].shape
+    kk = a[2]
+    keys = shard_kernels.merge_keys(a[0], a[1]).permute(1, 0, 2).reshape(q, d * w)
+    out = {
+        "ms": device_ms(lambda: shard_kernels.shard_merge(*a)),
+        "plain_ms": device_ms(lambda: shard_kernels.shard_merge_plain(*a)),
+        "library_ms": device_ms(lambda: torch.topk(keys, kk, dim=1, largest=False)),
+        "launch_paced_ms": cuda_ms(lambda: shard_kernels.shard_merge(*a)),
+        "max_abs_err": st["err"],
+        # The [D, Q, kk] candidates read once, the [Q, kk] pair written once;
+        # a comparison a candidate.
+        **bound(8 * d * q * w + 8 * q * kk, d * q * w),
+        "shape": [d, q, w],
+    }
+    print(
+        f"(w) SH-merge on [{d}, {q}, {w}] -> [{q}, {kk}], device time: kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, torch.topk on the "
+        f"packed keys {out['library_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms "
+        f"({out['bound_by']}); launched back to back by the host "
+        f"{out['launch_paced_ms']:.4f} ms a call: launch-bound at this size [{label}]"
+    )
+    return out
+
+
+def held_to_single(got, single, what):
+    """The reference's sharded-vs-single rule (tests/test_sharded.py:43-50):
+    the same hit counts, a rank may hold another doc only where the two
+    scores there are within 1e-4 (``rank_match``), scores within rtol 2e-5.
+    Returns the number of such swaps."""
+    swaps = 0
+    for g, s in zip(sharded_hits(got), single):
+        if len(g) != len(s):
+            raise AssertionError(f"{what}: {len(g)} hits, the single index {len(s)}")
+        gs = np.array([x[0] for x in g], dtype=np.float64)
+        ss = np.array([x[0] for x in s], dtype=np.float64)
+        if not np.allclose(gs, ss, rtol=2e-5, atol=0.0):
+            raise AssertionError(f"{what}: scores differ from the single index")
+        for i, ((_, gp), (_, sp)) in enumerate(zip(g, s)):
+            if gp != sp:
+                if abs(gs[i] - ss[i]) >= 1e-4:
+                    raise AssertionError(f"{what}: rank {i} holds {gp}, single {sp}")
+                swaps += 1
+    return swaps
+
+
+def sharded_large(args, seg, batches, single, keys, doc_ids, tfs, doc_start, label, build_times):
+    """Phases (v)-(w): the device build of phase (i)'s postings in 8 shards,
+    then the sharded stream engine serving both 512-query mixes.  Returns
+    (the kernels-line entries of SH-merge, SH-stats and D1-sort, launches
+    by kernel name and phase)."""
+    import torch
+
+    # (v) the device build at scale
+    index, secs, build_launches, sort, stats_st = sharded_build(
+        keys, doc_ids, tfs, doc_start, "(v)", label, timed=True
+    )
+    build_times["(v) device build"] = secs["total"]
+    launches = {name: {"(v) build": n} for name, n in build_launches.items()}
+    sort_fields = sort_timings(sort, label)
+    sort["input"] = None
+    torch.cuda.empty_cache()
+    stats_fields = stats_timings(index, stats_st, label)
+    print(
+        f"(v) {index.n_docs} docs in {SHARDS} shards (nmax {index._nmax}); stream "
+        f"index on the card {index.memory_report()['total']} B"
+    )
+
+    # (w) serving: auto (dense per shard), then maxscore
+    merge_st = None
+    torch.cuda.reset_peak_memory_stats()
+    for strategy in ("auto", "maxscore"):
+        index.strategy = strategy
+        for mix, queries in batches.items():
+            what = f"stream {strategy}, {mix}"
+            got, stats, _, results = serve_sharded(
+                index, {"strategy": strategy}, queries, "(w)", what, label, rounds=ROUNDS
+            )
+            for name, n in got.items():
+                launches.setdefault(name, {})[f"(w) {strategy} {mix}"] = n
+            st = stats["shard_merge"]
+            if st["checked"] and (merge_st is None or st["size"] > merge_st["size"]):
+                merge_st = st
+            swaps = held_to_single(results, single[mix], f"(w) {what}")
+            if mix == "informative":
+                device_profile(
+                    lambda: index.search(queries, K), f"(w) {what} profile", label
+                )
+            print(
+                f"(w) {what}: held to phase (i)'s single index on {len(queries)} queries "
+                f"({swaps} swaps of tied scores); last_ms_stats "
+                f"{json.dumps(index.last_ms_stats)}"
+            )
+    print(
+        f"(w) peak device memory while serving: {torch.cuda.max_memory_allocated()} B "
+        f"(one [q, nmax+1] accumulator a shard at a time)"
+    )
+    # The card against the CPU-plain sharded index, and the oracle.
+    rng = np.random.default_rng(args.seed + 11)
+    half = RECALL_QUERIES // 2
+    sample = [
+        q for queries in batches.values()
+        for q in (queries[i] for i in np.sort(rng.choice(len(queries), half, replace=False)))
+    ]
+    cpu = cpu_twin(index)
+    for strategy in ("auto", "maxscore"):
+        index.strategy = cpu.strategy = strategy
+        results = index.search(sample, K)
+        if not same_results(results, cpu.search(sample, K)):
+            raise AssertionError(f"(w) {strategy}: GPU != the CPU-plain sharded index")
+    recall, total, ties = recall_vs_oracle(seg, sample, sharded_hits(results), K)
+    if recall != 1.0:
+        raise AssertionError(f"(w) recall@{K} vs oracle {recall} != 1.0")
+    print(
+        f"(w) GPU == CPU-plain sharded index on {len(sample)} queries (auto and "
+        f"maxscore); recall@{K} vs the float64 oracle {recall} ({total} hits, "
+        f"{ties} ties excused)"
+    )
+    del cpu, index
+    torch.cuda.empty_cache()
+    merge_fields = merge_timings(merge_st, label)
+    by = {name: launches.pop(name) for name in ("shard_merge", "shard_stats", "posting_sort")}
+    entries = []
+    for name, fields in (
+        ("shard_merge", merge_fields), ("shard_stats", stats_fields), ("posting_sort", sort_fields),
+    ):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"vectorchord_bm25_tpu_torch/csrc/{name}.cu",
+            "replaces": SHARD_REPLACES[name],
+            "launches_by_phase": by[name],
+            "max_abs_err": fields.pop("max_abs_err", 0.0),
+            **fields,
+        })
+    return entries, launches
 
 
 def main() -> int:
@@ -2136,6 +2881,10 @@ def main() -> int:
     restart(index, queries, new_docs, label, "Block-Max")
     build_times["(t) Block-Max"] = time.perf_counter() - t0
     del new_docs
+    # (u) the sharded index on phase (d)'s postings
+    shard_launches = sharded_slice(
+        args, seg, queries, keys, doc_ids, tfs, doc_start, label, build_times
+    )
     # P1 and S2 entries count every main-path run that launched them.
     s2_entry = next(e for e in stream if e["name"] == "dense_topk")
     s2_entry["launches_by_phase"] = {
@@ -2152,8 +2901,10 @@ def main() -> int:
         f"{max(qps):.1f}) [{label}]"
     )
     # The 131,072-doc corpus and its indexes go before phase (i)'s corpus.
-    del index, engine, cpu, seg, queries, keys, tfs, doc_start, sample, ri
-    sparse, b1_large = sparse_slice(args, label, build_times)
+    del index, engine, cpu, seg, queries, keys, doc_ids, tfs, doc_start, sample, ri
+    sparse, b1_large, (shard_entries, large_launches) = sparse_slice(args, label, build_times)
+    for name, by in large_launches.items():
+        shard_launches.setdefault(name, {}).update(by)
     b1_by_phase["(s)"] = b1_large["launches"]
     p1_hybrid["(s)"] = b1_large["p1_launches"]
     b1_entries = [
@@ -2170,44 +2921,46 @@ def main() -> int:
         }
         for name, line in zip(B1_NAMES, B1_REPLACES)
     ]
+    # The sharded phases' launches, added to each kernel's by phase.
+    kernels = [
+        {
+            "name": "fused_range_scores",
+            "route": "cuda",
+            "source": "vectorchord_bm25_tpu_torch/csrc/score_kernel.cu",
+            "replaces": "vectorchord_bm25_tpu/ops/score_kernel.py:67",
+            "launches_by_phase": {
+                "(d)": launches, "(n)": p1_sweep["sweep_launches"], **p1_hybrid,
+            },
+            "max_abs_err": max_err,
+            "max_abs_err_random": rand_err,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            **p1_bound_fields,
+            "library_ms": None,
+            **p1_sweep,
+        },
+        *rest,
+        *b1_entries,
+        *stream,
+        *sparse,
+        *exact_entries,
+        *shard_entries,
+    ]
+    for entry in kernels:
+        if "launches_by_phase" not in entry:
+            entry["launches_by_phase"] = {FIRST_PHASE[entry["name"]]: entry["launches"]}
+        by = entry["launches_by_phase"]
+        by.update(shard_launches.pop(entry["name"], {}))
+        entry["launches"] = sum(by.values())
+    if shard_launches:
+        raise AssertionError(f"launches of no kernels-line entry: {sorted(shard_launches)}")
     # (k) where the host time went
     print(
         "(k) host build: "
         + "; ".join(f"{name} {sec:.1f} s" for name, sec in build_times.items())
         + f"; script {time.perf_counter() - started:.1f} s so far"
     )
-    print(
-        json.dumps(
-            {
-                "kernels": [
-                    {
-                        "name": "fused_range_scores",
-                        "route": "cuda",
-                        "source": "vectorchord_bm25_tpu_torch/csrc/score_kernel.cu",
-                        "replaces": "vectorchord_bm25_tpu/ops/score_kernel.py:67",
-                        "launches": launches + p1_sweep["sweep_launches"]
-                        + sum(p1_hybrid.values()),
-                        "launches_by_phase": {
-                            "(d)": launches, "(n)": p1_sweep["sweep_launches"],
-                            **p1_hybrid,
-                        },
-                        "max_abs_err": max_err,
-                        "max_abs_err_random": rand_err,
-                        "ms": kernel_ms,
-                        "plain_ms": plain_ms,
-                        **p1_bound_fields,
-                        "library_ms": None,
-                        **p1_sweep,
-                    },
-                    *rest,
-                    *b1_entries,
-                    *stream,
-                    *sparse,
-                    *exact_entries,
-                ]
-            }
-        )
-    )
+    print(json.dumps({"kernels": kernels}))
     print(slice_line)
     print(
         json.dumps(

@@ -993,3 +993,119 @@ def test_blockmax_rounds_on_card_equal_cpu(card, gen, mode):
         assert br.BOUNDS_LAUNCHES == counts[0] + 1
         assert br.MERGE_LAUNCHES == counts[2] + on_card.last_rounds
         assert br.SELECT_LAUNCHES - counts[1] in (on_card.last_rounds, on_card.last_rounds + 1)
+
+
+# ---------------------------------------------------------------------------
+# The sharded index's kernels (ops/shard_kernels.py) and the index itself.
+
+
+@pytest.mark.parametrize(
+    "d,q,w,kk",
+    [(1, 3, 8, 8), (2, 64, 16, 16), (8, 512, 16, 16), (8, 9, 16, 5), (8, 3, 4096, 1024), (3, 2, 7, 21)],
+)
+def test_shard_merge_matches_plain(card, gen, d, q, w, kk):
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    from test_torch_shard_kernels import merge_inputs
+
+    scores, ids = merge_inputs(gen, d, q, w)
+    s, i = torch.from_numpy(scores).to(card), torch.from_numpy(ids).to(card)
+    before = sk.MERGE_LAUNCHES
+    got_s, got_i = sk.shard_merge(s, i, kk)
+    torch.cuda.synchronize()
+    assert sk.MERGE_LAUNCHES == before + 1
+    want_s, want_i = sk.shard_merge_plain(s, i, kk)
+    # (8, 3, 4096): 32,768 keys a query, past shared memory (scratch row).
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("d,m", [(1, 1), (8, 10_001), (3, 262_145)])
+def test_shard_stats_matches_plain(card, gen, d, m):
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    doc_fn = torch.from_numpy(gen.integers(0, 256, size=(d, m)).astype(np.uint8)).to(card)
+    live = torch.from_numpy((gen.random((d, m)) < 0.9).astype(np.float32)).to(card)
+    counts = torch.from_numpy(gen.integers(0, m + 1, size=d)).to(card)
+    before = sk.STATS_LAUNCHES
+    got = sk.shard_stats(doc_fn, live, counts)
+    torch.cuda.synchronize()
+    assert sk.STATS_LAUNCHES == before + 1
+    want = sk.shard_stats_plain(doc_fn, live, counts)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d,p,fill", [(1, 2, 1), (3, 1024, 700), (2, 1 << 15, 20_000), (8, 1 << 13, 4000)])
+def test_posting_sort_matches_plain(card, gen, d, p, fill):
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    from test_torch_shard_kernels import sort_columns
+
+    if fill < 17:  # too few postings for the forced keys: random columns
+        cols = [np.full((d, p), -1, dtype=np.int32) for _ in range(6)]
+    else:
+        cols = sort_columns(gen, d, p, fill)
+    dev = [torch.from_numpy(c).to(card) for c in cols]
+    want = sk.posting_sort_plain(dev)
+    before = sk.SORT_LAUNCHES
+    got = sk.posting_sort(dev)
+    torch.cuda.synchronize()
+    assert sk.SORT_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_shard_kernels_reject_bad_inputs(card):
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    cols = [torch.zeros((2, 48), dtype=torch.int32, device=card) for _ in range(6)]
+    with pytest.raises(ValueError):
+        sk.posting_sort(cols)  # not a power of two
+    s = torch.zeros((2, 3, 4), device=card)
+    with pytest.raises(ValueError):
+        sk.shard_merge(s, torch.zeros((2, 3, 4), dtype=torch.int32), 4)  # mixed devices
+
+
+@pytest.mark.parametrize(
+    "engine,opts",
+    [
+        ("stream", {}),
+        ("stream", {"strategy": "maxscore"}),
+        ("exact", {}),
+        ("hybrid", {}),
+        ("hybrid", {"memory_mode": "compact"}),
+        ("blockmax", {}),
+        ("blockmax", {"posting_mode": "tf"}),
+    ],
+)
+def test_sharded_index_on_card_equals_cpu(card, gen, engine, opts):
+    from vectorchord_bm25_tpu_torch import Document, Query as PQuery, ShardedIndex
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    docs = [Document(keys=d.keys, values=d.values) for d in make_docs(gen, 3000, vocab=60)]
+    build = {k: v for k, v in opts.items() if k != "memory_mode"}
+    on_card = ShardedIndex.build(docs, 8, device=card, engine=engine, **build)
+    on_cpu = ShardedIndex.build(docs, 8, device="cpu", engine=engine, device_build=False, **build)
+    if "memory_mode" in opts:
+        on_card, on_cpu = (
+            ShardedIndex([v.segment for v in ix.views], ix.options, device=dev,
+                         engine=engine, memory_mode=opts["memory_mode"])
+            for ix, dev in ((on_card, card), (on_cpu, "cpu"))
+        )
+    for ix in (on_card, on_cpu):
+        ix.set_deleted(np.arange(3000) % 17 == 0)
+        ix.insert(docs[5], 99_999)
+    queries = [
+        PQuery.from_int_ids(gen.integers(0, 60, size=int(n)).tolist())
+        for n in gen.integers(1, 6, size=40)
+    ]
+    for k in (10, 700):
+        before = sk.MERGE_LAUNCHES
+        got = on_card.search(queries, k)
+        want = on_cpu.search(queries, k)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        if not opts.get("strategy"):
+            assert sk.MERGE_LAUNCHES > before
+    assert on_card.global_stats_step() == on_cpu.global_stats_step()
+    assert on_card.memory_report() == on_cpu.memory_report()

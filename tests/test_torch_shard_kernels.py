@@ -1,0 +1,235 @@
+"""The sharded index's device code in the port (``ops/shard_kernels.py``),
+plain versions on the CPU, against the reference's jax code on the same
+numpy-made inputs.
+
+- SH-merge (``shard_merge``) against the reference's ``all_gather`` merge:
+  ``lax.sort((-s, id), num_keys=2)`` over each query's ``D * kk``
+  candidates (``parallel/shard.py:826-832``), with ties across shards,
+  ``-inf`` pads carrying ``INT_MAX`` ids, candidates in no order, and
+  D in {1, 2, 8}.
+- D1-sort (``posting_sort``) against ``lax.sort(..., num_keys=5)``
+  (``parallel/devbuild.py:244-258``) on keys that share prefixes, so that
+  every one of the five key columns decides some pair.
+- SH-stats (``shard_stats``) against the reference's
+  ``global_stats_step`` and ``device_doc_offsets`` on the 8-device mesh.
+
+Tolerance: none.  Every comparison is of exact bits.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk  # noqa: E402
+
+torch.set_num_threads(2)
+
+_INT_MAX = np.iinfo(np.int32).max
+
+
+def merge_inputs(gen, d, q, w, n_fin=None):
+    """[D, Q, W] scores and global ids as the sharded bodies hand them
+    over: a few distinct score values (ties within and across shards),
+    zeros, ``-inf`` pads with ``INT_MAX`` ids, each row shuffled."""
+    values = np.array([0.0, 0.5, 1.25, 1.25, 3.0, 7.5, 7.5], dtype=np.float32)
+    scores = gen.choice(values, size=(d, q, w)).astype(np.float32)
+    ids = np.zeros((d, q, w), dtype=np.int32)
+    span = max(1000, 2 * w)  # shard s holds ids [s * span, (s + 1) * span)
+    for s in range(d):
+        for qi in range(q):
+            ids[s, qi] = gen.choice(span, size=w, replace=False) + span * s
+    fin = gen.integers(0, w + 1, size=(d, q)) if n_fin is None else np.full((d, q), n_fin)
+    pad = np.arange(w)[None, None, :] >= fin[:, :, None]
+    scores[pad] = -np.inf
+    ids[pad] = _INT_MAX
+    perm = np.argsort(gen.random((d, q, w)), axis=2)
+    return np.take_along_axis(scores, perm, 2), np.take_along_axis(ids, perm, 2)
+
+
+def reference_merge(scores, ids, kk):
+    """The reference's merge, verbatim (``parallel/shard.py:826-832``)."""
+    import jax
+    import jax.numpy as jnp
+
+    a_scores, a_ids = jnp.asarray(scores), jnp.asarray(ids)
+    dd, _, w = a_scores.shape
+    c_scores = jnp.moveaxis(a_scores, 0, 1).reshape(-1, dd * w)
+    c_ids = jnp.moveaxis(a_ids, 0, 1).reshape(-1, dd * w)
+    neg, gid_s = jax.lax.sort((-c_scores, c_ids), num_keys=2)
+    return np.asarray(-neg[:, :kk]), np.asarray(gid_s[:, :kk])
+
+
+def sort_columns(gen, d, p, fill):
+    """Six [D, P] columns (k0-k3 u32, doc i32, tf u32) of ``fill`` real
+    postings a row in no order, then pads (all-ones keys, doc INT_MAX,
+    tf 0).  The 16 keys take one of two words in each column (one below
+    2^31, one above, so the order is unsigned), and every row holds each
+    key with doc 0 and the first key with doc 1 as well: every one of the
+    five key columns decides some adjacent pair.  (key, doc) pairs are
+    unique within a row."""
+    import itertools
+
+    per_col = ((1, 0xFFFFFFFE), (0x7FFFFFFF, 0x80000000), (0, 0xFFFFFFFF), (5, 0x90000000))
+    table = np.array(list(itertools.product(*per_col)), dtype=np.uint32)  # [16, 4]
+    cols = np.zeros((6, d, p), dtype=np.uint32)
+    cols[:4] = 0xFFFFFFFF
+    cols[4] = _INT_MAX
+    forced = np.array([[t, 0] for t in range(16)] + [[0, 1]], dtype=np.int64)
+    for s in range(d):
+        extra = np.stack([gen.integers(0, 16, size=2 * fill), gen.integers(2, 60, size=2 * fill)], 1)
+        extra = np.unique(extra, axis=0)[: fill - forced.shape[0]]
+        pairs = np.concatenate([forced, extra])
+        n = pairs.shape[0]
+        cols[:4, s, :n] = table[pairs[:, 0]].T
+        cols[4, s, :n] = pairs[:, 1]
+        cols[5, s, :n] = gen.integers(1, 1 << 20, size=n)
+        perm = gen.permutation(p)
+        cols[:, s] = cols[:, s, perm]
+    return [c.view(np.int32) for c in cols]
+
+
+@pytest.fixture
+def gen():
+    return np.random.default_rng(0x5EED)
+
+
+@pytest.mark.parametrize("d,q,w,kk", [(1, 3, 8, 8), (2, 5, 16, 16), (8, 7, 16, 16), (8, 4, 16, 5), (2, 6, 3, 6)])
+def test_shard_merge_plain_matches_reference(gen, d, q, w, kk):
+    scores, ids = merge_inputs(gen, d, q, w)
+    want_s, want_i = reference_merge(scores, ids, kk)
+    got_s, got_i = sk.shard_merge(torch.from_numpy(scores), torch.from_numpy(ids), kk)
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int32
+    np.testing.assert_array_equal(got_s.numpy().view(np.int32), want_s.view(np.int32))
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+
+
+def test_shard_merge_ties_across_shards_go_to_the_lower_id(gen):
+    scores = np.full((8, 1, 2), -np.inf, dtype=np.float32)
+    ids = np.full((8, 1, 2), _INT_MAX, dtype=np.int32)
+    for s in range(8):
+        scores[s, 0, 0] = 2.0
+        ids[s, 0, 0] = 7 - s  # the shard order is the reverse of the id order
+    got_s, got_i = sk.shard_merge(torch.from_numpy(scores), torch.from_numpy(ids), 4)
+    assert got_i[0].tolist() == [0, 1, 2, 3] and (got_s == 2.0).all()
+    want_s, want_i = reference_merge(scores, ids, 4)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+
+
+def test_shard_merge_all_pads(gen):
+    scores = np.full((2, 3, 4), -np.inf, dtype=np.float32)
+    ids = np.full((2, 3, 4), _INT_MAX, dtype=np.int32)
+    got_s, got_i = sk.shard_merge(torch.from_numpy(scores), torch.from_numpy(ids))
+    want_s, want_i = reference_merge(scores, ids, 4)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+
+
+def test_merge_keys_round_trip(gen):
+    scores, ids = merge_inputs(gen, 2, 3, 8)
+    s, i = torch.from_numpy(scores), torch.from_numpy(ids)
+    back_s, back_i = sk._unmerge_keys(sk.merge_keys(s, i))
+    assert torch.equal(back_s.view(torch.int32), s.view(torch.int32))
+    assert torch.equal(back_i, i)
+
+
+def test_shard_merge_rejects_bad_inputs():
+    s = torch.zeros((2, 3, 4))
+    i = torch.zeros((2, 3, 4), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        sk.shard_merge(s.double(), i)
+    with pytest.raises(ValueError):
+        sk.shard_merge(s, i[:, :, :3])
+    with pytest.raises(ValueError):
+        sk.shard_merge(s, i, 9)
+
+
+@pytest.mark.parametrize("d,p,fill", [(1, 64, 40), (3, 256, 200), (8, 512, 300)])
+def test_posting_sort_plain_matches_reference(gen, d, p, fill):
+    import jax
+    import jax.numpy as jnp
+
+    cols = sort_columns(gen, d, p, fill)
+    dtypes = (np.uint32,) * 4 + (np.int32, np.uint32)
+    ref = jax.lax.sort(
+        tuple(jnp.asarray(c.view(t)) for c, t in zip(cols, dtypes)),
+        num_keys=5,
+        dimension=-1,
+    )
+    got = sk.posting_sort([torch.from_numpy(c.copy()) for c in cols])
+    for g, r, t in zip(got, ref, dtypes):
+        np.testing.assert_array_equal(g.numpy().view(t), np.asarray(r))
+    # Every key column decides some adjacent pair of the sorted rows.
+    k = [g.numpy().view(np.uint32).astype(np.int64) for g in got[:5]]
+    decided = set()
+    for s in range(d):
+        for j in range(fill - 1):
+            for c in range(5):
+                if k[c][s, j] != k[c][s, j + 1]:
+                    decided.add(c)
+                    break
+    assert decided == {0, 1, 2, 3, 4}
+
+
+def test_posting_sort_is_in_place_and_checks_shapes(gen):
+    cols = [torch.from_numpy(c.copy()) for c in sort_columns(gen, 2, 64, 30)]
+    ptrs = [c.data_ptr() for c in cols]
+    out = sk.posting_sort(cols)
+    assert [c.data_ptr() for c in out] == ptrs
+    with pytest.raises(ValueError):
+        sk.posting_sort([c[:, :48].contiguous() for c in cols])
+    with pytest.raises(ValueError):
+        sk.posting_sort(cols[:5])
+    with pytest.raises(TypeError):
+        sk.posting_sort([c.long() for c in cols])
+
+
+@pytest.fixture(scope="module")
+def mesh8():
+    import jax
+    from jax.sharding import Mesh
+
+    devs = jax.devices()
+    if len(devs) < 8:
+        pytest.skip("needs 8 virtual devices")
+    return Mesh(np.array(devs[:8]), ("d",))
+
+
+def test_shard_stats_plain_matches_reference(mesh8):
+    from vectorchord_bm25_tpu.parallel.devbuild import device_doc_offsets
+    from vectorchord_bm25_tpu.parallel.shard import ShardedIndex as RefShardedIndex
+    from vectorchord_bm25_tpu_torch.parallel.shard import ShardedIndex
+
+    from test_sealed import make_docs
+
+    gen = np.random.default_rng(7)
+    ref = RefShardedIndex.build(make_docs(gen, 203, vocab=12), 8, mesh=mesh8)
+    deleted = gen.random(203) < 0.2
+    ref.set_deleted(deleted)
+    port = ShardedIndex.from_reference(ref, device="cpu")
+    assert port.global_stats_step() == ref.global_stats_step()
+
+    partial, offsets = sk.shard_stats(
+        port.dev_doc_fn, port.dev_doc_live, port.dev_n_local
+    )
+    counts = np.array([v.segment.n_docs for v in ref.views], dtype=np.int64)
+    np.testing.assert_array_equal(
+        offsets.numpy()[:-1], device_doc_offsets(counts, mesh8)
+    )
+    assert int(offsets[-1]) == ref.n_docs
+    assert int(partial.sum().item()) == ref.global_stats_step()[1]
+    # Each shard's partial sum is the reference's lengths summed on the host.
+    from vectorchord_bm25_tpu.models.fieldnorm import FIELDNORM_TO_LENGTH
+
+    lengths = FIELDNORM_TO_LENGTH.astype(np.float64)[np.asarray(ref.dev_doc_fn)]
+    want = (lengths * np.asarray(ref.dev_doc_live).astype(np.float64)).sum(axis=1)
+    np.testing.assert_array_equal(partial.numpy(), want)
+
+
+def test_shard_stats_empty_rows_scan_counts():
+    counts = torch.tensor([5, 0, 7, 1], dtype=torch.int64)
+    partial, offsets = sk.shard_stats(
+        torch.zeros((4, 0), dtype=torch.uint8), torch.zeros((4, 0)), counts
+    )
+    assert offsets.tolist() == [0, 5, 5, 12, 13]
+    assert partial.tolist() == [0.0] * 4

@@ -5,7 +5,7 @@ reference's results.
 - an AST scan of every port module and ``chip_smoke.py``;
 - a subprocess with ``jax``, ``vectorchord_bm25_tpu`` and ``bench``
   blocked that builds and serves every ported engine, strategy and mode,
-  and saves, reopens with a WAL and serves again;
+  single and sharded, and saves, reopens with a WAL and serves again;
 - the copies against the originals on the same inputs: interning, the
   segment, range-index and stream builds, the oracles, the on-disk codecs
   and the synthetic generators (whose output depends on the numpy version,
@@ -74,7 +74,10 @@ def test_no_module_imports_jax_or_the_reference():
     sources = _port_sources()
     assert len(sources) > 20
     scanned = {os.path.relpath(p, PORT) for p in sources}
-    assert {"ops/blockmax_round.py", "ops/bitpack.py", "index/storage.py"} <= scanned
+    assert {
+        "ops/blockmax_round.py", "ops/bitpack.py", "index/storage.py",
+        "ops/shard_kernels.py", "parallel/shard.py", "parallel/devbuild.py",
+    } <= scanned
     bad = [
         f"{os.path.relpath(p, REPO)}:{line} imports {name}"
         for p in sources
@@ -189,6 +192,40 @@ def test_port_runs_without_jax():
                 save_index(again, path)
                 assert os.path.getsize(os.path.join(path, "wal.log")) == 0
                 assert load_index(path, device="cpu").n_docs == 299
+        # The sharded index: host and device builds, every engine and mode,
+        # its checkpoint and WAL.
+        from vectorchord_bm25_tpu_torch import (
+            ShardedIndex, open_sharded_index, save_sharded_index,
+        )
+        single = Bm25Index.build(docs, engine="exact", device="cpu")
+        want = [[(h.score, h.payload) for h in hits] for hits in single.search_batch(qs, k=5)]
+        for engine, opts in (
+            ("stream", {}), ("stream", {"strategy": "maxscore"}), ("exact", {}),
+            ("hybrid", {}), ("blockmax", {}), ("blockmax", {"posting_mode": "tf"}),
+        ):
+            for device_build in (False, True):
+                sharded = ShardedIndex.build(
+                    docs, 8, device="cpu", engine=engine, device_build=device_build, **opts
+                )
+                s, _, p = sharded.search(qs, 5)
+                got = [[(float(a), int(b)) for a, b in zip(r, q)] for r, q in zip(s, p)]
+                assert [[x[1] for x in r] for r in got] == [[x[1] for x in r] for r in want], (engine, opts)
+        compact = ShardedIndex(
+            [v.segment for v in sharded.views], sharded.options, device="cpu",
+            engine="hybrid", memory_mode="compact",
+        )
+        assert compact.search(qs, 5)[2].tolist() == sharded.search(qs, 5)[2].tolist()
+        assert sharded.global_stats_step()[0] == 300
+        with tempfile.TemporaryDirectory() as d:
+            save_sharded_index(sharded, d)
+            live = open_sharded_index(d, device="cpu")
+            live.insert(Document.from_int_ids([1, 2, 3]), 7000)
+            live.bulkdelete_payloads([4])
+            live.maintain()
+            want = live.search(qs, 20)
+            live._wal.close()
+            again = open_sharded_index(d, device="cpu")
+            assert all(np.array_equal(a, b) for a, b in zip(again.search(qs, 20), want))
         loaded = sorted(
             m for m, v in sys.modules.items()
             if v is not None

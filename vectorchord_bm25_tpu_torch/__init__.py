@@ -15,6 +15,7 @@ other saved.  Public API:
     hits = index.search_batch(queries, k=10)
     save_index(index, directory)
     index = open_index(directory, device="cuda")  # replays and attaches the WAL
+    sharded = ShardedIndex.build(docs, 8, device="cuda")  # 8 shards, one card
 """
 
 __version__ = "0.1.0"
@@ -39,6 +40,10 @@ __all__ = [
     "load_index",
     "open_index",
     "Wal",
+    "ShardedIndex",
+    "save_sharded_index",
+    "load_sharded_index",
+    "open_sharded_index",
 ]
 
 # Where each public name lives in the port.
@@ -62,6 +67,10 @@ _HOME = {
     "load_index": ".index.storage",
     "open_index": ".index.storage",
     "Wal": ".index.storage",
+    "ShardedIndex": ".parallel.shard",
+    "save_sharded_index": ".index.storage",
+    "load_sharded_index": ".index.storage",
+    "open_sharded_index": ".index.storage",
 }
 
 

@@ -52,6 +52,9 @@ __all__ = [
     "open_index",
     "save_segment",
     "load_segment",
+    "save_sharded_index",
+    "load_sharded_index",
+    "open_sharded_index",
     "Wal",
 ]
 
@@ -478,7 +481,7 @@ def open_index(directory: str, device="cuda") -> Bm25Index:
 
 
 # ----------------------------------------------------------------------
-# The growing segment's checkpoint file.
+# The growing segment's checkpoint file (shared by both index kinds).
 # ----------------------------------------------------------------------
 def _write_growing_jsonl(growing, path: str) -> None:
     with open(path, "w") as f:
@@ -512,8 +515,120 @@ def _replay_growing_jsonl(path: str, insert, mark_deleted) -> None:
                 mark_deleted(slot)
 
 
-# Sharded-index persistence (the reference's save_sharded_index,
-# load_sharded_index and open_sharded_index: one sealed file a shard under
-# the same generation/CURRENT commit protocol, replayed through
-# _replay_wal with the sharded facade's dirty flag) is ported together with
-# the sharded index it saves.
+# ----------------------------------------------------------------------
+# Sharded-index persistence (same generation/CURRENT commit protocol).
+# ----------------------------------------------------------------------
+def save_sharded_index(index, directory: str) -> None:
+    """Durable checkpoint of a ShardedIndex: one sealed-segment file per
+    shard (reference codec policy), global meta, delete bitmap, and the
+    growing segment — committed atomically via the CURRENT pointer."""
+    with index._rw.read(), index._mutex:
+
+        def write_files(gen_dir: str) -> None:
+            meta = {
+                "magic": MAGIC,
+                "version": VERSION,
+                "kind": "sharded",
+                "seed": base64.b64encode(index.seed).decode(),
+                "options": {"k1": index.options.k1, "b": index.options.b},
+                "search_options": {
+                    "limit": index.search_options.limit,
+                    "prefilter": index.search_options.prefilter,
+                },
+                "engine": index.engine,
+                "axis": index.axis,
+                "posting_mode": index.posting_mode,
+                "memory_mode": index.memory_mode,
+                "strategy": index.strategy,
+                "n_shards": index.n_shards,
+                "shards": [
+                    {
+                        "n_docs": v.segment.n_docs,
+                        "sum_dl": v.segment.sum_dl,
+                    }
+                    for v in index.views
+                ],
+            }
+            with open(os.path.join(gen_dir, "meta.json"), "w") as f:
+                json.dump(meta, f, indent=1)
+                f.flush()
+                os.fsync(f.fileno())
+            for i, view in enumerate(index.views):
+                save_segment(
+                    view.segment, os.path.join(gen_dir, f"shard-{i:03d}.npz")
+                )
+            np.save(os.path.join(gen_dir, "deleted.npy"), index.deleted)
+            _write_growing_jsonl(
+                index.growing, os.path.join(gen_dir, "growing.jsonl")
+            )
+            _fsync_dir(gen_dir)
+
+        _commit_generation(directory, write_files)
+        _truncate_wal(index, directory)
+
+
+def open_sharded_index(directory: str, device="cuda"):
+    """Load a sharded index onto ``device``, replay its WAL, and attach it
+    so subsequent mutations are durable without a full checkpoint."""
+    index = load_sharded_index(directory, device=device)
+    index.attach_wal(Wal(os.path.join(directory, "wal.log")))
+    return index
+
+
+def load_sharded_index(directory: str, device="cuda"):
+    """Load a sharded-index checkpoint with its shards stacked on
+    ``device`` (the reference's mesh, one card)."""
+    from ..parallel.shard import ShardedIndex
+
+    current_path = os.path.join(directory, "CURRENT")
+    if os.path.exists(current_path):
+        with open(current_path) as f:
+            base = os.path.join(directory, f.read().strip())
+    else:
+        base = directory
+    with open(os.path.join(base, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("magic") != MAGIC or meta.get("version") != VERSION:
+        raise ValueError(
+            f"on-disk index format mismatch (found "
+            f"{meta.get('magic')}/{meta.get('version')}, expected "
+            f"{MAGIC}/{VERSION}); rebuild the index"
+        )
+    if meta.get("kind") != "sharded":
+        raise ValueError(
+            "not a sharded-index checkpoint; use load_index instead"
+        )
+    options = IndexOptions(**meta["options"])
+    shards = [
+        load_segment(
+            os.path.join(base, f"shard-{i:03d}.npz"),
+            options,
+            meta["shards"][i]["n_docs"],
+            meta["shards"][i]["sum_dl"],
+        )
+        for i in range(meta["n_shards"])
+    ]
+    index = ShardedIndex(
+        shards,
+        options,
+        device=device,
+        axis=meta.get("axis", "d"),
+        engine=meta.get("engine", "exact"),
+        posting_mode=meta.get("posting_mode", "impact"),
+        memory_mode=meta.get("memory_mode", "fast"),
+        strategy=meta.get("strategy", "auto"),
+        seed=base64.b64decode(meta["seed"]),
+        search_options=SearchOptions(**meta["search_options"]),
+    )
+    deleted = np.load(os.path.join(base, "deleted.npy"))
+    if deleted.any():
+        index.set_deleted(deleted)
+
+    def mark(slot):
+        index.growing.deleted[slot] = True
+
+    _replay_growing_jsonl(
+        os.path.join(base, "growing.jsonl"), index.growing.insert, mark
+    )
+    _replay_wal(os.path.join(directory, "wal.log"), index, "_deleted_dirty")
+    return index

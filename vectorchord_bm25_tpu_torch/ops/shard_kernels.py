@@ -1,0 +1,257 @@
+"""The sharded index's device code: the cross-shard top-k merge (SH-merge),
+the global statistics step (SH-stats) and the device build's posting sort
+(D1-sort).
+
+The reference runs one shard a mesh device and joins them with collectives
+(``vectorchord_bm25_tpu/parallel/shard.py``, ``parallel/devbuild.py``).  On
+one card the port stacks the shards along a leading dimension: an
+``all_gather`` becomes a read of the stacked tensor and a ``psum`` a sum over
+that dimension.  Each function here is a CUDA kernel on a CUDA tensor and
+its plain PyTorch version on a CPU tensor; on a CUDA tensor it launches the
+kernel or raises, never falls back:
+
+- ``shard_merge`` (``csrc/shard_merge.cu``): ``[D, Q, kk]`` scores and
+  global ids to the ``kk`` best of each query by (score desc, id asc), the
+  reference's ``lax.sort((-s, id), num_keys=2)[:, :kk]`` after its
+  ``all_gather`` (``shard.py:826-832, 1686-1692, 1840-1846, 1997-2003``);
+- ``shard_stats`` (``csrc/shard_stats.cu``): each shard's f64 sum of
+  ``FIELDNORM_TO_LENGTH[doc_fn] * doc_live`` and the exclusive scan of the
+  shard doc counts with their total (``global_stats_step``,
+  ``shard.py:2285-2325``, and ``device_doc_offsets``, ``devbuild.py:65-91``);
+- ``posting_sort`` (``csrc/posting_sort.cu``): every shard's postings sorted
+  by (k0, k1, k2, k3, doc) with tf carried, in place (the
+  ``lax.sort(..., num_keys=5)`` of ``devbuild.py:244-258``).
+
+u32 columns travel as int32 tensors holding the same bits (torch covers
+unsigned 32-bit types thinly); the kernels read them as u32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.fieldnorm import FIELDNORM_TO_LENGTH
+from .blockmax_round import _check, _device_kind, _launch
+
+__all__ = [
+    "posting_sort",
+    "posting_sort_plain",
+    "shard_merge",
+    "shard_merge_plain",
+    "shard_stats",
+    "shard_stats_plain",
+]
+
+# Kernel launches since import (or since a caller reset them), one a
+# wrapper call that launched.  chip_smoke.py reads them to show the main
+# path went through the kernels.
+MERGE_LAUNCHES = 0
+STATS_LAUNCHES = 0
+SORT_LAUNCHES = 0
+
+# shard_merge's key buffer lives in shared memory up to this many u64 keys
+# (kMaxDynamicSmem of csrc/shard_merge.cu), else in a device scratch row.
+_MERGE_SMEM_KEYS = 224 * 1024 // 8
+
+_INT32_MIN = -(1 << 31)
+_LOW32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# SH-merge
+
+
+def _total_order(x):
+    """int32 float bits -> int32 whose signed order is IEEE total order (an
+    involution)."""
+    return x ^ ((x >> 31) & 0x7FFFFFFF)
+
+
+def merge_keys(scores, ids):
+    """int64 keys whose ascending order is ``lax.sort((-s, id))``'s: -s in
+    IEEE total order, then id; a bijection, so the keys decode to the exact
+    bits that went in."""
+    neg = scores.contiguous().view(torch.int32) ^ _INT32_MIN
+    return (_total_order(neg).long() << 32) | (ids.long() - _INT32_MIN)
+
+
+def _unmerge_keys(keys):
+    neg = _total_order((keys >> 32).int())
+    scores = (neg ^ _INT32_MIN).view(torch.float32)
+    return scores, ((keys & _LOW32) + _INT32_MIN).int()
+
+
+def shard_merge_plain(scores, ids, kk: int):
+    """Plain PyTorch version of ``shard_merge``: every query's ``D * kk``
+    candidates sorted by their packed keys, the first ``kk`` kept."""
+    d, q, w = scores.shape
+    keys = merge_keys(scores, ids).permute(1, 0, 2).reshape(q, d * w)
+    return _unmerge_keys(keys.sort(dim=1).values[:, :kk])
+
+
+def shard_merge(scores, ids, kk: int | None = None):
+    """The ``kk`` best of each query's candidates over every shard.
+
+    scores [D, Q, W] f32 and ids [D, Q, W] int32: shard ``d``'s candidates
+    for query ``q`` (global ids, INT_MAX where the score is not finite, in
+    any order).  Returns (scores [Q, kk] f32, ids [Q, kk] int32) in the
+    order of the reference's ``lax.sort((-s, id), num_keys=2)``: score
+    descending in IEEE total order, then id ascending; ``kk`` defaults to
+    W.  A CUDA tensor launches the kernel or raises; a CPU tensor runs the
+    plain version."""
+    global MERGE_LAUNCHES
+
+    dev = scores.device
+    _check(
+        ((scores, torch.float32, 3, "scores"), (ids, torch.int32, 3, "ids")), dev
+    )
+    if scores.shape != ids.shape:
+        raise ValueError("scores and ids must share one [D, Q, W] shape")
+    d, q, w = scores.shape
+    kk = w if kk is None else kk
+    if not 1 <= kk <= d * w:
+        raise ValueError(f"kk must be in [1, {d * w}], got {kk}")
+    if _device_kind(dev) == "cpu":
+        return shard_merge_plain(scores, ids, kk)
+
+    from ._build import library
+
+    lib = library()
+    out_s = torch.empty((q, kk), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, kk), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out_s, out_i
+    m = 1 << max(1, (d * w - 1).bit_length())
+    scratch = None
+    if m > _MERGE_SMEM_KEYS:
+        scratch = torch.empty((q, m), dtype=torch.int64, device=dev)
+    _launch(
+        lib.bm25_shard_merge, "shard_merge", dev,
+        scores.data_ptr(), ids.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), d, q, w, kk, m,
+    )
+    MERGE_LAUNCHES += 1
+    return out_s, out_i
+
+
+# ---------------------------------------------------------------------------
+# SH-stats
+
+
+def _length_table(device):
+    return torch.from_numpy(FIELDNORM_TO_LENGTH.astype(np.float64)).to(device)
+
+
+def shard_stats_plain(doc_fn, doc_live, counts):
+    """Plain PyTorch version of ``shard_stats``."""
+    table = _length_table(doc_fn.device)
+    partial = (table[doc_fn.long()] * doc_live.double()).sum(dim=1)
+    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=counts.device)
+    offsets[1:] = counts.long().cumsum(0)
+    return partial, offsets
+
+
+def shard_stats(doc_fn, doc_live, counts):
+    """Per-shard statistics of a stacked index in one launch.
+
+    doc_fn [D, M] uint8 fieldnorms, doc_live [D, M] f32 (0/1), counts [D]
+    int64 shard doc counts.  Returns (partial [D] f64: each shard's sum of
+    ``FIELDNORM_TO_LENGTH[doc_fn] * doc_live``, offsets [D + 1] int64: the
+    exclusive scan of ``counts`` followed by their total).  The sums are of
+    integers below 2^53, so they are exact in any order.  A CUDA tensor
+    launches the kernel or raises; a CPU tensor runs the plain version."""
+    global STATS_LAUNCHES
+
+    dev = doc_fn.device
+    _check(
+        (
+            (doc_fn, torch.uint8, 2, "doc_fn"),
+            (doc_live, torch.float32, 2, "doc_live"),
+            (counts, torch.int64, 1, "counts"),
+        ),
+        dev,
+    )
+    d, m = doc_fn.shape
+    if doc_live.shape != doc_fn.shape or counts.numel() != d or d < 1:
+        raise ValueError("doc_fn and doc_live must be [D, M] and counts [D], D >= 1")
+    if _device_kind(dev) == "cpu":
+        return shard_stats_plain(doc_fn, doc_live, counts)
+
+    from ._build import library
+
+    lib = library()
+    partial = torch.empty(d, dtype=torch.float64, device=dev)
+    offsets = torch.empty(d + 1, dtype=torch.int64, device=dev)
+    _launch(
+        lib.bm25_shard_stats, "shard_stats", dev,
+        doc_fn.data_ptr(), doc_live.data_ptr(), _length_table(dev).data_ptr(),
+        counts.data_ptr(), partial.data_ptr(), offsets.data_ptr(), d, m,
+    )
+    STATS_LAUNCHES += 1
+    return partial, offsets
+
+
+# ---------------------------------------------------------------------------
+# D1-sort
+
+
+def _unsigned(col):
+    """int32 bits -> their u32 value as int64."""
+    return col.long() & _LOW32
+
+
+def posting_sort_plain(cols):
+    """Plain PyTorch version of ``posting_sort``: stable sorts from the
+    least significant key up (doc, k3, k2, k1, k0), each row on its own.
+    Returns new tensors."""
+    k0, k1, k2, k3, doc, tf = cols
+    perm = torch.arange(doc.shape[1], device=doc.device).expand(doc.shape[0], -1)
+    for key in (doc.long(), _unsigned(k3), _unsigned(k2), _unsigned(k1), _unsigned(k0)):
+        order = key.gather(1, perm).sort(dim=1, stable=True).indices
+        perm = perm.gather(1, order)
+    return tuple(c.gather(1, perm) for c in cols)
+
+
+def posting_sort(cols):
+    """Sort every shard's postings by (key, doc), in place.
+
+    cols: six [D, P] int32 tensors, k0-k3 (the four big-endian u32 words of
+    the 16-byte term keys, as their bits), doc (shard-local ids) and tf (u32
+    bits); P a power of two >= 2.  Each row is sorted ascending by (k0, k1,
+    k2, k3) unsigned, then doc, with tf carried; (key, doc) pairs must be
+    unique, so the order is total.  Returns ``cols``.  A CUDA tensor
+    launches the kernel or raises; a CPU tensor runs the plain version and
+    copies its result back."""
+    global SORT_LAUNCHES
+
+    cols = tuple(cols)
+    if len(cols) != 6:
+        raise ValueError("posting_sort takes six columns: k0, k1, k2, k3, doc, tf")
+    dev = cols[0].device
+    _check(
+        tuple(
+            (c, torch.int32, 2, name)
+            for c, name in zip(cols, ("k0", "k1", "k2", "k3", "doc", "tf"))
+        ),
+        dev,
+    )
+    d, p = cols[0].shape
+    if any(c.shape != cols[0].shape for c in cols):
+        raise ValueError("the six columns must share one [D, P] shape")
+    if d < 1 or p < 2 or p & (p - 1):
+        raise ValueError(f"columns must be [D >= 1, P a power of two >= 2], got {(d, p)}")
+    if _device_kind(dev) == "cpu":
+        for c, s in zip(cols, posting_sort_plain(cols)):
+            c.copy_(s)
+        return cols
+
+    from ._build import library
+
+    lib = library()
+    _launch(
+        lib.bm25_posting_sort, "posting_sort", dev,
+        *(c.data_ptr() for c in cols), d, p,
+    )
+    SORT_LAUNCHES += 1
+    return cols
