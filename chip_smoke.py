@@ -183,6 +183,7 @@ JAX package and not ``bench.py``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -235,10 +236,11 @@ def device_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def cuda_ms_fresh(fn, fresh, iters=20, warmup=3):
+def cuda_ms_fresh(fn, fresh, iters=20, warmup=3, queued=False):
     """Mean milliseconds of ``fn(*fresh())`` from CUDA events, for a function
     that updates an argument in place: every call gets arguments of its own,
-    all made before the clock starts."""
+    all made before the clock starts.  ``queued``: the launches wait behind
+    a sleeping kernel, as in ``device_ms``, so the events time the card."""
     import torch
 
     argsets = [fresh() for _ in range(iters + warmup)]
@@ -246,6 +248,9 @@ def cuda_ms_fresh(fn, fresh, iters=20, warmup=3):
         fn(*a)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
     start.record()
     for a in argsets[warmup:]:
         fn(*a)
@@ -395,14 +400,105 @@ def b1_read():
     return {name: getattr(br, counter) for counter, name in zip(B1_COUNTERS, B1_NAMES)}
 
 
-def b1_check(engine, queries, label, phase):
+def held_select(real, phase, ub_work, topk_s, rest, flag, kw):
+    """One B1-select call through ``real`` held against
+    ``round_select_plain`` on a copy of the same inputs: ``torch.equal`` on
+    all four outputs and on the row updated in place."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    twin = ub_work.clone()
+    out = real(ub_work, topk_s, *rest, flag=flag, **kw)
+    want = br.round_select_plain(twin, topk_s, *rest, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(out, want)) or not torch.equal(ub_work, twin):
+        raise AssertionError(f"{phase} round_select != its plain version")
+    return out
+
+
+@contextlib.contextmanager
+def select_held(phase):
+    """Inside, every B1-select call on the card is held to its plain
+    version (``held_select``); yields the list whose length counts them."""
+    from vectorchord_bm25_tpu_torch.search import blockmax
+
+    real = blockmax.round_select
+    calls = []
+
+    def select(ub_work, topk_s, *rest, flag=None, **kw):
+        if not ub_work.is_cuda:
+            return real(ub_work, topk_s, *rest, flag=flag, **kw)
+        calls.append(None)
+        return held_select(real, phase, ub_work, topk_s, rest, flag, kw)
+
+    blockmax.round_select = select
+    try:
+        yield calls
+    finally:
+        blockmax.round_select = real
+
+
+def select_fields(ub0, ts0, rest, kw):
+    """B1-select timed on one call's inputs (a fresh row each launch): the
+    kernel's time on the card (launches queued behind a sleeping kernel) and
+    launched back to back, its plain version's, ``torch.topk``'s on the same
+    rows both ways, and its bound: the row read once, an active query's C
+    taken ranges written back, the threshold, cand_r, start and length
+    written, the active queries' spans searched; a compare a bound and
+    log2(span) a search."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+
+    tts, q_tid = rest[2], rest[3]
+    q, n_ranges = ub0.shape
+    t = q_tid.shape[1]
+    c = kw["chunk"]
+    tid = q_tid.long()
+    active = ub0.amax(dim=1) > ts0[:, -1].clamp_min(0.0)
+    n_active = int(active.sum())
+    spans = int((tts[tid + 1] - tts[tid])[active].sum())
+    flag0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def fresh():
+        return ub0.clone(), flag0.clone()
+
+    def kernel(ub, flag):
+        br.round_select(ub, ts0, *rest, flag=flag, **kw)
+
+    def library():
+        torch.topk(ub0, c, dim=1)
+
+    return {
+        "ms": cuda_ms_fresh(kernel, fresh, queued=True),
+        "launch_paced_ms": cuda_ms_fresh(kernel, fresh),
+        "plain_ms": cuda_ms_fresh(
+            lambda ub, flag: br.round_select_plain(ub, ts0, *rest, flag=flag, **kw), fresh
+        ),
+        **bound(
+            4 * q * n_ranges + 4 * n_active * c + 4 * q + 4 * q * c + 8 * q * t * c
+            + 12 * q * t + 4 * spans,
+            q * n_ranges + n_active * t * c * max(1, int(kw["lmax"]).bit_length()),
+        ),
+        # The library's top-C over the same rows: no tie rule, no mask, no
+        # threshold, no locate.
+        "library_ms": device_ms(library),
+        "library_launch_paced_ms": cuda_ms(library),
+        "active_queries": n_active,
+        "shape": {"Q": q, "T": t, "R": n_ranges, "C": c},
+    }
+
+
+def b1_check(engine, queries, label, phase, select_inputs=None):
     """Serve ``queries`` once through ``engine`` (a BlockMaxEngine on the
     card) with every B1 launch held against its plain version on the same
     inputs: ``torch.equal`` on every output and on every tensor updated in
     place, every round.  Then time each kernel, its plain version and the
     library call nearest to it on the first round's inputs (CUDA events; the
     in-place ones on fresh copies each call), and compute its bound from
-    those inputs.  Returns {name: measured fields}."""
+    those inputs.  Returns {name: measured fields}; appends the first
+    B1-select call's inputs to ``select_inputs`` where given."""
     import torch
 
     from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
@@ -430,12 +526,7 @@ def b1_check(engine, queries, label, phase):
 
     def select(ub_work, topk_s, *rest, flag=None, **kw):
         first = (ub_work.clone(), topk_s.clone(), rest, kw)
-        twin = ub_work.clone()
-        out = real["round_select"](ub_work, topk_s, *rest, flag=flag, **kw)
-        want = br.round_select_plain(twin, topk_s, *rest, **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(out, want)) or not torch.equal(ub_work, twin):
-            raise AssertionError(f"{phase} round_select != its plain version")
+        out = held_select(real["round_select"], phase, ub_work, topk_s, rest, flag, kw)
         seen("round_select", first)
         return out
 
@@ -475,36 +566,12 @@ def b1_check(engine, queries, label, phase):
         **bound(12 * q * t + 8 * groups + 4 * q * n_ranges, groups + q * n_ranges),
         "library_ms": None,
     }
-    # B1-select: the row read once, an active query's C taken ranges written
-    # back, the threshold, cand_r, start and length written, the active
-    # queries' spans searched; a compare a bound and log2(span) a search.
     ub0, ts0, rest, kw = st["round_select"]["first"]
     c = kw["chunk"]
-    active = ub0.amax(dim=1) > ts0[:, -1].clamp_min(0.0)
-    n_active = int(active.sum())
-    spans = int((tts[tid + 1] - tts[tid])[active].sum())
-    flag0 = torch.zeros(1, dtype=torch.int32, device="cuda")
-
-    def fresh():
-        return ub0.clone(), flag0.clone()
-
-    out["round_select"] = {
-        "ms": cuda_ms_fresh(
-            lambda ub, flag: br.round_select(ub, ts0, *rest, flag=flag, **kw), fresh
-        ),
-        "plain_ms": cuda_ms_fresh(
-            lambda ub, flag: br.round_select_plain(ub, ts0, *rest, flag=flag, **kw), fresh
-        ),
-        **bound(
-            4 * q * n_ranges + 4 * n_active * c + 4 * q + 4 * q * c + 8 * q * t * c
-            + 12 * q * t + 4 * spans,
-            q * n_ranges + n_active * t * c * max(1, int(kw["lmax"]).bit_length()),
-        ),
-        # The library's top-C over the same rows: no tie rule, no mask, no
-        # threshold, no locate.
-        "library_ms": cuda_ms(lambda: torch.topk(ub0, c, dim=1)),
-        "active_queries": n_active,
-    }
+    out["round_select"] = select_fields(ub0, ts0, rest, kw)
+    n_active = out["round_select"]["active_queries"]
+    if select_inputs is not None:
+        select_inputs.append(st["round_select"]["first"])
     # B1-merge: the [Q, C, RS] scores read once, cand_r, the live and filter
     # entries of the lanes that scored, the top-k read and written; two
     # multiplies and a compare a lane that scored.
@@ -565,6 +632,12 @@ def b1_check(engine, queries, label, phase):
             f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}, {m['bound_bytes']} B), "
             f"library {lib} [{label}]"
         )
+    m = out["round_select"]
+    print(
+        f"{phase} round_select launched back to back: kernel {m['launch_paced_ms']:.4f} "
+        f"ms, torch.topk {m['library_launch_paced_ms']:.4f} ms (the lines above: "
+        f"device time, launches queued behind a sleeping kernel) [{label}]"
+    )
     return out
 
 
@@ -602,8 +675,16 @@ def device_profile(fn, what, label):
 
 def rounds_equal(gpu_engine, cpu_engine, sample, what):
     """``last_rounds`` of the card's engine equals the CPU-plain engine's on
-    the same queries (and so do the results)."""
-    got = gpu_engine.search(sample, K)
+    the same queries (and so do the results); every B1-select call of the
+    card's batch is held to its plain version."""
+    with select_held(what) as calls:
+        got = gpu_engine.search(sample, K)
+    if len(calls) < gpu_engine.last_rounds:
+        raise AssertionError(f"{what}: {len(calls)} B1-select calls held, {gpu_engine.last_rounds} rounds")
+    print(
+        f"{what}: all {len(calls)} B1-select calls of the card's batch == "
+        f"round_select_plain (torch.equal, four outputs and the row)"
+    )
     want = cpu_engine.search(sample, K)
     if not all(np.array_equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"{what}: GPU != CPU-plain")
@@ -1471,7 +1552,10 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
         p1_by_phase[phase] = launches["P1"]
         b1_by_phase[phase] = {name: launches[name] for name in B1_NAMES}
         s2_by_phase[phase] = launches.get("S2", 0)
-        unequal = _held_to(hyb.search(queries, K), f32, f"hybrid {phase} vs exact", True)
+        with select_held(phase) as held:
+            unequal = _held_to(hyb.search(queries, K), f32, f"hybrid {phase} vs exact", True)
+        if not held:
+            raise AssertionError(f"{phase}: no B1-select call to hold")
         rep = hyb.memory_report()
         if phase == "(q2)":
             e3_by_phase[phase] = launches.get(e_counter, 0)
@@ -1484,7 +1568,8 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
             hybrid_e1 += launches.get(e_counter, 0)
         served(
             phase, f"hybrid {opts} (P1 {p1_by_phase[phase]} launches, B1 "
-            f"{b1_by_phase[phase]}, S2 {s2_by_phase[phase]}; ids == phase (o)'s on all {len(queries)} "
+            f"{b1_by_phase[phase]}, S2 {s2_by_phase[phase]}; {len(held)} B1-select calls "
+            f"of a batch == round_select_plain; ids == phase (o)'s on all {len(queries)} "
             f"queries, {unequal} scores not bit-equal; memory_report total "
             f"{rep['total']} B)", qps, launches,
         )
@@ -1931,8 +2016,11 @@ def blockmax_large(args, seg, queries, label, build_times):
     bound row has 16,384 ranges (64 KB of shared memory a block) and the
     default chunk is 256.  Returns B1's measured fields at that size, its
     launches and the rounds a batch."""
+    import torch
+
     from vectorchord_bm25_tpu_torch.index.ranges import build_range_index
     from vectorchord_bm25_tpu_torch.ops import score_kernel
+    from vectorchord_bm25_tpu_torch.search import blockmax
     from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine
 
     # Ranges of 128 docs, as at 131,072 docs: 16,384 of them here (the
@@ -1949,7 +2037,29 @@ def blockmax_large(args, seg, queries, label, build_times):
         f"{build_times['(s) range index']:.1f} s; device index "
         f"{engine.memory_report()['total']} B"
     )
-    measured = b1_check(engine, queries, label, "(s)")
+    firsts = []
+    measured = b1_check(engine, queries, label, "(s)", select_inputs=firsts)
+    # The engine's default at this size (ranges of 256 docs, 8,192 of them,
+    # chunk 128) without a second range index: the first round's rows
+    # folded pairwise by the max of neighbouring ranges (a valid bound of
+    # the 256-doc range), through the same CSR.
+    ub0, ts0, rest, kw = firsts[0]
+    folded = ub0.view(ub0.shape[0], -1, 2).amax(dim=2).contiguous()
+    kw8 = {**kw, "chunk": 128}
+    held_select(
+        blockmax.round_select, "(s) folded", folded.clone(), ts0, rest,
+        torch.zeros(1, dtype=torch.int32, device="cuda"), kw8,
+    )
+    measured["round_select_r8192"] = select_fields(folded, ts0, rest, kw8)
+    m = measured["round_select_r8192"]
+    print(
+        f"(s) round_select on the rows folded to R={folded.shape[1]}, C=128: == "
+        f"plain (torch.equal); kernel {m['ms']:.4f} ms (launched back to back "
+        f"{m['launch_paced_ms']:.4f}), plain {m['plain_ms']:.4f} ms, bound "
+        f"{m['bound_ms']:.4f} ms ({m['bound_by']}), torch.topk {m['library_ms']:.4f} ms "
+        f"(back to back {m['library_launch_paced_ms']:.4f}) [{label}]"
+    )
+    del ub0, folded, firsts
     score_kernel.LAUNCHES = 0
     b1_zero()
     qps, rounds = [], []
@@ -2497,11 +2607,10 @@ def stats_timings(index, st, label):
     lengths."""
     import torch
 
-    from vectorchord_bm25_tpu_torch.models.fieldnorm import FIELDNORM_TO_LENGTH
     from vectorchord_bm25_tpu_torch.ops import shard_kernels
 
     a = (index.dev_doc_fn, index.dev_doc_live, index.dev_n_local)
-    table = torch.from_numpy(FIELDNORM_TO_LENGTH.astype(np.float64)).cuda()
+    table = shard_kernels._length_table(torch.device("cuda"))  # on the card since (v)
     lengths = table[a[0].long()] * a[1].double()
     d, m = a[0].shape
     out = {
@@ -2513,9 +2622,17 @@ def stats_timings(index, st, label):
         # fieldnorm (1 B) and live flag (4 B) read a slot; a multiply and an
         # add a slot.
         **bound(5 * d * m + 8 * d + 8 * d + 8 * (d + 1), 2 * d * m),
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count,
     }
+    # The grid of the last launch, as the launcher passed it to the card.
+    out["grid"] = list(shard_kernels.STATS_GRID)
+    out["blocks"] = int(np.prod(out["grid"]))
+    if out["blocks"] <= d:
+        raise AssertionError(f"(v) SH-stats launched {out['grid']}: no more blocks than shards")
+    ran = f"in a {out['grid']} grid ({out['blocks']} blocks)"
     print(
-        f"(v) SH-stats on [{d}, {m}], device time: kernel {out['ms']:.4f} ms, "
+        f"(v) SH-stats on [{d}, {m}] {ran} on {out['sms']} SMs, "
+        f"device time: kernel {out['ms']:.4f} ms, "
         f"plain {out['plain_ms']:.4f} ms, torch.sum of the f64 lengths "
         f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']}); launched back to back by the host "
@@ -2920,6 +3037,9 @@ def main() -> int:
             "rounds_a_batch_r16384": b1_large["rounds"],
         }
         for name, line in zip(B1_NAMES, B1_REPLACES)
+    ]
+    b1_entries[B1_NAMES.index("round_select")]["r8192"] = b1_large["measured"][
+        "round_select_r8192"
     ]
     # The sharded phases' launches, added to each kernel's by phase.
     kernels = [

@@ -155,6 +155,19 @@ def select_case(rng, case, n_q=24, t=4, vocab=30, n_ranges=37, k=5):
         kth = torch.from_numpy(rng.choice(np.float32([0.0, 0.5, 1.25, 3.0, 50.0]), size=n_q))
         topk_s = (kth[:, None] + torch.arange(k - 1, -1, -1)).float()
         topk_s[5] = NEG_INF
+    elif case == "boundary ties":
+        # Equal bounds straddle the C-th place of every chunk tested (two at
+        # 9.0, twenty at 5.0, the rest lower); one row has fewer live bounds
+        # than C, so it refills with its lowest -inf ranges.
+        vals = rng.choice(np.float32([0.0, 0.5, 1.25]), size=(n_q, n_ranges))
+        for qi in range(n_q):
+            pos = rng.permutation(n_ranges)
+            vals[qi, pos[:2]] = 9.0
+            vals[qi, pos[2:22]] = 5.0
+        ub = torch.from_numpy(vals)
+        ub[3] = NEG_INF  # nothing left at all
+        ub[7] = NEG_INF
+        ub[7, 10:13] = 5.0  # three live bounds
     return csr, q_tid, ub.contiguous(), topk_s
 
 
@@ -178,7 +191,9 @@ def old_select(ub_work, topk_s, tr_range, tr_start, tts, q_tid, chunk, lmax):
 
 
 @pytest.mark.parametrize("chunk", [1, 4, 37])
-@pytest.mark.parametrize("case", ["first round", "partly taken", "thresholds"])
+@pytest.mark.parametrize(
+    "case", ["first round", "partly taken", "thresholds", "boundary ties"]
+)
 def test_round_select_equals_replaced_ops_and_reference(rng, case, chunk):
     (tts, tr_range, tr_start, _), q_tid, ub, topk_s = select_case(rng, case)
     before = ub.clone()

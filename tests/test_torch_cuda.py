@@ -884,12 +884,32 @@ def test_round_keeps_subnormals(card, gen):
     assert ((s_cpu > 0) & (s_cpu < 1e-38)).any()
 
 
+def _boundary_ties(gen, n_q, n_ranges, chunk, card):
+    """Bound rows whose equal values straddle the C-th place (C/2 at 9.0,
+    then up to 2C at 5.0, the rest lower), and one row (4) with fewer live
+    bounds than C, which refills with its lowest -inf ranges."""
+    vals = gen.choice(np.float32([0.0, 0.5, 1.25]), size=(n_q, n_ranges))
+    n_hi = chunk // 2
+    n_tie = min(2 * chunk, n_ranges - n_hi)
+    for qi in range(n_q):
+        pos = gen.permutation(n_ranges)
+        vals[qi, pos[:n_hi]] = 9.0
+        vals[qi, pos[n_hi : n_hi + n_tie]] = 5.0
+    vals[4] = -np.inf
+    vals[4, 3 : 3 + max(1, chunk // 3)] = 5.0
+    return torch.from_numpy(vals.astype(np.float32)).to(card)
+
+
 @pytest.mark.parametrize(
     "n_ranges,max_groups,chunk,k",
     [(37, 11, 1, 5), (37, 11, 37, 5), (1024, 300, 32, 16), (1024, 300, 1024, 1),
-     (16384, 900, 256, 16), (60000, 500, 64, 16)],
+     (8192, 900, 128, 16), (16384, 900, 256, 16), (60000, 500, 64, 16),
+     (65536, 500, 256, 16), (1000, 300, 1000, 4), (30000, 500, 30000, 4)],
 )
 def test_round_select_matches_plain(card, gen, n_ranges, max_groups, chunk, k):
+    # 60,000 and 65,536 ranges: the row stays in device memory; C = R = 1,000:
+    # every range taken, R not a multiple of 32; C = R = 30,000: the keys
+    # above the C-th no longer fit shared memory beside the row (scratch).
     from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
 
     vocab, lmax, n_q = 24, 1024, 33
@@ -902,7 +922,12 @@ def test_round_select_matches_plain(card, gen, n_ranges, max_groups, chunk, k):
     topk_s = (kth[:, None] + torch.arange(k - 1, -1, -1, device=card)).float().contiguous()
     taken = torch.from_numpy(gen.random((n_q, n_ranges)) < 0.5).to(card)
     taken[2] = True  # a row with nothing left
-    for ub in (ub0, torch.where(taken, float("-inf"), ub0).contiguous()):
+    rows = (
+        ub0,
+        torch.where(taken, float("-inf"), ub0).contiguous(),
+        _boundary_ties(gen, n_q, n_ranges, chunk, card),
+    )
+    for ub in rows:
         a, b = ub.clone(), ub.clone()
         before = br.SELECT_LAUNCHES
         got = br.round_select(a, topk_s, tr_range, tr_start, tts, q_tid, chunk=chunk, lmax=lmax)
@@ -1020,19 +1045,52 @@ def test_shard_merge_matches_plain(card, gen, d, q, w, kk):
     assert torch.equal(got_i, want_i)
 
 
-@pytest.mark.parametrize("d,m", [(1, 1), (8, 10_001), (3, 262_145)])
+@pytest.mark.parametrize(
+    "d,m",
+    [(1, 1), (8, 10_001), (3, 262_145), (1, 4_194_305), (8, 262_145), (5, 17)],
+)
 def test_shard_stats_matches_plain(card, gen, d, m):
+    # Odd widths: every row after the first starts unaligned for 16-B loads.
     from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
 
     doc_fn = torch.from_numpy(gen.integers(0, 256, size=(d, m)).astype(np.uint8)).to(card)
     live = torch.from_numpy((gen.random((d, m)) < 0.9).astype(np.float32)).to(card)
+    if d > 1:
+        live[d // 2] = 0.0  # an all-dead row
     counts = torch.from_numpy(gen.integers(0, m + 1, size=d)).to(card)
     before = sk.STATS_LAUNCHES
     got = sk.shard_stats(doc_fn, live, counts)
     torch.cuda.synchronize()
     assert sk.STATS_LAUNCHES == before + 1
+    slices, shards = sk.STATS_GRID  # a block a slice of a row, a row a shard
+    assert shards == d and 1 <= slices <= m
     want = sk.shard_stats_plain(doc_fn, live, counts)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if d > 1:
+        assert got[0][d // 2].item() == 0.0
+
+
+def test_shard_stats_on_unaligned_views(card, gen):
+    # doc_fn one byte into its storage and doc_live aligned: the two rows
+    # never align for vector loads, so every slot goes one at a time.
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    d, m = 3, 5003
+    flat = torch.from_numpy(gen.integers(0, 256, size=d * m + 1).astype(np.uint8)).to(card)
+    doc_fn = flat[1:].view(d, m)
+    live = torch.from_numpy((gen.random((d, m)) < 0.9).astype(np.float32)).to(card)
+    counts = torch.tensor([m, m - 1, 3], dtype=torch.int64, device=card)
+    got = sk.shard_stats(doc_fn, live, counts)
+    want = sk.shard_stats_plain(doc_fn, live, counts)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_length_table_uploads_once_a_device(card):
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    first = sk._length_table(card)
+    assert first.is_cuda
+    assert sk._length_table(torch.device("cuda", torch.cuda.current_device())) is first
 
 
 @pytest.mark.parametrize("d,p,fill", [(1, 2, 1), (3, 1024, 700), (2, 1 << 15, 20_000), (8, 1 << 13, 4000)])

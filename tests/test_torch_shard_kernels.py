@@ -226,6 +226,33 @@ def test_shard_stats_plain_matches_reference(mesh8):
     np.testing.assert_array_equal(partial.numpy(), want)
 
 
+@pytest.mark.parametrize("d,m", [(1, 17), (3, 262_145)])
+def test_shard_stats_plain_sums_largest_lengths_exactly(d, m):
+    # Every slot holds the length table's largest entries, so the sums come
+    # nearest 2^53; numpy's integer sum is the exact answer.
+    from vectorchord_bm25_tpu_torch.models.fieldnorm import FIELDNORM_TO_LENGTH
+
+    table = FIELDNORM_TO_LENGTH.astype(np.int64)
+    fn = np.full((d, m), 255, dtype=np.uint8)
+    fn[:, ::3] = 254
+    live = np.ones((d, m), dtype=np.float32)
+    live[-1, 1::7] = 0.0
+    partial, _ = sk.shard_stats_plain(
+        torch.from_numpy(fn), torch.from_numpy(live), torch.zeros(d, dtype=torch.int64)
+    )
+    want = (table[fn] * live.astype(np.int64)).sum(axis=1)
+    assert want.max() < 2**53 and table[255] > 2**30
+    assert partial.dtype == torch.float64
+    assert partial.numpy().astype(np.int64).tolist() == want.tolist()
+    np.testing.assert_array_equal(partial.numpy(), want.astype(np.float64))
+
+
+def test_length_table_is_uploaded_once():
+    first = sk._length_table(torch.device("cpu"))
+    assert sk._length_table("cpu") is first
+    assert first.dtype == torch.float64 and first.shape == (256,)
+
+
 def test_shard_stats_empty_rows_scan_counts():
     counts = torch.tensor([5, 0, 7, 1], dtype=torch.int64)
     partial, offsets = sk.shard_stats(

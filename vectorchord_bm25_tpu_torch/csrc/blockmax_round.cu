@@ -25,26 +25,55 @@
 // by bytes: the [Q, R] row written once dominates.
 //
 // round_select.  thresh = max(topk_s[q, k-1], 0).  The C highest bounds of
-// the row, ties to the lower range (lax.top_k's rule), by C arg-max rounds:
-// bounds are >= +0 or -inf, so their f32 bits order like the values as
-// signed integers, and (bits ^ 0x80000000) << 32 | ~range is one u64 whose
-// maximum is the winner.  Every thread keeps the best of its own strided
-// elements in a register; a round is one shuffle reduction, one barrier and
-// a rescan by the winner's owner only.  A taken range is marked with the bit
-// pattern 0x80000000 (below -inf in that order, never a bound) so a row with
-// fewer than C live bounds refills with distinct -inf ranges, lowest first,
-// as top_k does; at the end every taken range is written back as -inf.
-// Candidates come out in descending bound order, so cand_ok = bound > thresh
-// holds for a prefix of n_ok candidates.  A query whose maximum is not above
-// its threshold is inactive: it writes cand_r = 0 and length = 0 everywhere,
-// leaves its row alone (a threshold only rises, so the row is never read
-// again with another outcome) and returns after one round.  An active query
-// raises the one device flag the host loop reads.  locate: for each (t, c) a
-// binary search of the term's ascending range list tr_range[base, base +
-// count) gives the group's posting span, or (0, 0) where the term has no
-// group in the range or the candidate is not ok.  Bound by bytes: the row
-// read and written once.
-//
+// the row, ties to the lower range (lax.top_k's rule), by a radix select
+// rather than C arg-max rounds.  Bounds are >= +0 or -inf, so u = bits ^
+// 0x80000000 orders them as unsigned 32-bit keys.
+//   1. Load: the row is read once from device memory into shared memory
+//      (up to 57,344 ranges; a longer row stays in device memory and is read
+//      there), with its maximum and the histogram of u's top byte.  A query
+//      whose maximum is not above its threshold is inactive: it writes
+//      cand_r = 0 and length = 0 everywhere, leaves its row alone (a
+//      threshold only rises, so the row is never read again with another
+//      outcome) and returns.  An active query raises the one device flag the
+//      host loop reads.
+//   2. Select: four passes of 8 bits find u*, the C-th largest key, and
+//      need, how many keys equal to u* are taken (C minus the keys above
+//      u*).  A pass counts the keys that match the digits found so far into
+//      a 256-bin shared histogram (lanes with one digit add once, by
+//      __match_any_sync); one warp scans the bins from the top to find the
+//      next digit.
+//   3. Collect: each warp owns a contiguous run of ranges and walks it in
+//      order, 32 at a time, placing keys by ballot and popcount after a scan
+//      of the warps' counts.  Every key above u* goes to a buffer; the first
+//      `need` keys equal to u* in range order are the last candidates,
+//      written straight to cand_r[above ..]: that is lax.top_k's tie rule,
+//      and it refills a row short of live bounds with its lowest -inf
+//      ranges.
+//   4. Order: the keys above u* become (u << 32) | ~range, unique, and each
+//      one's place in cand_r is the number of those keys larger than it:
+//      descending bound, the lower range first.  That costs above^2 / nt
+//      compares a thread and one barrier: quadratic in C, where steps 1-3
+//      read 5R / nt keys a thread from shared memory.  It is the smaller
+//      part while C^2 < 5R, as at the three shapes chip_smoke.py times
+//      (C = 32, 128, 256 at R = 1,024, 8,192, 16,384).  A chunk in the
+//      thousands makes it the kernel's largest cost (C = R = 30,000 at 512
+//      threads: about 1.7M compares a thread).  Candidates come out in
+//      descending bound order, so cand_ok = bound > thresh holds for a
+//      prefix of n_ok candidates.
+//   5. Finish: the taken ranges become -inf in the row, then locate: for
+//      each (t, c) a binary search of the term's ascending range list
+//      tr_range[base, base + count) gives the group's posting span, or
+//      (0, 0) where the term has no group in the range or the candidate is
+//      not ok.
+// Twelve barriers a query whatever C and R: one to clear the histograms,
+// one after the load, two a radix pass (the first pass's counting is the
+// load's), two in the collect, one after the order.  Each range's key is
+// read once from device memory and five times from shared memory.  Bound by
+// bytes where C^2 < 5R (step 4): the row read once, the C taken ranges and
+// the spans written.
+// Rows of up to 1,024 ranges take 128 threads a block, so that 4,096 short
+// rows fill the card 16 blocks an SM; longer rows take 256 or 512.
+
 // round_merge.  s = (acc * live[d]) * filter[d] with d = min(doc, N), two
 // __fmul_rn in the reference's order; a candidate is kept where s > 0 and
 // doc < N.  Kept candidates and the running top-k become the packed keys of
@@ -69,15 +98,13 @@ typedef unsigned long long u64;
 
 constexpr uint32_t kInfBits = 0x7F800000u;
 constexpr uint32_t kNegInfBits = 0xFF800000u;
-constexpr uint32_t kTakenBits = 0x80000000u;
 constexpr int kIntMax = 0x7FFFFFFF;
 constexpr u64 kPadKey = (static_cast<u64>(kInfBits) << 32) | 0x7FFFFFFFull;
 // Dynamic shared memory a block may ask for (of the SM's 227 KB, leaving
-// room for the kernels' small static arrays).
+// room for the kernels' small static arrays; ops/blockmax_round.py mirrors
+// it).
 constexpr long long kMaxDynamicSmem = 224 * 1024;
 constexpr int kMergeThreads = 256;
-
-__device__ __forceinline__ u64 umax64(u64 a, u64 b) { return a > b ? a : b; }
 
 __global__ void range_bounds_kernel(
     const int32_t* __restrict__ token_tr_start,  // [V+2]
@@ -107,9 +134,63 @@ __global__ void range_bounds_kernel(
   }
 }
 
-__device__ __forceinline__ u64 bound_key(uint32_t bits, int r) {
-  return (static_cast<u64>(bits ^ 0x80000000u) << 32) |
-         static_cast<uint32_t>(~static_cast<uint32_t>(r));
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kBins = 256;
+constexpr int kBatch = 8;  // row reads a thread issues before using them
+
+// Lanes with `m` set add one to hist[digit]: one shared atomic a distinct
+// digit of the warp, and no __match_any_sync where the warp's digits are
+// all one (a run of equal bounds).  Every lane of the warp calls it.
+__device__ __forceinline__ void hist_add(int* hist, bool m, uint32_t digit, int lane) {
+  const unsigned act = __ballot_sync(kFull, m);
+  if (act == 0) return;
+  const int first = __ffs(act) - 1;
+  const uint32_t lead = __shfl_sync(kFull, digit, first);
+  if (__all_sync(kFull, !m || digit == lead)) {
+    if (lane == first) atomicAdd(&hist[lead], __popc(act));
+    return;
+  }
+  if (m) {
+    const unsigned peers = __match_any_sync(act, digit);
+    if (lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+  }
+}
+
+// One warp: the digit at which the kk-th largest of the keys counted in
+// hist lies.  Lane l holds bins 255 - 8l down to 248 - 8l; an inclusive
+// scan over the lanes finds the lane, which walks its own bins, appends the
+// digit to *prefix at `shift` and leaves in *kk the rank left within it.
+__device__ __forceinline__ void find_digit(const int* hist, int shift, uint32_t* prefix,
+                                           int* kk, int lane) {
+  const uint32_t pre = *prefix;
+  const int want = *kk;
+  int h[8];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    h[j] = hist[kBins - 1 - 8 * lane - j];
+    sum += h[j];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int excl = incl - sum;
+  const unsigned hit = __ballot_sync(kFull, excl < want && want <= incl);
+  if (lane == __ffs(hit) - 1) {
+    int run = excl;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (run + h[j] >= want) {
+        *prefix = pre | (static_cast<uint32_t>(kBins - 1 - 8 * lane - j) << shift);
+        *kk = want - run;
+        break;
+      }
+      run += h[j];
+    }
+  }
 }
 
 __global__ void round_select_kernel(
@@ -123,69 +204,186 @@ __global__ void round_select_kernel(
     int32_t* __restrict__ start,                 // [Q, T, C]
     int32_t* __restrict__ length,                // [Q, T, C]
     int32_t* __restrict__ flag,                  // [1]
-    int n_terms, int n_ranges, int chunk, int k, int use_smem) {
+    u64* scratch,                                // [Q, C]
+    int n_terms, int n_ranges, int chunk, int k, int use_smem, int keys_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ u64 warp_best[2][32];
+  __shared__ int s_hist[2][kBins];
+  __shared__ uint32_t s_wmax[32];
+  __shared__ int s_wcount[32][2];
+  __shared__ uint32_t s_prefix;
+  __shared__ int s_kk, s_nok;
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = (nt + 31) >> 5;
+  const int n_warps = nt >> 5;
   uint32_t* grow =
       reinterpret_cast<uint32_t*>(ub_work + static_cast<int64_t>(q) * n_ranges);
-  uint32_t* row = use_smem ? reinterpret_cast<uint32_t*>(smem_raw) : grow;
+  u64* keys = keys_smem ? reinterpret_cast<u64*>(smem_raw)
+                        : scratch + static_cast<int64_t>(q) * chunk;
+  uint32_t* row = use_smem ? reinterpret_cast<uint32_t*>(
+                                 smem_raw + (keys_smem ? 8LL * chunk : 0))
+                           : grow;
   int32_t* my_cand = cand_r + static_cast<int64_t>(q) * chunk;
   const int64_t tc = static_cast<int64_t>(n_terms) * chunk;
   int32_t* my_start = start + static_cast<int64_t>(q) * tc;
   int32_t* my_length = length + static_cast<int64_t>(q) * tc;
   const float thresh =
       fmaxf(topk_s[static_cast<int64_t>(q) * k + (k - 1)], 0.0f);
+  // Every lane of a warp runs the same number of iterations (ballots).
+  const int n_iter = (n_ranges + nt - 1) / nt;
 
-  // Each thread owns the elements tid, tid + nt, ...: it alone reads and
-  // marks them, so the row needs no barrier of its own.
-  u64 best = 0;
-  for (int r = tid; r < n_ranges; r += nt) {
-    const uint32_t bits = grow[r];
-    if (use_smem) row[r] = bits;
-    best = umax64(best, bound_key(bits, r));
+  for (int i = tid; i < 2 * kBins; i += nt) (&s_hist[0][0])[i] = 0;
+  if (tid == 0) {
+    s_prefix = 0;
+    s_kk = chunk;
+    s_nok = 0;
   }
-  int n_ok = 0;
-  for (int c = 0; c < chunk; ++c) {
-    u64 w = best;
+  __syncthreads();
+
+  // 1. Load, the maximum, the top byte's histogram.
+  uint32_t best = 0;
+  for (int it0 = 0; it0 < n_iter; it0 += kBatch) {
+    uint32_t v[kBatch];
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      w = umax64(w, __shfl_xor_sync(0xFFFFFFFFu, w, d));
+    for (int j = 0; j < kBatch; ++j) {
+      const int r = (it0 + j) * nt + tid;
+      v[j] = r < n_ranges ? grow[r] : 0u;
     }
-    if (lane == 0) warp_best[c & 1][warp] = w;
-    __syncthreads();
-    u64 win = 0;
-    for (int i = 0; i < n_warps; ++i) win = umax64(win, warp_best[c & 1][i]);
-    const int r = static_cast<int>(~static_cast<uint32_t>(win & 0xFFFFFFFFull));
-    const float ub =
-        __uint_as_float(static_cast<uint32_t>(win >> 32) ^ 0x80000000u);
-    const bool ok = ub > thresh;
-    if (c == 0 && !ok) {
-      // Inactive query (the same `win` in every thread, so all leave).
-      for (int i = tid; i < chunk; i += nt) my_cand[i] = 0;
-      for (int64_t i = tid; i < tc; i += nt) {
-        my_start[i] = 0;
-        my_length[i] = 0;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int r = (it0 + j) * nt + tid;
+      const bool in = r < n_ranges;
+      const uint32_t u = v[j] ^ 0x80000000u;
+      if (in) {
+        if (use_smem) row[r] = v[j];
+        best = best > u ? best : u;
       }
-      return;
+      hist_add(s_hist[0], in, u >> 24, lane);
     }
-    if (ok) n_ok = c + 1;
-    if (tid == 0) my_cand[c] = r;
-    if (r % nt == tid) {
-      row[r] = kTakenBits;
-      best = 0;
-      for (int j = tid; j < n_ranges; j += nt) {
-        best = umax64(best, bound_key(row[j], j));
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const uint32_t o = __shfl_xor_sync(kFull, best, d);
+    best = best > o ? best : o;
+  }
+  if (lane == 0) s_wmax[warp] = best;
+  __syncthreads();
+  uint32_t top = 0;
+  for (int w = 0; w < n_warps; ++w) top = top > s_wmax[w] ? top : s_wmax[w];
+  if (!(__uint_as_float(top ^ 0x80000000u) > thresh)) {
+    // Inactive query (the same `top` in every thread, so all leave).
+    for (int i = tid; i < chunk; i += nt) my_cand[i] = 0;
+    for (int64_t i = tid; i < tc; i += nt) {
+      my_start[i] = 0;
+      my_length[i] = 0;
+    }
+    return;
+  }
+
+  // 2. Select: u*, the C-th largest key, and how many of its ties to take.
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    int* hist = s_hist[pass & 1];
+    if (pass > 0) {
+      if (pass < 3) {
+        int* next = s_hist[(pass + 1) & 1];
+        for (int i = tid; i < kBins; i += nt) next[i] = 0;
+      }
+      const uint32_t prefix = s_prefix;
+      const uint32_t mask = 0xFFFFFFFFu << (shift + 8);
+      for (int it0 = 0; it0 < n_iter; it0 += kBatch) {
+        uint32_t v[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int r = (it0 + j) * nt + tid;
+          v[j] = r < n_ranges ? row[r] ^ 0x80000000u : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int r = (it0 + j) * nt + tid;
+          hist_add(hist, r < n_ranges && (v[j] & mask) == prefix, (v[j] >> shift) & 0xFFu,
+                   lane);
+        }
+      }
+      __syncthreads();
+    }
+    if (warp == 0) find_digit(hist, shift, &s_prefix, &s_kk, lane);
+    __syncthreads();
+  }
+  const uint32_t ustar = s_prefix;
+  const int need = s_kk;
+  const int above = chunk - need;
+
+  // 3. Collect, each warp its run of ranges in order.
+  const int per_warp = (((n_ranges + n_warps - 1) / n_warps) + 31) & ~31;
+  const int lo = min(warp * per_warp, n_ranges);
+  const int hi = min(lo + per_warp, n_ranges);
+  int n_above = 0, n_tie = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int r = base + lane;
+    const uint32_t u = r < hi ? row[r] ^ 0x80000000u : 0u;
+    n_above += __popc(__ballot_sync(kFull, r < hi && u > ustar));
+    n_tie += __popc(__ballot_sync(kFull, r < hi && u == ustar));
+  }
+  if (lane == 0) {
+    s_wcount[warp][0] = n_above;
+    s_wcount[warp][1] = n_tie;
+  }
+  __syncthreads();
+  int a_at = 0, t_at = 0;
+  for (int w = 0; w < warp; ++w) {
+    a_at += s_wcount[w][0];
+    t_at += s_wcount[w][1];
+  }
+  const unsigned lower = (1u << lane) - 1u;
+  for (int base = lo; base < hi; base += 32) {
+    const int r = base + lane;
+    const uint32_t u = r < hi ? row[r] ^ 0x80000000u : 0u;
+    const bool is_above = r < hi && u > ustar;
+    const bool is_tie = r < hi && u == ustar;
+    const unsigned ba = __ballot_sync(kFull, is_above);
+    const unsigned bt = __ballot_sync(kFull, is_tie);
+    if (is_above) {
+      keys[a_at + __popc(ba & lower)] =
+          (static_cast<u64>(u) << 32) | static_cast<uint32_t>(~static_cast<uint32_t>(r));
+    }
+    if (is_tie) {
+      const int rank = t_at + __popc(bt & lower);
+      if (rank < need) my_cand[above + rank] = r;
+    }
+    a_at += __popc(ba);
+    t_at += __popc(bt);
+  }
+  __syncthreads();
+
+  // 4. Order the keys above u*: g threads a key, g a power of two <= 32.
+  int g = 1;
+  while (g < 32 && 2 * g * above <= nt) g <<= 1;
+  const int sub = tid & (g - 1);
+  for (int e0 = 0; e0 < above; e0 += nt / g) {
+    const int e = e0 + tid / g;
+    const u64 me = e < above ? keys[e] : 0;
+    int larger = 0;
+    if (e < above) {
+#pragma unroll 4
+      for (int j = sub; j < above; j += g) larger += keys[j] > me;
+    }
+    for (int d = g >> 1; d > 0; d >>= 1) larger += __shfl_xor_sync(kFull, larger, d);
+    if (e < above && sub == 0) {
+      my_cand[larger] = static_cast<int32_t>(~static_cast<uint32_t>(me & 0xFFFFFFFFull));
+      if (__uint_as_float(static_cast<uint32_t>(me >> 32) ^ 0x80000000u) > thresh) {
+        atomicAdd(&s_nok, 1);
       }
     }
   }
-  if (tid == 0) *flag = 1;
   __syncthreads();  // my_cand is complete and visible
+  const int n_ok =
+      __uint_as_float(ustar ^ 0x80000000u) > thresh ? chunk : s_nok;
+
+  // 5. Finish.
+  if (tid == 0) *flag = 1;
   for (int c = tid; c < chunk; c += nt) grow[my_cand[c]] = kNegInfBits;
   for (int64_t i = tid; i < tc; i += nt) {
     const int t = static_cast<int>(i / chunk);
@@ -196,18 +394,18 @@ __global__ void round_select_kernel(
       const int base = token_tr_start[term];
       const int end = token_tr_start[term + 1];
       const int r = my_cand[c];
-      int lo = base, hi = end;
-      while (lo < hi) {
-        const int mid = lo + ((hi - lo) >> 1);
+      int lo2 = base, hi2 = end;
+      while (lo2 < hi2) {
+        const int mid = lo2 + ((hi2 - lo2) >> 1);
         if (tr_range[mid] < r) {
-          lo = mid + 1;
+          lo2 = mid + 1;
         } else {
-          hi = mid;
+          hi2 = mid;
         }
       }
-      if (lo < end && tr_range[lo] == r) {
-        st = tr_start[lo];
-        ln = tr_start[lo + 1] - st;
+      if (lo2 < end && tr_range[lo2] == r) {
+        st = tr_start[lo2];
+        ln = tr_start[lo2 + 1] - st;
       }
     }
     my_start[i] = st;
@@ -311,8 +509,11 @@ cudaError_t allow_smem(Kernel kernel, long long bytes) {
                               static_cast<int>(bytes));
 }
 
-// Threads of a block that walks an [R] row.
+// Threads of a block that walks an [R] row: range_bounds, round_select.
 int row_threads(int n_ranges) { return n_ranges <= 4096 ? 256 : 1024; }
+int select_threads(int n_ranges) {
+  return n_ranges <= 1024 ? 128 : n_ranges <= 8192 ? 256 : 512;
+}
 
 }  // namespace
 
@@ -336,22 +537,26 @@ extern "C" int bm25_range_bounds(
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: a [Q, C] u64 device buffer for the keys above u*, used where
+// their 8 * C bytes do not fit shared memory beside the row (the row takes
+// it first: 4 * R bytes where that fits kMaxDynamicSmem).
 extern "C" int bm25_round_select(
     void* ub_work, const void* topk_s, const void* tr_range,
     const void* tr_start, const void* token_tr_start, const void* q_tid,
-    void* cand_r, void* start, void* length, void* flag, int n_queries,
-    int n_terms, int n_ranges, int chunk, int k, void* stream) {
-  if (chunk < 1 || chunk > n_ranges || k < 1) {
+    void* cand_r, void* start, void* length, void* flag, void* scratch,
+    int n_queries, int n_terms, int n_ranges, int chunk, int k, void* stream) {
+  if (chunk < 1 || chunk > n_ranges || k < 1 || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_queries == 0) return 0;
-  long long smem = 4LL * n_ranges;
-  const int use_smem = smem <= kMaxDynamicSmem;
-  if (!use_smem) smem = 0;
+  const int use_smem = 4LL * n_ranges <= kMaxDynamicSmem;
+  const long long row_smem = use_smem ? 4LL * n_ranges : 0;
+  const int keys_smem = row_smem + 8LL * chunk <= kMaxDynamicSmem;
+  const long long smem = row_smem + (keys_smem ? 8LL * chunk : 0);
   cudaError_t err = allow_smem(round_select_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   round_select_kernel<<<static_cast<unsigned int>(n_queries),
-                        row_threads(n_ranges), static_cast<size_t>(smem),
+                        select_threads(n_ranges), static_cast<size_t>(smem),
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(ub_work), static_cast<const float*>(topk_s),
       static_cast<const int32_t*>(tr_range),
@@ -359,7 +564,8 @@ extern "C" int bm25_round_select(
       static_cast<const int32_t*>(token_tr_start),
       static_cast<const int32_t*>(q_tid), static_cast<int32_t*>(cand_r),
       static_cast<int32_t*>(start), static_cast<int32_t*>(length),
-      static_cast<int32_t*>(flag), n_terms, n_ranges, chunk, k, use_smem);
+      static_cast<int32_t*>(flag), static_cast<u64*>(scratch), n_terms,
+      n_ranges, chunk, k, use_smem, keys_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

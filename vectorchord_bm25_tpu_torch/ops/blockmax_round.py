@@ -293,12 +293,15 @@ def round_select(
     cand_r, start, length, flag = _select_outputs(q, t, chunk, dev, flag)
     if q == 0:
         return cand_r, start, length, flag
+    # The kernel keeps its C keys here where they do not fit its shared
+    # memory beside the row.
+    scratch = torch.empty((q, chunk), dtype=torch.int64, device=dev)
     _launch(
         lib.bm25_round_select, "round_select", dev,
         ub_work.data_ptr(), topk_s.data_ptr(), tr_range.data_ptr(),
         tr_start.data_ptr(), token_tr_start.data_ptr(), q_tid.data_ptr(),
         cand_r.data_ptr(), start.data_ptr(), length.data_ptr(), flag.data_ptr(),
-        q, t, r, chunk, topk_s.shape[1],
+        scratch.data_ptr(), q, t, r, chunk, topk_s.shape[1],
     )
     SELECT_LAUNCHES += 1
     return cand_r, start, length, flag

@@ -28,6 +28,8 @@ unsigned 32-bit types thinly); the kernels read them as u32.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -49,6 +51,9 @@ __all__ = [
 MERGE_LAUNCHES = 0
 STATS_LAUNCHES = 0
 SORT_LAUNCHES = 0
+# The (slices, shards) grid of shard_stats' last launch, as its launcher
+# set it; chip_smoke.py reports it against the card's SMs.
+STATS_GRID = None
 
 # shard_merge's key buffer lives in shared memory up to this many u64 keys
 # (kMaxDynamicSmem of csrc/shard_merge.cu), else in a device scratch row.
@@ -139,8 +144,20 @@ def shard_merge(scores, ids, kk: int | None = None):
 # SH-stats
 
 
+_LENGTH_TABLES = {}
+
+
 def _length_table(device):
-    return torch.from_numpy(FIELDNORM_TO_LENGTH.astype(np.float64)).to(device)
+    """``FIELDNORM_TO_LENGTH`` as f64 on ``device``, uploaded on the first
+    call there and cached: a later call copies nothing."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    table = _LENGTH_TABLES.get(device)
+    if table is None:
+        table = torch.from_numpy(FIELDNORM_TO_LENGTH.astype(np.float64)).to(device)
+        _LENGTH_TABLES[device] = table
+    return table
 
 
 def shard_stats_plain(doc_fn, doc_live, counts):
@@ -161,7 +178,7 @@ def shard_stats(doc_fn, doc_live, counts):
     exclusive scan of ``counts`` followed by their total).  The sums are of
     integers below 2^53, so they are exact in any order.  A CUDA tensor
     launches the kernel or raises; a CPU tensor runs the plain version."""
-    global STATS_LAUNCHES
+    global STATS_LAUNCHES, STATS_GRID
 
     dev = doc_fn.device
     _check(
@@ -181,14 +198,17 @@ def shard_stats(doc_fn, doc_live, counts):
     from ._build import library
 
     lib = library()
-    partial = torch.empty(d, dtype=torch.float64, device=dev)
+    partial = torch.empty(d, dtype=torch.float64, device=dev)  # zeroed by the launch
     offsets = torch.empty(d + 1, dtype=torch.int64, device=dev)
+    grid = (ctypes.c_int * 2)()
     _launch(
         lib.bm25_shard_stats, "shard_stats", dev,
         doc_fn.data_ptr(), doc_live.data_ptr(), _length_table(dev).data_ptr(),
         counts.data_ptr(), partial.data_ptr(), offsets.data_ptr(), d, m,
+        ctypes.addressof(grid),
     )
     STATS_LAUNCHES += 1
+    STATS_GRID = (grid[0], grid[1])
     return partial, offsets
 
 
