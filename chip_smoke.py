@@ -29,11 +29,15 @@ not 0 and no result line is printed):
       4,096-query batch (``torch.equal`` on every output and on every tensor
       updated in place; R=1,024, k=16), timed on the first round's inputs
       beside the library call nearest to it (``torch.topk`` on the same rows
-      or packed keys, which computes only the selection);
+      or packed keys, which computes only the selection), and B1-merge also
+      on the batch's last round's inputs, with the share of its queries
+      whose lanes are all zero;
   (d) the slice: ``Bm25Index(..., engine="blockmax", device="cuda")``
       over a 131,072-doc synthetic corpus (bench.py's default size,
       trec-covid scale) serving ``search_batch(k=10)`` in 4,096-query
-      batches; P1's and the three B1 kernels' launch counts must grow;
+      batches; P1's and the three B1 kernels' launch counts must grow; one
+      batch under ``torch.profiler``, with P1's, B1-select's and B1-merge's
+      totals named;
   (e) correctness at that size: 256 sampled queries equal the same
       engine on the CPU (plain kernel), also after deleting 1% of the
       payloads and under a prefilter; recall@10 = 1.0 against the
@@ -59,14 +63,15 @@ not 0 and no result line is printed):
   (l) bf16 impacts on the same corpus and RangeIndex:
       ``Bm25Index(..., engine="blockmax", engine_options={"impact_dtype":
       "bfloat16", "range_index": ri})``.  On every round's windows P1 on
-      bf16 equals its plain version (``torch.equal``), both timed; 5
+      bf16 equals its plain version (``torch.equal``), both timed; every B1
+      call of a batch held and timed as in (c); 5
       batches of 4,096 at k=10, QPS each, its launches must grow; 256
       queries equal the CPU-plain run; every rank's score within rtol 6e-3
       of the f32 engine's (the reference's own tolerance), recall@10
       against it printed; ``memory_report()["total"]`` equals the
       reference's formula;
-  (m) ``posting_mode="tf"``: the same with P1-tf (``tf_range_scores``),
-      then phase (e)'s audit (card == CPU-plain, also after deleting 1%
+  (m) ``posting_mode="tf"``: the same with P1-tf (``tf_range_scores``)
+      and B1 held as in (l), then phase (e)'s audit (card == CPU-plain, also after deleting 1%
       and under a prefilter; recall@10 = 1.0 against the float64 oracle);
   (n) the exhaustive sweep ``search_rangescan_async`` on phase (d)'s f32
       engine: P1 on every chunk and S2 on the accumulator equal their
@@ -152,9 +157,12 @@ not 0 and no result line is printed):
       and host seconds;
   (v) the device build of phase (i)'s postings (2,097,152 docs, 8 shards of
       262,144): D1-sort and SH-stats held as in (u); D1-sort timed with
-      its plain version and five chained stable ``torch.sort`` passes, SH-stats
-      with its plain version and ``torch.sum``; host seconds of packing,
-      sort, flush and upload, and the peak device memory;
+      its plain version and five chained stable ``torch.sort`` passes on the
+      staged rows (the doc passes skipped) and on the same rows shuffled
+      (held to its plain version there too), with the radix passes the
+      wrapper reports and the device memory its calls take; SH-stats with
+      its plain version and ``torch.sum``; host seconds of packing, sort,
+      flush and upload, and the peak device memory;
   (w) (v)'s index serving both 512-query mixes, ``strategy="auto"`` (dense
       per shard: 262,144 docs a shard is below 2^21) and ``"maxscore"``:
       one batch with every kernel call held to its plain version (S1, S2,
@@ -532,13 +540,14 @@ def b1_check(engine, queries, label, phase, select_inputs=None):
 
     def merge(acc, cand_r, live, filt, topk_s, topk_d, **kw):
         ts, td = topk_s.clone(), topk_d.clone()
-        first = (acc, cand_r, live, filt, ts.clone(), td.clone(), kw)
+        inputs = (acc, cand_r, live, filt, ts.clone(), td.clone(), kw)
         out = real["round_merge"](acc, cand_r, live, filt, topk_s, topk_d, **kw)
         br.round_merge_plain(acc, cand_r, live, filt, ts, td, **kw)
         torch.cuda.synchronize()
         if not (torch.equal(topk_s, ts) and torch.equal(topk_d, td)):
             raise AssertionError(f"{phase} round_merge != its plain version")
-        seen("round_merge", first, _finite_err(topk_s, ts))
+        seen("round_merge", inputs, _finite_err(topk_s, ts))
+        st["round_merge"]["last"] = inputs
         return out
 
     for name, fn in zip(B1_NAMES, (bounds, select, merge)):
@@ -572,48 +581,11 @@ def b1_check(engine, queries, label, phase, select_inputs=None):
     n_active = out["round_select"]["active_queries"]
     if select_inputs is not None:
         select_inputs.append(st["round_select"]["first"])
-    # B1-merge: the [Q, C, RS] scores read once, cand_r, the live and filter
-    # entries of the lanes that scored, the top-k read and written; two
-    # multiplies and a compare a lane that scored.
-    acc, cand_r, live, filt, ts1, td1, kw = st["round_merge"]["first"]
-    n_docs = kw["n_docs"]
-    k = ts1.shape[1]
-    rs = acc.shape[2]
-    scored = int((acc > 0).sum())
-    docs = cand_r[:, :, None] * rs + torch.arange(rs, dtype=torch.int32, device="cuda")
-    dc = docs.clamp_max(n_docs).long()
-    masked = acc * live[dc] * filt[dc]
-    ok = (masked > 0) & (docs < n_docs)
-    keys = torch.cat(
-        [
-            topk._pack(ts1, td1),
-            topk._pack(
-                torch.where(ok, masked, float("-inf")).reshape(q, -1),
-                torch.where(ok, docs, 2**31 - 1).reshape(q, -1),
-            ),
-        ],
-        dim=1,
-    )
-    del docs, dc, masked, ok
-
-    def fresh_topk():
-        return ts1.clone(), td1.clone()
-
-    out["round_merge"] = {
-        "ms": cuda_ms_fresh(
-            lambda s, d: br.round_merge(acc, cand_r, live, filt, s, d, **kw), fresh_topk
-        ),
-        "plain_ms": cuda_ms_fresh(
-            lambda s, d: br.round_merge_plain(acc, cand_r, live, filt, s, d, **kw),
-            fresh_topk, iters=10,
-        ),
-        **bound(4 * acc.numel() + 4 * cand_r.numel() + 8 * scored + 16 * q * k, 3 * scored),
-        # The library's selection over the same packed keys, already masked
-        # and packed: it does neither.
-        "library_ms": cuda_ms(lambda: torch.topk(keys, k, dim=1, largest=False)),
-        "scored_lanes": scored,
-    }
-    del keys
+    out["round_merge"] = b1_merge_fields(st["round_merge"]["first"])
+    out["round_merge"]["later_round"] = b1_merge_fields(st["round_merge"]["last"])
+    out["round_merge"]["later_round"]["round"] = st["round_merge"]["checked"]
+    rs, k = out["round_merge"]["shape"]["RS"], out["round_merge"]["shape"]["k"]
+    scored = out["round_merge"]["scored_lanes"]
     for name in B1_NAMES:
         out[name]["max_abs_err"] = st[name]["err"]
         out[name]["checked"] = st[name]["checked"]
@@ -638,12 +610,87 @@ def b1_check(engine, queries, label, phase, select_inputs=None):
         f"ms, torch.topk {m['library_launch_paced_ms']:.4f} ms (the lines above: "
         f"device time, launches queued behind a sleeping kernel) [{label}]"
     )
+    for what, m in (("round 1", out["round_merge"]),
+                    (f"round {out['round_merge']['later_round']['round']} (the last)",
+                     out["round_merge"]["later_round"])):
+        print(
+            f"{phase} round_merge {what}: kernel {m['ms']:.4f} ms device, "
+            f"{m['launch_paced_ms']:.4f} back to back; plain {m['plain_ms']:.4f} ms; bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']}, {m['bound_bytes']} B); torch.topk on "
+            f"the packed keys {m['library_ms']:.4f} ms; {m['scored_lanes']} scored lanes, "
+            f"{m['all_zero_share']:.4f} of {m['shape']['Q']} queries all-zero (Q,C,RS,k="
+            f"{tuple(m['shape'].values())}) [{label}]"
+        )
     return out
 
 
-def device_profile(fn, what, label):
+def b1_merge_fields(inputs):
+    """B1-merge timed on one call's inputs (a fresh top-k each launch): the
+    kernel on the card (launches queued behind a sleeping kernel) and back
+    to back, its plain version, ``torch.topk`` on the same candidates
+    already masked and packed, and its bound: the [Q, C, RS] scores read
+    once, cand_r, the live and filter entries of the lanes that scored, the
+    top-k read and written; two multiplies and a compare a lane that
+    scored.  ``all_zero_share``: the queries none of whose lanes can score
+    (+-0 or NaN everywhere), which the kernel leaves at once."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    acc, cand_r, live, filt, ts1, td1, kw = inputs
+    n_docs = kw["n_docs"]
+    q, c, rs = acc.shape
+    k = ts1.shape[1]
+    scored = int((acc > 0).sum())
+    can = (acc != 0) & ~acc.isnan()
+    all_zero = float((~can.reshape(q, -1).any(dim=1)).float().mean())
+    del can
+    docs = cand_r[:, :, None] * rs + torch.arange(rs, dtype=torch.int32, device="cuda")
+    dc = docs.clamp_max(n_docs).long()
+    masked = acc * live[dc] * filt[dc]
+    ok = (masked > 0) & (docs < n_docs)
+    keys = torch.cat(
+        [
+            topk._pack(ts1, td1),
+            topk._pack(
+                torch.where(ok, masked, float("-inf")).reshape(q, -1),
+                torch.where(ok, docs, 2**31 - 1).reshape(q, -1),
+            ),
+        ],
+        dim=1,
+    )
+    del docs, dc, masked, ok
+
+    def fresh_topk():
+        return ts1.clone(), td1.clone()
+
+    def kernel(s, d):
+        br.round_merge(acc, cand_r, live, filt, s, d, **kw)
+
+    fields = {
+        "ms": cuda_ms_fresh(kernel, fresh_topk, queued=True),
+        "launch_paced_ms": cuda_ms_fresh(kernel, fresh_topk),
+        "plain_ms": cuda_ms_fresh(
+            lambda s, d: br.round_merge_plain(acc, cand_r, live, filt, s, d, **kw),
+            fresh_topk, iters=10,
+        ),
+        **bound(4 * acc.numel() + 4 * cand_r.numel() + 8 * scored + 16 * q * k, 3 * scored),
+        # The library's selection over the same packed keys, already masked
+        # and packed: it does neither.
+        "library_ms": device_ms(lambda: torch.topk(keys, k, dim=1, largest=False)),
+        "scored_lanes": scored,
+        "all_zero_share": all_zero,
+        "shape": {"Q": q, "C": c, "RS": rs, "k": k},
+    }
+    del keys
+    return fields
+
+
+def device_profile(fn, what, label, track=()):
     """One call of ``fn`` under ``torch.profiler``: the card's busy time, its
-    share of the call's wall time, and the kernels by device time."""
+    share of the call's wall time, and the kernels by device time; each
+    kernel whose name holds a string of ``track`` is named on its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -671,6 +718,13 @@ def device_profile(fn, what, label):
         + "; ".join(f"{key[:48]} {ms:.3f} ms x{n}" for ms, n, key in rows[:8])
         + f" [{label}]"
     )
+    for name in track:
+        hit = [(ms, n, key) for ms, n, key in rows if name in key]
+        print(
+            f"{what}: {name}: "
+            + ("; ".join(f"{key[:64]} {ms:.3f} ms x{n}" for ms, n, key in hit) or "no row")
+            + f" in the batch [{label}]"
+        )
 
 
 def rounds_equal(gpu_engine, cpu_engine, sample, what):
@@ -1109,6 +1163,7 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
             f"({kb['bound_by']}) [{label}]"
         )
         del calls
+        b1_check(engine, queries, label, phase)
         qps, launches, _ = _serve(
             index, queries, [(score_kernel, counter), *b1_counters()], mode
         )
@@ -2314,7 +2369,7 @@ def sharded_build(keys, doc_ids, tfs, doc_start, phase, label, timed=False):
         "flush": devbuild.build_sealed_segment_from_postings,
         "init": ShardedIndex._init_from_shards,
     }
-    sort = {"checked": 0, "input": None, "shape": None}
+    sort = {"checked": 0, "input": None, "shape": None, "passes": None}
 
     def clocked(step, fn):
         def run(*a, **kw):
@@ -2332,6 +2387,7 @@ def sharded_build(keys, doc_ids, tfs, doc_start, phase, label, timed=False):
         real["sort"](cols)
         torch.cuda.synchronize()
         secs["sort"] += time.perf_counter() - t0
+        sort["passes"] = shard_kernels.SORT_PASSES
         want = shard_kernels.posting_sort_plain(unsorted)
         torch.cuda.synchronize()
         if not all(torch.equal(c, w) for c, w in zip(cols, want)):
@@ -2387,7 +2443,8 @@ def sharded_build(keys, doc_ids, tfs, doc_start, phase, label, timed=False):
         raise AssertionError(f"{phase} SH-stats {(n, sdl)} != host {(doc_start.size - 1, host_sdl)}")
     print(
         f"{phase} device build: {SHARDS} shards of {counts.tolist()} docs; D1-sort on "
-        f"{sort['shape']} columns == its plain version (torch.equal, all six); SH-stats == "
+        f"{sort['shape']} columns == its plain version (torch.equal, all six; "
+        f"{sort['passes']} radix passes, as the wrapper reports); SH-stats == "
         f"its plain version and the host's (N {n}, sum dl {sdl}, offsets "
         f"{host_off.tolist()}); host seconds: "
         + "; ".join(f"{k} {v:.2f}" for k, v in secs.items())
@@ -2547,20 +2604,29 @@ def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, buil
 
 
 def sort_timings(sort, label):
-    """D1-sort at phase (v)'s size: the kernel, its plain version and the
-    five chained stable ``torch.sort`` passes that order the same rows
-    (CUDA events, each run on a fresh copy of the unsorted columns)."""
+    """D1-sort at phase (v)'s size, on the rows the build staged (doc-grouped,
+    pads at the tail: the doc passes skipped) and on the same rows with every
+    row shuffled by one fixed permutation (every pass run): the kernel held
+    ``torch.equal`` to its plain version on the shuffled rows, then timed
+    beside its plain version and the five chained stable ``torch.sort``
+    passes that order the same rows (CUDA events, each run on a fresh copy
+    of the columns), with the radix passes the wrapper reports and the peak
+    device memory of the kernel's calls."""
     import torch
 
     from vectorchord_bm25_tpu_torch.ops import shard_kernels
 
-    unsorted = sort["input"]
-    work = [c.clone() for c in unsorted]
+    staged = sort["input"]
+    d, p = staged[0].shape
+    perm = torch.randperm(p, generator=torch.Generator().manual_seed(p)).cuda()
+    shuffled = [c[:, perm].contiguous() for c in staged]
+    del perm
+    work = [c.clone() for c in staged]
 
-    def timed(fn, iters):
+    def timed(fn, source, iters):
         total = 0.0
         for _ in range(iters):
-            for w, u in zip(work, unsorted):
+            for w, u in zip(work, source):
                 w.copy_(u)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2582,24 +2648,48 @@ def sort_timings(sort, label):
             perm = order if perm is None else perm.gather(1, order)
         return perm
 
-    timed(lambda: shard_kernels.posting_sort(work), 1)  # warm-up
-    ms = timed(lambda: shard_kernels.posting_sort(work), 3)
-    plain_ms = timed(lambda: shard_kernels.posting_sort_plain(work), 2)
-    library_ms = timed(five_sorts, 2)
-    d, p = unsorted[0].shape
-    out = {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    def kernel():
+        shard_kernels.posting_sort(work)
+
+    # The shuffled rows: the kernel against its plain version first.
+    for w, u in zip(work, shuffled):
+        w.copy_(u)
+    want = shard_kernels.posting_sort_plain(work)
+    kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(work, want)):
+        raise AssertionError("(v) posting_sort != its plain version on the shuffled rows")
+    del want
+    out = {}
+    for name, source in (("staged", staged), ("shuffled", shuffled)):
+        timed(kernel, source, 1)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = timed(kernel, source, 3)
+        out[name] = {
+            "ms": ms,
+            "scatter_passes": shard_kernels.SORT_PASSES,
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+            "library_ms": timed(five_sorts, source, 2),
+        }
+    plain_ms = timed(lambda: shard_kernels.posting_sort_plain(work), staged, 2)
+    fields = {
+        **out["staged"], "plain_ms": plain_ms, "shuffled": out["shuffled"],
         # The six columns read once and written once; a comparison sort
         # needs p log2 p comparisons a row.
         **bound(2 * 6 * 4 * d * p, d * p * int(np.log2(p))),
     }
-    print(
-        f"(v) D1-sort on [{d}, {p}] x 6 columns: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, five chained stable torch.sort {library_ms:.3f} ms, "
-        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) [{label}]"
-    )
-    del work
-    return out
+    for name, m in out.items():
+        print(
+            f"(v) D1-sort on [{d}, {p}] x 6 columns, {name} rows: kernel {m['ms']:.3f} ms "
+            f"in {m['scatter_passes']} radix passes (the wrapper's count), five chained "
+            f"stable torch.sort {m['library_ms']:.3f} ms, bound {fields['bound_ms']:.4f} ms "
+            f"({fields['bound_by']}); the kernel's calls took {m['peak_extra_bytes']} B of "
+            f"device memory above the columns [{label}]"
+        )
+    print(f"(v) D1-sort's plain version on the staged rows: {plain_ms:.3f} ms [{label}]")
+    del work, shuffled
+    return fields
 
 
 def stats_timings(index, st, label):
@@ -2952,7 +3042,10 @@ def main() -> int:
         f"{launches} P1 launches, B1 {b1_by_phase['(d)']}; {engine.last_rounds} pruning rounds in "
         f"the last batch; QPS per batch {[round(x, 1) for x in qps]} [{label}]"
     )
-    device_profile(lambda: index.search_batch(queries, K), "(d) profile", label)
+    device_profile(
+        lambda: index.search_batch(queries, K), "(d) profile", label,
+        track=("round_merge", "round_select", "range_scores"),
+    )
 
     # (e) correctness at that size
     rng = np.random.default_rng(args.seed + 2)

@@ -320,6 +320,46 @@ def test_round_merge_equals_replaced_ops_and_reference(rng, c, rs, n_docs, k):
     assert (key[:, 1:][~pad[:, 1:]] > key[:, :-1][~pad[:, 1:]]).all()
 
 
+@pytest.mark.parametrize("k", [1, 16, 32, 33])
+def test_round_merge_keeps_top_k_of_rows_that_cannot_score(rng, k):
+    # The kernel skips a lane whose acc is +-0 or NaN before its gathers, and
+    # a query of such lanes altogether: (acc * live) * filter is then +-0 or
+    # NaN whatever live and filter hold (negative, infinite and NaN entries
+    # here), never > 0.  The reference's merge keeps such a query's running
+    # top-k as it was; lanes beside them still score.
+    n_q, c, rs, n_docs = 8, 4, 32, 1000
+    n_ranges = -(-n_docs // rs)
+    values = np.float32([1.0, 1.0, 0.0, -1.0, np.inf, -np.inf, np.nan])
+    live = torch.from_numpy(rng.choice(values, size=n_docs + 1))
+    filt = torch.from_numpy(rng.choice(values, size=n_docs + 1))
+    topk_s = torch.full((n_q, k), NEG_INF)
+    topk_d = torch.full((n_q, k), INT_MAX, dtype=torch.int32)
+    unseen = [rng.permutation(n_ranges) for _ in range(n_q)]
+    for round_no in range(2):
+        cand_r = torch.from_numpy(
+            np.stack([u[round_no * c : (round_no + 1) * c] for u in unseen]).astype(np.int32)
+        )
+        acc = rng.choice(np.float32([0.0, 0.75, -1.5, 2.25]), size=(n_q, c, rs))
+        if round_no == 1:
+            acc[0] = 0.0
+            acc[1] = -0.0
+            acc[2] = np.nan
+            acc[3] = np.where(rng.random((c, rs)) < 0.5, np.float32(0.0), np.float32(np.nan))
+        acc = torch.from_numpy(acc.astype(np.float32))
+        (want_s, want_d), (ref_s, ref_d) = old_merge(
+            acc, cand_r, live, filt, topk_s, topk_d, n_docs
+        )
+        before_s, before_d = topk_s.clone(), topk_d.clone()
+        br.round_merge(acc, cand_r, live, filt, topk_s, topk_d, n_docs=n_docs)
+        assert torch.equal(topk_s, want_s) and torch.equal(topk_d, want_d)
+        np.testing.assert_array_equal(topk_s.numpy(), ref_s)
+        np.testing.assert_array_equal(topk_d.numpy(), ref_d)
+        if round_no == 1:
+            assert torch.equal(topk_s[:4], before_s[:4]) and torch.equal(topk_d[:4], before_d[:4])
+            assert not torch.equal(topk_d[4:], before_d[4:])
+    assert (topk_s[:4] > 0).any()  # the skipped rows held hits (+inf among them)
+
+
 def test_round_merge_argument_checks(rng):
     acc, cand_r, live, filt = merge_case(rng, 4, 2, 16, 100, 4, 7)
     topk_s = torch.full((4, 4), NEG_INF)

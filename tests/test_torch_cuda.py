@@ -956,20 +956,39 @@ def test_round_select_refuses_bad_chunk(card, gen):
         br.round_select(ub, topk_s.cpu(), tr_range, tr_start, tts, q_tid, chunk=4, lmax=16)
 
 
+_MERGE_CASES = [
+    (3, 32, 300, 8, False), (32, 128, 131072, 16, False), (64, 128, 20000 - 7, 16, False),
+    (5, 16, 80, 64, False), (8, 128, 9000, 4096, False), (2, 128, 40000, 16384, False),
+    (32, 128, 131072, 1, True), (32, 128, 131072, 16, True), (32, 128, 131072, 32, True),
+    (32, 128, 131072, 33, True), (64, 128, 20000 - 7, 32, True), (7, 6, 300, 16, True),
+    (8, 128, 9000, 4096, True),
+]
+
+
 @pytest.mark.parametrize(
-    "c,rs,n_docs,k",
-    [(3, 32, 300, 8), (32, 128, 131072, 16), (64, 128, 20000 - 7, 16),
-     (5, 16, 80, 64), (8, 128, 9000, 4096), (2, 128, 40000, 16384)],
+    "c,rs,n_docs,k,odd",
+    _MERGE_CASES,
+    ids=[f"{'odd-' if o else ''}{c}-{rs}-{n}-{k}" for c, rs, n, k, o in _MERGE_CASES],
 )
-def test_round_merge_matches_plain(card, gen, c, rs, n_docs, k):
-    # (64, 128): the candidates go through the key buffer in two tiles;
-    # k = 16,384: the buffer no longer fits shared memory.
+def test_round_merge_matches_plain(card, gen, c, rs, n_docs, k, odd):
+    # (64, 128): the candidates take two block passes, or two tiles of the
+    # key buffer; k = 16,384: the buffer no longer fits shared memory; k <= 32
+    # keeps the top-k in registers, k = 33 is the buffer's first.  ``odd``:
+    # all-zero, -0, NaN and zero-or-NaN rows beside active ones, negative
+    # scores, and live/filter entries that are negative, infinite or NaN, so
+    # zero lanes sit next to entries that would make them NaN; (7, 6): a row
+    # of 42 lanes, not a multiple of four (no 16-B loads).
     from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
 
     n_q = 17
     n_ranges = -(-n_docs // rs)
-    live = torch.from_numpy((gen.random(n_docs + 1) < 0.8).astype(np.float32)).to(card)
-    filt = torch.from_numpy((gen.random(n_docs + 1) < 0.7).astype(np.float32)).to(card)
+    values = np.float32([1.0, 1.0, 1.0, 0.0, -1.0, np.inf, -np.inf, np.nan])
+    if odd:
+        live = torch.from_numpy(gen.choice(values, size=n_docs + 1)).to(card)
+        filt = torch.from_numpy(gen.choice(values, size=n_docs + 1)).to(card)
+    else:
+        live = torch.from_numpy((gen.random(n_docs + 1) < 0.8).astype(np.float32)).to(card)
+        filt = torch.from_numpy((gen.random(n_docs + 1) < 0.7).astype(np.float32)).to(card)
     got_s = torch.full((n_q, k), float("-inf"), device=card)
     got_d = torch.full((n_q, k), np.iinfo(np.int32).max, dtype=torch.int32, device=card)
     want_s, want_d = got_s.clone(), got_d.clone()
@@ -978,8 +997,14 @@ def test_round_merge_matches_plain(card, gen, c, rs, n_docs, k):
         cand_r = torch.from_numpy(
             np.stack([u[round_no * c : (round_no + 1) * c] for u in unseen]).astype(np.int32)
         ).to(card)
-        acc = gen.choice(np.float32([0.0, 0.0, 0.75, 1.5, 2.25]), size=(n_q, c, rs))
+        scores = [0.0, -1.5, 0.75, 1.5, 2.25] if odd else [0.0, 0.0, 0.75, 1.5, 2.25]
+        acc = gen.choice(np.float32(scores), size=(n_q, c, rs))
         acc[0] = 0.0
+        if odd and round_no > 0:
+            acc[1] = -0.0
+            acc[2] = np.nan
+            acc[3] = np.where(gen.random((c, rs)) < 0.5, np.float32(0.0), np.float32(np.nan))
+            acc[4, :, : rs // 2] = 0.0
         acc = torch.from_numpy(acc).to(card)
         before = br.MERGE_LAUNCHES
         out = br.round_merge(acc, cand_r, live, filt, got_s, got_d, n_docs=n_docs)
@@ -987,7 +1012,7 @@ def test_round_merge_matches_plain(card, gen, c, rs, n_docs, k):
         assert br.MERGE_LAUNCHES == before + 1 and out[0].data_ptr() == got_s.data_ptr()
         br.round_merge_plain(acc, cand_r, live, filt, want_s, want_d, n_docs=n_docs)
         assert torch.equal(got_s, want_s) and torch.equal(got_d, want_d), round_no
-    assert torch.isfinite(got_s).any() and not torch.isfinite(got_s[0]).any()
+    assert (got_s > 0).any() and not (got_s[0] > 0).any()  # odd: +inf scores among the hits
 
 
 @pytest.mark.parametrize("mode", [{}, {"impact_dtype": "bfloat16"}, {"posting_mode": "tf"}])
@@ -1093,22 +1118,52 @@ def test_length_table_uploads_once_a_device(card):
     assert sk._length_table(torch.device("cuda", torch.cuda.current_device())) is first
 
 
-@pytest.mark.parametrize("d,p,fill", [(1, 2, 1), (3, 1024, 700), (2, 1 << 15, 20_000), (8, 1 << 13, 4000)])
-def test_posting_sort_matches_plain(card, gen, d, p, fill):
+_SORT_CASES = [(1, 2, 1, None, False), (3, 1024, 700, None, False),
+               (2, 1 << 15, 20_000, None, False), (8, 1 << 13, 4000, None, False)]
+_SORT_CASES += [
+    (d, p, fill, kind, shuffled)
+    for d, p, fill, kind in [
+        (3, 1 << 13, 6000, "grouped"), (2, 1 << 14, 12_000, "one_key"),
+        (3, 1 << 12, 3000, "k3_only"), (2, 1 << 12, 3000, "single_bin"),
+        (2, 1 << 20, 900_000, "grouped"),
+    ]
+    for shuffled in (False, True)
+]
+
+
+@pytest.mark.parametrize(
+    "d,p,fill,kind,shuffled",
+    _SORT_CASES,
+    ids=[
+        f"{d}-{p}-{fill}" if kind is None else f"{kind}{'-shuffled' if sh else ''}-{d}-{p}-{fill}"
+        for d, p, fill, kind, sh in _SORT_CASES
+    ],
+)
+def test_posting_sort_matches_plain(card, gen, d, p, fill, kind, shuffled):
+    # kind None: sort_columns' shuffled rows, or all -1 (every digit one bin:
+    # no pass).  Else layout_columns' rows staged as the device build stages
+    # them (the doc passes skipped) or, shuffled, with every pass run.
     from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
 
-    from test_torch_shard_kernels import sort_columns
+    from test_torch_shard_kernels import census_of, layout_columns, sort_columns
 
-    if fill < 17:  # too few postings for the forced keys: random columns
+    if kind is not None:
+        cols = layout_columns(gen, d, p, fill, kind, shuffled)
+    elif fill < 17:  # too few postings for the forced keys: random columns
         cols = [np.full((d, p), -1, dtype=np.int32) for _ in range(6)]
     else:
         cols = sort_columns(gen, d, p, fill)
+    plan = sk.sort_passes(census_of(cols))
     dev = [torch.from_numpy(c).to(card) for c in cols]
+    ptrs = [c.data_ptr() for c in dev]
     want = sk.posting_sort_plain(dev)
     before = sk.SORT_LAUNCHES
     got = sk.posting_sort(dev)
     torch.cuda.synchronize()
-    assert sk.SORT_LAUNCHES == before + 1
+    assert sk.SORT_LAUNCHES == before + 1 and sk.SORT_PASSES == len(plan)
+    assert [c.data_ptr() for c in got] == ptrs  # in place, odd pass counts included
+    if kind is not None:
+        assert any(w == 4 for w, _ in plan) == shuffled
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

@@ -9,7 +9,11 @@ numpy-made inputs.
   D in {1, 2, 8}.
 - D1-sort (``posting_sort``) against ``lax.sort(..., num_keys=5)``
   (``parallel/devbuild.py:244-258``) on keys that share prefixes, so that
-  every one of the five key columns decides some pair.
+  every one of the five key columns decides some pair, on shuffled rows and
+  on rows staged as the device build stages them (doc-grouped, pads at the
+  tail); and the kernel's pass plan (``sort_passes``): the radix passes it
+  keeps, run as stable digit sorts, give the same rows, and it skips the
+  doc passes on staged rows and the digits with one bin in every row.
 - SH-stats (``shard_stats``) against the reference's
   ``global_stats_step`` and ``device_doc_offsets`` on the 8-device mesh.
 
@@ -60,18 +64,25 @@ def reference_merge(scores, ids, kk):
     return np.asarray(-neg[:, :kk]), np.asarray(gid_s[:, :kk])
 
 
-def sort_columns(gen, d, p, fill):
-    """Six [D, P] columns (k0-k3 u32, doc i32, tf u32) of ``fill`` real
-    postings a row in no order, then pads (all-ones keys, doc INT_MAX,
-    tf 0).  The 16 keys take one of two words in each column (one below
-    2^31, one above, so the order is unsigned), and every row holds each
-    key with doc 0 and the first key with doc 1 as well: every one of the
-    five key columns decides some adjacent pair.  (key, doc) pairs are
-    unique within a row."""
+def _table16():
+    """16 keys that take one of two words in each column (one below 2^31,
+    one above, so the order is unsigned)."""
     import itertools
 
     per_col = ((1, 0xFFFFFFFE), (0x7FFFFFFF, 0x80000000), (0, 0xFFFFFFFF), (5, 0x90000000))
-    table = np.array(list(itertools.product(*per_col)), dtype=np.uint32)  # [16, 4]
+    return np.array(list(itertools.product(*per_col)), dtype=np.uint32)  # [16, 4]
+
+
+def sort_columns(gen, d, p, fill, staged=False):
+    """Six [D, P] columns (k0-k3 u32, doc i32, tf u32) of ``fill`` real
+    postings a row in no order, then pads (all-ones keys, doc INT_MAX,
+    tf 0).  The 16 keys of ``_table16``, and every row holds each key with
+    doc 0 and the first key with doc 1 as well: every one of the five key
+    columns decides some adjacent pair.  (key, doc) pairs are unique within
+    a row.  ``staged``: the real postings grouped by ascending doc (a doc's
+    keys in no order) and the pads at the tail, as the device build stages
+    them, in place of a permuted row."""
+    table = _table16()
     cols = np.zeros((6, d, p), dtype=np.uint32)
     cols[:4] = 0xFFFFFFFF
     cols[4] = _INT_MAX
@@ -84,9 +95,78 @@ def sort_columns(gen, d, p, fill):
         cols[:4, s, :n] = table[pairs[:, 0]].T
         cols[4, s, :n] = pairs[:, 1]
         cols[5, s, :n] = gen.integers(1, 1 << 20, size=n)
-        perm = gen.permutation(p)
-        cols[:, s] = cols[:, s, perm]
+        if staged:
+            order = np.argsort(gen.permutation(n), kind="stable")
+            order = order[np.argsort(cols[4, s, :n][order], kind="stable")]
+            cols[:, s, :n] = cols[:, s, order]
+        else:
+            cols[:, s] = cols[:, s, gen.permutation(p)]
     return [c.view(np.int32) for c in cols]
+
+
+# Layouts of ``layout_columns``: the staged rows of the card tests.
+LAYOUTS = ("grouped", "one_key", "k3_only", "single_bin")
+
+
+def _key_table(gen, kind):
+    """[n_keys, 4] u32 term keys of ``layout_columns``, none all-ones."""
+    if kind in ("grouped", "one_key"):
+        return _table16()
+    table = gen.integers(0, 0xFFFFFFFF, size=(64, 4), dtype=np.uint32)
+    if kind == "k3_only":
+        table[:, :3] = 0xFFFFFFFF  # k0-k2 those of the pads
+    else:  # single_bin: k1's third byte is the pads' in every key
+        table[:, 1] |= np.uint32(0x00FF0000)
+    return np.unique(table, axis=0)
+
+
+def layout_columns(gen, d, p, fill, kind, shuffled=False):
+    """Six [D, P] columns of at most ``fill`` postings a row as the device
+    build stages them (``parallel/devbuild.py``): unique (key, doc) pairs
+    grouped by ascending doc, then the pads (all-ones keys, doc INT_MAX,
+    tf 0); ``shuffled`` permutes each whole row, pads included, so the doc
+    column is no longer in order.  ``kind``: "grouped" (``_table16``'s keys
+    over docs from -fill/8 up, so doc's sign matters), "one_key" (one key in
+    every doc: a long run of one term), "k3_only" (keys that differ in k3
+    alone, k0-k2 the pads'), "single_bin" (k1's third byte 0xFF in every
+    key and pad: that digit has one bin in every row)."""
+    table = _key_table(gen, kind)
+    n_keys = len(table)
+    n_docs = max(2, fill // 4)
+    cols = np.zeros((6, d, p), dtype=np.uint32)
+    cols[:4] = 0xFFFFFFFF
+    cols[4] = _INT_MAX
+    for s in range(d):
+        codes = gen.permutation(np.unique(gen.integers(0, n_keys * n_docs, size=2 * fill)))
+        if kind == "one_key":
+            run = np.arange(n_docs, dtype=np.int64) * n_keys  # key 0 in every doc
+            codes = np.concatenate([run, np.setdiff1d(codes, run)])
+        codes = codes[:fill]
+        key, doc = codes % n_keys, codes // n_keys
+        if kind == "grouped":
+            doc = doc - n_docs // 2
+        order = np.argsort(doc, kind="stable")
+        n = codes.size
+        cols[:4, s, :n] = table[key[order]].T
+        cols[4, s, :n] = (doc[order] & 0xFFFFFFFF).astype(np.uint32)
+        cols[5, s, :n] = gen.integers(1, 1 << 20, size=n)
+        if shuffled:
+            cols[:, s] = cols[:, s, gen.permutation(p)]
+    return [c.view(np.int32) for c in cols]
+
+
+def census_of(cols):
+    """``posting_sort``'s census of six [D, P] int32 columns, as its kernel
+    writes it: per key word the OR of its complement and its OR, then 1
+    where the doc column decreases somewhere."""
+    words = [np.asarray(c).view(np.uint32).astype(np.int64) for c in cols[:5]]
+    out = np.zeros((words[0].shape[0], 11), dtype=np.int64)
+    for w, x in enumerate(words):
+        out[:, w] = np.bitwise_or.reduce(~x & 0xFFFFFFFF, axis=1)
+        out[:, 5 + w] = np.bitwise_or.reduce(x, axis=1)
+    doc = np.asarray(cols[4])
+    out[:, 10] = (doc[:, 1:] < doc[:, :-1]).any(axis=1)
+    return out
 
 
 @pytest.fixture
@@ -144,12 +224,20 @@ def test_shard_merge_rejects_bad_inputs():
         sk.shard_merge(s, i, 9)
 
 
-@pytest.mark.parametrize("d,p,fill", [(1, 64, 40), (3, 256, 200), (8, 512, 300)])
-def test_posting_sort_plain_matches_reference(gen, d, p, fill):
+@pytest.mark.parametrize(
+    "d,p,fill,staged",
+    [(1, 64, 40, False), (3, 256, 200, False), (8, 512, 300, False),
+     (1, 64, 40, True), (3, 256, 200, True), (8, 512, 300, True)],
+    ids=["1-64-40", "3-256-200", "8-512-300",
+         "staged-1-64-40", "staged-3-256-200", "staged-8-512-300"],
+)
+def test_posting_sort_plain_matches_reference(gen, d, p, fill, staged):
     import jax
     import jax.numpy as jnp
 
-    cols = sort_columns(gen, d, p, fill)
+    cols = sort_columns(gen, d, p, fill, staged)
+    # The staged rows are the layout whose doc passes the kernel skips.
+    assert census_of(cols)[:, 10].any() != staged
     dtypes = (np.uint32,) * 4 + (np.int32, np.uint32)
     ref = jax.lax.sort(
         tuple(jnp.asarray(c.view(t)) for c, t in zip(cols, dtypes)),
@@ -169,6 +257,40 @@ def test_posting_sort_plain_matches_reference(gen, d, p, fill):
                     decided.add(c)
                     break
     assert decided == {0, 1, 2, 3, 4}
+
+
+def radix_by_plan(cols, plan):
+    """The kernel's passes on the CPU: each ``(word, shift)`` of ``plan`` a
+    stable sort of every row by that 8-bit digit (doc's sign bit flipped)."""
+    cols = [np.asarray(c).copy() for c in cols]
+    for word, shift in plan:
+        x = cols[word].view(np.uint32)
+        if word == 4:
+            x = x ^ np.uint32(0x80000000)
+        digit = (x >> np.uint32(shift)) & np.uint32(0xFF)
+        order = np.argsort(digit, axis=1, kind="stable")
+        cols = [np.take_along_axis(c, order, 1) for c in cols]
+    return cols
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("kind", LAYOUTS)
+def test_sort_passes_skip_exactly(gen, kind, shuffled):
+    cols = layout_columns(gen, 3, 1024, 700, kind, shuffled)
+    plan = sk.sort_passes(census_of(cols))
+    want = sk.posting_sort_plain([torch.from_numpy(c) for c in cols])
+    for g, w in zip(radix_by_plan(cols, plan), want):
+        np.testing.assert_array_equal(g, w.numpy())
+    words = {w for w, _ in plan}
+    # Staged rows skip the four doc passes; a shuffled row runs them.
+    assert (4 in words) == shuffled
+    assert len(plan) <= (20 if shuffled else 16)
+    if kind == "k3_only":
+        assert words - {4} == {3}
+    if kind == "single_bin":
+        assert (1, 16) not in plan and (1, 8) in plan
+    if kind in ("grouped", "one_key"):
+        assert len(plan) == (20 if shuffled else 16)  # every key byte varies
 
 
 def test_posting_sort_is_in_place_and_checks_shapes(gen):

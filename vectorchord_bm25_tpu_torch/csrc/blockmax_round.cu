@@ -79,14 +79,53 @@
 // doc < N.  Kept candidates and the running top-k become the packed keys of
 // ops/topk.py, (0x7F800000 - f32 bits) << 32 | doc, whose ascending order is
 // (score desc, doc asc) and which are distinct among live entries, so the k
-// smallest are the reference's lax.sort(num_keys=2)[:k].  Only a candidate
-// below the running kth key can enter the top-k, so the block compacts
-// those into its key buffer (a shared atomic counter; their order there does
-// not matter, the sort fixes it) and bitonic-sorts just that many, padded to
-// a power of two.  The buffer holds S keys; candidates go through it in
-// tiles of S - k, the k best staying at its head.  Bound by bytes: the
-// [Q, C, RS] scores read once.
-//
+// smallest are the reference's lax.sort(num_keys=2)[:k], in whatever order
+// the candidates are met.
+//   Test before the gathers.  A lane whose acc is +-0 or NaN cannot give
+//   s > 0 whatever live and filter hold (0 * x is +-0 or NaN, NaN stays
+//   NaN), so it skips both gathers.  A pass of the row with no other lane
+//   (a block-wide vote) does nothing more.
+//   A query all of whose lanes are such lanes (every inactive query of a
+//   later round, P1-tf's NaN lanes) leaves without reading or writing its
+//   top-k: a previous merge left it in its final order, which a merge of
+//   nothing keeps.
+//   k <= 32: one block a query, the top-k in warp 0's registers (its 32
+//   best keys sorted across its lanes).  The block reads the row 4,096
+//   slots a pass (four 16-B loads a thread), each thread issuing all the
+//   pass's loads (scores, their cand_r entries, then their live and filter
+//   entries) before it uses any.  The pass bounds itself first: each
+//   thread's least key, each warp's ceil(k / 8) least of those, the largest
+//   of these over the block; at least k distinct keys lie at or below it.
+//   Each warp puts the keys at or below min(that bound, the running k-th
+//   key, warp 0's k-th key after the last pass) into a shared buffer (one
+//   shared add a warp a batch of 32); only such a key can reach the top k,
+//   and a first round's pass buffers a few dozen keys of its thousand.
+//   Warp 0 then takes the buffer 32
+//   at a time against its own threshold, which tightens as it goes: when
+//   more than kInsertMax keys pass, the batch is sorted by a shuffle
+//   bitonic network and merged in (min against the list reversed, then
+//   five half-cleaner steps); fewer are inserted one at a time (a ballot
+//   gives each one's place).  At the end the list is merged with the
+//   running top-k the same way and lanes < k write it back.  One list a
+//   query, fed only what can enter it: lists of their own in each warp
+//   would each sort their first batches to fill their k before any
+//   threshold helps, and one warp taking every key of a first round
+//   serialises a thousand of them.  The whole block reads and filters, so
+//   a later round's query, whose keys fall short of its threshold, costs
+//   its reads alone.  Registers are capped at 64 (four blocks an SM): a
+//   round whose queries are nearly all zero is a few waves of blocks that
+//   each wait for one load, so blocks in flight set its time; fewer
+//   registers than that spill.
+//   k > 32: one block a query and a key buffer of S keys (shared memory, or
+//   a scratch row where S keys do not fit).  Only a candidate below the running k-th key can
+//   enter, so each warp places those by ballot and popcount after one
+//   shared atomic add, and the block bitonic-sorts just that many, padded
+//   to a power of two.  Candidates go through it in tiles of S - k, the k
+//   best staying at its head.
+// Bound by bytes: the [Q, C, RS] scores read once (the kernel must read a
+// lane to know it is zero), plus the live and filter entries of the lanes
+// that scored.
+
 // No fast math: a subnormal bound or score stays what it is.
 
 #include <cuda_runtime.h>
@@ -433,7 +472,260 @@ __device__ void bitonic_sort(u64* buf, int m, int tid, int nt) {
   }
 }
 
-__global__ void round_merge_kernel(
+// A lane that may score: acc is neither +-0 nor NaN.
+__device__ __forceinline__ bool may_score(float a) { return a != 0.0f && a == a; }
+
+// The packed key of lane i of a query's [C * RS] row, or kPadKey where the
+// lane is not kept: s = (acc * live[d]) * filter[d], kept where s > 0 and
+// doc < N.  Called for lanes that may score only.
+__device__ __forceinline__ u64 lane_key(float a, int i, int rs, const int32_t* my_cand,
+                                        const float* __restrict__ doc_live,
+                                        const float* __restrict__ filter_mask, int n_docs) {
+  const int c = i / rs;
+  const int doc = my_cand[c] * rs + (i - c * rs);
+  const int dc = doc < n_docs ? doc : n_docs;
+  const float s = __fmul_rn(__fmul_rn(a, doc_live[dc]), filter_mask[dc]);
+  if (!(s > 0.0f) || doc >= n_docs) return kPadKey;
+  return (static_cast<u64>(kInfBits - __float_as_uint(s)) << 32) | static_cast<uint32_t>(doc);
+}
+
+// The running top-k entry as a packed key: a pad where the score is not > 0.
+__device__ __forceinline__ u64 entry_key(float s, int32_t d) {
+  return s > 0.0f ? (static_cast<u64>(kInfBits - __float_as_uint(s)) << 32) |
+                        static_cast<uint32_t>(d)
+                  : kPadKey;
+}
+
+__device__ __forceinline__ void store_entry(float* my_s, int32_t* my_d, int i, u64 key) {
+  const uint32_t hi = static_cast<uint32_t>(key >> 32);
+  const bool pad = hi == kInfBits;
+  my_s[i] = pad ? __uint_as_float(kNegInfBits) : __uint_as_float(kInfBits - hi);
+  my_d[i] = pad ? kIntMax : static_cast<int32_t>(key & 0xFFFFFFFFull);
+}
+
+__device__ __forceinline__ u64 min_u64(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ u64 max_u64(u64 a, u64 b) { return a < b ? b : a; }
+
+// The warp's 32 keys, one a lane, sorted ascending across the lanes.
+__device__ __forceinline__ u64 warp_sort(u64 x, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const u64 y = __shfl_xor_sync(kFull, x, stride);
+      const bool up = (lane & size) == 0;
+      const bool low = (lane & stride) == 0;
+      x = low == up ? min_u64(x, y) : max_u64(x, y);
+    }
+  }
+  return x;
+}
+
+// The 32 smallest of two ascending warp lists, ascending: the minimum
+// against the second list reversed is bitonic, then five half-cleaners.
+__device__ __forceinline__ u64 warp_merge(u64 a, u64 b, int lane) {
+  u64 x = min_u64(a, __shfl_sync(kFull, b, 31 - lane));
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const u64 y = __shfl_xor_sync(kFull, x, stride);
+    x = (lane & stride) == 0 ? min_u64(x, y) : max_u64(x, y);
+  }
+  return x;
+}
+
+constexpr int kRegK = 32;      // k up to this keeps the top-k in registers
+constexpr int kMergeWarps = kMergeThreads / 32;
+constexpr int kLoads = 4;      // 16-B score loads a thread a block pass
+constexpr int kPassLanes = kMergeThreads * 4 * kLoads;  // 4,096 slots a block pass
+constexpr int kInsertMax = 4;  // passing keys a batch inserts one by one
+
+// A thread's 16 scores of a block pass starting at `base`: slots
+// base + 4 * (j * kMergeThreads + tid) + e for load j and element e.  Slots
+// past the row read as 0.
+__device__ __forceinline__ void load_pass(const float* my_acc, int n_cand, int base, bool vec,
+                                          int tid, float (&v)[kLoads][4]) {
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = base + 4 * (j * kMergeThreads + tid);
+    if (vec && i < n_cand) {
+      const float4 f = *reinterpret_cast<const float4*>(my_acc + i);
+      v[j][0] = f.x;
+      v[j][1] = f.y;
+      v[j][2] = f.z;
+      v[j][3] = f.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[j][e] = i + e < n_cand ? my_acc[i + e] : 0.0f;
+    }
+  }
+}
+
+// k <= 32: the block filters, warp 0 keeps the top-k in registers.
+// kRange4: the range size is a multiple of 4, so the four slots of a 16-B
+// load share one candidate range and one doc base (fewer registers).
+template <bool kRange4>
+__global__ void __launch_bounds__(kMergeThreads, 4) round_merge_reg_kernel(
+    const float* __restrict__ acc,          // [Q, C, RS]
+    const int32_t* __restrict__ cand_r,     // [Q, C]
+    const float* __restrict__ doc_live,     // [N+1]
+    const float* __restrict__ filter_mask,  // [N+1]
+    float* topk_s,                          // [Q, k], merged in place
+    int32_t* topk_d,                        // [Q, k]
+    int chunk, int rs, int k, int n_docs, int vec) {
+  __shared__ u64 s_buf[kPassLanes];  // a pass's keys below the threshold
+  __shared__ u64 s_thr;              // warp 0's threshold after a pass
+  __shared__ u64 s_bound;            // the pass's own bound
+  __shared__ int s_n;
+  const int q = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int n_cand = chunk * rs;
+  const float* my_acc = acc + static_cast<int64_t>(q) * n_cand;
+  const int32_t* my_cand = cand_r + static_cast<int64_t>(q) * chunk;
+  float* my_s = topk_s + static_cast<int64_t>(q) * k;
+  int32_t* my_d = topk_d + static_cast<int64_t>(q) * k;
+  const unsigned lower = (1u << lane) - 1u;
+  const int per_warp = (k + kMergeWarps - 1) / kMergeWarps;
+
+  if (tid == 0) {
+    s_thr = kPadKey;
+    s_bound = 0;
+    s_n = 0;
+  }
+  u64 list = kPadKey;  // warp 0: the best keys so far, ascending across lanes
+  u64 thr = kPadKey;   // keys below it may reach the top k
+  bool seen = false;   // some pass had a slot that may score
+  for (int base = 0; base < n_cand; base += kPassLanes) {
+    float v[kLoads][4];
+    load_pass(my_acc, n_cand, base, vec != 0, tid, v);
+    unsigned may = 0;  // bit 4j + e: slot (j, e) may score
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) may |= static_cast<unsigned>(may_score(v[j][e])) << (4 * j + e);
+    }
+    if (!__syncthreads_or(may != 0)) continue;  // the same in every thread
+    if (!seen) {
+      seen = true;
+      thr = entry_key(my_s[k - 1], my_d[k - 1]);  // the running k-th key
+    }
+    thr = min_u64(thr, s_thr);
+    // Every load of the pass in flight before any is used: the slots'
+    // docs, then their live and filter entries; v becomes the score.
+    int dref[kLoads][kRange4 ? 1 : 4];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i0 = base + 4 * (j * kMergeThreads + tid);
+      if constexpr (kRange4) {
+        const int c = i0 / rs;
+        dref[j][0] = (may >> (4 * j)) & 0xFu ? __ldg(my_cand + c) * rs + (i0 - c * rs) : 0;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = (i0 + e) / rs;
+          dref[j][e] = (may >> (4 * j + e)) & 1u ? __ldg(my_cand + c) * rs + (i0 + e - c * rs) : 0;
+        }
+      }
+    }
+    auto doc_at = [&](int j, int e) {
+      if constexpr (kRange4) {
+        return dref[j][0] + e;
+      } else {
+        return dref[j][e];
+      }
+    };
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if ((may >> (4 * j + e)) & 1u) {
+          const int dc = doc_at(j, e) < n_docs ? doc_at(j, e) : n_docs;
+          v[j][e] = __fmul_rn(__fmul_rn(v[j][e], __ldg(doc_live + dc)), __ldg(filter_mask + dc));
+        }
+      }
+    }
+    auto key_at = [&](int j, int e) {
+      const int d = doc_at(j, e);
+      const bool kept = ((may >> (4 * j + e)) & 1u) && v[j][e] > 0.0f && d < n_docs;
+      return kept ? (static_cast<u64>(kInfBits - __float_as_uint(v[j][e])) << 32) |
+                        static_cast<uint32_t>(d)
+                  : kPadKey;
+    };
+    if (thr == kPadKey) {  // the same in every thread: no k keys known yet
+      // A bound from the pass itself: each warp's per_warp least thread
+      // minima, and the largest of those over the block: 8 * per_warp >= k
+      // distinct keys lie at or below it, so no key above it is in the top k.
+      u64 mine = kPadKey;
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine = min_u64(mine, key_at(j, e));
+      }
+      u64 bound_w = kPadKey;
+      for (int r = 0; r < per_warp; ++r) {
+        u64 m = mine;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) m = min_u64(m, __shfl_xor_sync(kFull, m, d));
+        bound_w = m;
+        if (mine == m) mine = kPadKey;  // keys are distinct, pads all one
+      }
+      if (lane == 0) atomicMax(&s_bound, bound_w);
+      __syncthreads();
+      // s_bound itself is in no list yet and may be the k-th key: keep it.
+      thr = s_bound == kPadKey ? kPadKey : s_bound + 1;
+    }
+    // Keys below the threshold to the buffer: a shared add a warp a batch.
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const u64 key = key_at(j, e);
+        const bool take = key < thr;
+        const unsigned b = __ballot_sync(kFull, take);
+        if (b == 0) continue;  // the same in every lane
+        const int first = __ffs(b) - 1;
+        int at = 0;
+        if (lane == first) at = atomicAdd(&s_n, __popc(b));
+        at = __shfl_sync(kFull, at, first);
+        if (take) s_buf[at + __popc(b & lower)] = key;
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {
+      const int n = s_n;
+      for (int b0 = 0; b0 < n; b0 += 32) {
+        const u64 key = b0 + lane < n ? s_buf[b0 + lane] : kPadKey;
+        unsigned pass = __ballot_sync(kFull, key < thr);
+        if (pass == 0) continue;  // the same in every lane
+        if (__popc(pass) > kInsertMax) {
+          list = warp_merge(list, warp_sort(key, lane), lane);
+        } else {
+          do {
+            const u64 kk = __shfl_sync(kFull, key, __ffs(pass) - 1);
+            const int at = __popc(__ballot_sync(kFull, list < kk));
+            const u64 up = __shfl_up_sync(kFull, list, 1);
+            list = lane < at ? list : lane == at ? kk : up;
+            pass &= pass - 1;
+          } while (pass);
+        }
+        thr = min_u64(thr, __shfl_sync(kFull, list, k - 1));
+      }
+      if (lane == 0) {
+        s_thr = thr;
+        s_n = 0;
+        s_bound = 0;
+      }
+    }
+    if (base + kPassLanes < n_cand) __syncthreads();  // buffer free, threshold published
+  }
+  if (!seen || tid >= 32) return;  // no slot could score: the top-k stays
+  u64 top = lane < k ? entry_key(my_s[lane], my_d[lane]) : kPadKey;
+  if (__any_sync(kFull, list < __shfl_sync(kFull, top, k - 1))) top = warp_merge(top, list, lane);
+  if (lane < k) store_entry(my_s, my_d, lane, top);
+}
+
+// k > 32: the key buffer.
+__global__ void __launch_bounds__(kMergeThreads) round_merge_kernel(
     const float* __restrict__ acc,          // [Q, C, RS]
     const int32_t* __restrict__ cand_r,     // [Q, C]
     const float* __restrict__ doc_live,     // [N+1]
@@ -446,39 +738,40 @@ __global__ void round_merge_kernel(
   __shared__ int s_n;
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int nt = blockDim.x;
   u64* buf = scratch ? scratch + static_cast<int64_t>(q) * buf_keys
                      : reinterpret_cast<u64*>(smem_raw);
   float* my_s = topk_s + static_cast<int64_t>(q) * k;
   int32_t* my_d = topk_d + static_cast<int64_t>(q) * k;
-  const int64_t n_cand = static_cast<int64_t>(chunk) * rs;
+  const int n_cand = chunk * rs;
   const float* my_acc = acc + static_cast<int64_t>(q) * n_cand;
   const int32_t* my_cand = cand_r + static_cast<int64_t>(q) * chunk;
   const int tile = buf_keys - k;
 
-  for (int i = tid; i < k; i += nt) {
-    const float s = my_s[i];
-    buf[i] = s > 0.0f ? (static_cast<u64>(kInfBits - __float_as_uint(s)) << 32) |
-                            static_cast<uint32_t>(my_d[i])
-                      : kPadKey;
-  }
+  bool mine = false;
+  for (int i = tid; i < n_cand; i += nt) mine |= may_score(my_acc[i]);
+  if (!__syncthreads_or(mine)) return;  // no lane could score
+  for (int i = tid; i < k; i += nt) buf[i] = entry_key(my_s[i], my_d[i]);
   if (tid == 0) s_n = k;
   __syncthreads();
-  for (int64_t base = 0; base < n_cand; base += tile) {
+  const unsigned lower = (1u << lane) - 1u;
+  for (int base = 0; base < n_cand; base += tile) {
     const u64 kth = buf[k - 1];
-    const int64_t end = base + tile < n_cand ? base + tile : n_cand;
-    for (int64_t i = base + tid; i < end; i += nt) {
-      const int c = static_cast<int>(i / rs);
-      const int slot = static_cast<int>(i - static_cast<int64_t>(c) * rs);
-      const int doc = my_cand[c] * rs + slot;
-      const int dc = doc < n_docs ? doc : n_docs;
-      const float s =
-          __fmul_rn(__fmul_rn(my_acc[i], doc_live[dc]), filter_mask[dc]);
-      if (s > 0.0f && doc < n_docs) {
-        const u64 key = (static_cast<u64>(kInfBits - __float_as_uint(s)) << 32) |
-                        static_cast<uint32_t>(doc);
-        if (key < kth) buf[atomicAdd(&s_n, 1)] = key;
-      }
+    const int end = base + tile < n_cand ? base + tile : n_cand;
+    for (int i0 = base; i0 < end; i0 += nt) {  // the same trip count in every lane
+      const int i = i0 + tid;
+      const float a = i < end ? my_acc[i] : 0.0f;
+      u64 key = kPadKey;
+      if (may_score(a)) key = lane_key(a, i, rs, my_cand, doc_live, filter_mask, n_docs);
+      const bool take = key < kth;
+      const unsigned b = __ballot_sync(kFull, take);
+      if (b == 0) continue;
+      const int first = __ffs(b) - 1;
+      int at = 0;
+      if (lane == first) at = atomicAdd(&s_n, __popc(b));
+      at = __shfl_sync(kFull, at, first);
+      if (take) buf[at + __popc(b & lower)] = key;
     }
     __syncthreads();
     const int n = s_n;
@@ -493,13 +786,7 @@ __global__ void round_merge_kernel(
     if (tid == 0) s_n = k;
     __syncthreads();
   }
-  for (int i = tid; i < k; i += nt) {
-    const u64 key = buf[i];
-    const uint32_t hi = static_cast<uint32_t>(key >> 32);
-    const bool pad = hi == kInfBits;
-    my_s[i] = pad ? __uint_as_float(kNegInfBits) : __uint_as_float(kInfBits - hi);
-    my_d[i] = pad ? kIntMax : static_cast<int32_t>(key & 0xFFFFFFFFull);
-  }
+  for (int i = tid; i < k; i += nt) store_entry(my_s, my_d, i, buf[i]);
 }
 
 template <typename Kernel>
@@ -569,7 +856,8 @@ extern "C" int bm25_round_select(
   return static_cast<int>(cudaGetLastError());
 }
 
-// buf_keys: keys the merge buffer holds, a power of two >= 2 * k.  scratch:
+// k <= 32 keeps the top-k in registers and uses neither buffer.  Else
+// buf_keys: keys the merge buffer holds, a power of two >= 2 * k; scratch:
 // a [Q, buf_keys] u64 device buffer, or null where 8 * buf_keys bytes fit a
 // block's shared memory (kMaxDynamicSmem; ops/blockmax_round.py mirrors it).
 extern "C" int bm25_round_merge(
@@ -577,17 +865,30 @@ extern "C" int bm25_round_merge(
     const void* filter_mask, void* topk_s, void* topk_d, void* scratch,
     int n_queries, int chunk, int rs, int k, int n_docs, int buf_keys,
     void* stream) {
-  if (k < 1 || buf_keys < 2 * k || (buf_keys & (buf_keys - 1))) {
+  if (k < 1 || chunk < 1 || rs < 1 || static_cast<long long>(chunk) * rs > kIntMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_queries == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= kRegK) {
+    // 16-B loads where every query's row starts 16-B aligned.
+    const int vec = (chunk * rs) % 4 == 0 && (reinterpret_cast<uintptr_t>(acc) & 15) == 0;
+    auto kernel = rs % 4 == 0 ? round_merge_reg_kernel<true> : round_merge_reg_kernel<false>;
+    kernel<<<static_cast<unsigned int>(n_queries), kMergeThreads, 0, st>>>(
+        static_cast<const float*>(acc), static_cast<const int32_t*>(cand_r),
+        static_cast<const float*>(doc_live), static_cast<const float*>(filter_mask),
+        static_cast<float*>(topk_s), static_cast<int32_t*>(topk_d), chunk, rs, k, n_docs, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (buf_keys < 2 * k || (buf_keys & (buf_keys - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   long long smem = scratch ? 0 : 8LL * buf_keys;
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(round_merge_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   round_merge_kernel<<<static_cast<unsigned int>(n_queries), kMergeThreads,
-                       static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
+                       static_cast<size_t>(smem), st>>>(
       static_cast<const float*>(acc), static_cast<const int32_t*>(cand_r),
       static_cast<const float*>(doc_live),
       static_cast<const float*>(filter_mask), static_cast<float*>(topk_s),

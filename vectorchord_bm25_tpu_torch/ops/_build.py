@@ -96,7 +96,8 @@ def _declare(lib):
         "bm25_round_merge": [*([vp] * 7), i, i, i, i, i, i, vp],
         "bm25_shard_merge": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],
         "bm25_shard_stats": [vp, vp, vp, vp, vp, vp, i, ll, vp, vp],
-        "bm25_posting_sort": [vp, vp, vp, vp, vp, vp, i, ll, vp],
+        "bm25_posting_sort_census": [*([vp] * 6), i, ll, vp, vp],
+        "bm25_posting_sort_passes": [*([vp] * 10), i, i, ll, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

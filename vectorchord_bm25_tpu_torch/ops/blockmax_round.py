@@ -58,7 +58,8 @@ MERGE_LAUNCHES = 0
 _INT_MAX = int(np.iinfo(np.int32).max)
 _NEG_INF = float("-inf")
 
-# round_merge's key buffer: at least this many u64 keys (32 KB of shared
+# round_merge's key buffer for k > 32 (k <= 32 keeps the top-k in
+# registers and ignores it): at least this many u64 keys (32 KB of shared
 # memory), and in shared memory up to kMaxDynamicSmem of blockmax_round.cu.
 _MERGE_MIN_KEYS = 4096
 _MERGE_SMEM_KEYS = 224 * 1024 // 8

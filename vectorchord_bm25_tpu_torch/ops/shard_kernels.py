@@ -20,7 +20,8 @@ kernel or raises, never falls back:
   ``shard.py:2285-2325``, and ``device_doc_offsets``, ``devbuild.py:65-91``);
 - ``posting_sort`` (``csrc/posting_sort.cu``): every shard's postings sorted
   by (k0, k1, k2, k3, doc) with tf carried, in place (the
-  ``lax.sort(..., num_keys=5)`` of ``devbuild.py:244-258``).
+  ``lax.sort(..., num_keys=5)`` of ``devbuild.py:244-258``), by a stable LSD
+  radix sort whose passes ``sort_passes`` plans from the kernel's census.
 
 u32 columns travel as int32 tensors holding the same bits (torch covers
 unsigned 32-bit types thinly); the kernels read them as u32.
@@ -39,6 +40,7 @@ from .blockmax_round import _check, _device_kind, _launch
 __all__ = [
     "posting_sort",
     "posting_sort_plain",
+    "sort_passes",
     "shard_merge",
     "shard_merge_plain",
     "shard_stats",
@@ -54,6 +56,9 @@ SORT_LAUNCHES = 0
 # The (slices, shards) grid of shard_stats' last launch, as its launcher
 # set it; chip_smoke.py reports it against the card's SMs.
 STATS_GRID = None
+# The radix passes posting_sort's last call ran (each moves all six
+# columns once); chip_smoke.py reports it.
+SORT_PASSES = None
 
 # shard_merge's key buffer lives in shared memory up to this many u64 keys
 # (kMaxDynamicSmem of csrc/shard_merge.cu), else in a device scratch row.
@@ -233,17 +238,45 @@ def posting_sort_plain(cols):
     return tuple(c.gather(1, perm) for c in cols)
 
 
+# posting_sort's census: per row, for each key word (k0-k3, doc) the OR of
+# its complement and its OR, then 1 where the doc column decreases somewhere.
+_CENSUS = 11
+_DOC_WORD = 4
+_SORT_TILE = 4096  # postings a tile of the count and scatter launches
+
+
+def sort_passes(census):
+    """The radix passes of a stable LSD sort by (k0, k1, k2, k3, doc) that
+    change some row, least significant first: ``(word, shift)`` pairs,
+    word 0-3 for k0-k3 and 4 for doc, an 8-bit digit at ``shift``.
+
+    ``census``: ``[D, 11]`` u32 values (any integer dtype) as the kernel
+    writes them.  A digit whose byte has no varying bit in any row (one
+    histogram bin in every row) is skipped: a stable pass would not move a
+    posting.  The four doc passes are skipped where every row's doc column
+    is already non-decreasing: a stable sort by doc is then the identity."""
+    census = np.asarray(census, dtype=np.int64) & _LOW32
+    varying = np.bitwise_or.reduce(census[:, :5] & census[:, 5:10], axis=0)
+    words = ([_DOC_WORD] if census[:, 10].any() else []) + [3, 2, 1, 0]
+    return [
+        (w, shift) for w in words for shift in (0, 8, 16, 24)
+        if (int(varying[w]) >> shift) & 0xFF
+    ]
+
+
 def posting_sort(cols):
     """Sort every shard's postings by (key, doc), in place.
 
     cols: six [D, P] int32 tensors, k0-k3 (the four big-endian u32 words of
     the 16-byte term keys, as their bits), doc (shard-local ids) and tf (u32
     bits); P a power of two >= 2.  Each row is sorted ascending by (k0, k1,
-    k2, k3) unsigned, then doc, with tf carried; (key, doc) pairs must be
-    unique, so the order is total.  Returns ``cols``.  A CUDA tensor
-    launches the kernel or raises; a CPU tensor runs the plain version and
-    copies its result back."""
-    global SORT_LAUNCHES
+    k2, k3) unsigned, then doc (signed), with tf carried; equal (key, doc)
+    pairs keep their input order, as in the plain version.  Returns
+    ``cols``.  A CUDA tensor launches the kernel (a census, one read of it
+    by the host, then the passes ``sort_passes`` plans; ``SORT_PASSES``
+    counts them) or raises; a CPU tensor runs the plain version and copies
+    its result back."""
+    global SORT_LAUNCHES, SORT_PASSES
 
     cols = tuple(cols)
     if len(cols) != 6:
@@ -269,9 +302,24 @@ def posting_sort(cols):
     from ._build import library
 
     lib = library()
+    ptrs = [c.data_ptr() for c in cols]
+    census = torch.empty((d, _CENSUS), dtype=torch.int32, device=dev)
     _launch(
-        lib.bm25_posting_sort, "posting_sort", dev,
-        *(c.data_ptr() for c in cols), d, p,
+        lib.bm25_posting_sort_census, "posting_sort", dev, *ptrs, d, p,
+        census.data_ptr(),
     )
+    passes = sort_passes(census.cpu().numpy())  # the sort's one read by the host
+    if passes:
+        n_tiles = -(-p // _SORT_TILE)
+        scratch = torch.empty((6, d, p), dtype=torch.int32, device=dev)
+        counts = torch.empty((d, 256, n_tiles), dtype=torch.int32, device=dev)
+        totals = torch.empty((d, 256), dtype=torch.int32, device=dev)
+        plan = (ctypes.c_int * (2 * len(passes)))(*(x for step in passes for x in step))
+        _launch(
+            lib.bm25_posting_sort_passes, "posting_sort", dev, *ptrs,
+            scratch.data_ptr(), counts.data_ptr(), totals.data_ptr(),
+            ctypes.addressof(plan), len(passes), d, p,
+        )
     SORT_LAUNCHES += 1
+    SORT_PASSES = len(passes)
     return cols

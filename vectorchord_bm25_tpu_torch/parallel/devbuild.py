@@ -9,9 +9,10 @@ The JAX package runs the expensive parts on a device mesh, one shard a
 device; the port stacks the shards along the leading dimension of six
 ``[D, P]`` columns on one card:
 
-- the per-shard posting sort — the build's dominant cost — is ONE launch
-  of D1-sort (``ops/shard_kernels.py:posting_sort``, ``csrc/posting_sort.cu``),
-  every shard's row sorted on its own;
+- the per-shard posting sort is ONE call of D1-sort
+  (``ops/shard_kernels.py:posting_sort``, ``csrc/posting_sort.cu``), every
+  shard's row sorted on its own; the rows are staged doc-grouped in
+  ascending doc, so its radix sort skips the doc passes;
 - 16-byte keys sort as four big-endian u32 columns (numeric order ==
   byte-lexicographic order, the same trick the host build uses), with
   doc id as a fifth sort key, so the device order is bit-identical to
@@ -212,9 +213,11 @@ def _build_shards_from_cols(
             cols[j][i].copy_(torch.from_numpy(row.view(np.int32)))
             del row
 
-    # One launch sorts every shard's row: (key, doc) as five u32/i32 key
+    # One call sorts every shard's row: (key, doc) as five u32/i32 key
     # columns, tf carried — the per-worker sort_unstable of io.rs:90-98.
-    # (key, doc) pairs are unique so the order is total and deterministic.
+    # (key, doc) pairs are unique so the order is total and deterministic;
+    # each row is doc-ascending with its pads last, which lets the sort skip
+    # its four doc passes.
     posting_sort(cols)
 
     # Device doc-offset scan; must agree with the host bounds (the
