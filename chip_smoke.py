@@ -23,7 +23,9 @@ not 0 and no result line is printed):
       windows the engine hands it at the slice's shapes (Q=4096, T=4,
       C=32, RS=128 at the default size; must be equal) and on random
       windows with colliding slots (rtol 1e-5, atol 1e-6), with both
-      times from CUDA events; and the rest of the round, B1-bounds
+      times from CUDA events and its bound, on round 1's windows and on the
+      batch's last round's (most of its queries have no window); and the
+      rest of the round, B1-bounds
       (``range_bounds``), B1-select (``round_select``) and B1-merge
       (``round_merge``), each against its plain version on every call of a
       4,096-query batch (``torch.equal`` on every output and on every tensor
@@ -37,7 +39,7 @@ not 0 and no result line is printed):
       trec-covid scale) serving ``search_batch(k=10)`` in 4,096-query
       batches; P1's and the three B1 kernels' launch counts must grow; one
       batch under ``torch.profiler``, with P1's, B1-select's and B1-merge's
-      totals named;
+      totals named (P1's goes into the ``kernels`` line);
   (e) correctness at that size: 256 sampled queries equal the same
       engine on the CPU (plain kernel), also after deleting 1% of the
       payloads and under a prefilter; recall@10 = 1.0 against the
@@ -49,9 +51,12 @@ not 0 and no result line is printed):
       corpus.  On every dispatch the engine hands its kernels, S1
       (``stream_dense_accumulate``) and S2 (``dense_topk``) must equal
       their plain versions (``torch.equal``); both and their plain
-      versions are timed with CUDA events on the first dispatch.  Then 5
-      batches of 4,096 queries at k=10, QPS each; both launch counts must
-      grow;
+      versions are timed with CUDA events on the first dispatch, S2 also
+      beside ``torch.topk`` on the same rows; S2 on rows with 0 to k - 1
+      positive docs, both branches, equals its plain version, pad ids
+      included.  Then 5 batches of 4,096 queries at k=10, QPS each; both
+      launch counts must grow; one batch profiled, with S2's share of the
+      card's busy time;
   (g) 256 sampled queries equal the same facade on the CPU (plain
       versions), also after deleting 1% and under a prefilter; recall@10
       = 1.0 against the float64 oracle; ``memory_report()["total"]``
@@ -75,7 +80,8 @@ not 0 and no result line is printed):
       and under a prefilter; recall@10 = 1.0 against the float64 oracle);
   (n) the exhaustive sweep ``search_rangescan_async`` on phase (d)'s f32
       engine: P1 on every chunk and S2 on the accumulator equal their
-      plain versions, both timed; 3 batches of 4,096 queries, QPS each,
+      plain versions, both timed (P1 also written at the accumulator's row
+      stride, as the sweep writes it; S2 beside ``torch.topk``); 3 batches of 4,096 queries, QPS each,
       P1's and S2's launches must grow; ids and scores equal the pruned
       engine's on all 4,096 queries and the CPU-plain engine's on 256;
   (o) ``engine="exact"``, dense f32 rows: ``Bm25Index(seg, seed,
@@ -149,7 +155,9 @@ not 0 and no result line is printed):
       shards: one 4,096-query batch at k=10 with every call of every kernel
       on the path (S1, S2, E1, E3, B1, P1 or P1-tf, SH-merge) held
       ``torch.equal`` to its plain version, then 3 batches with the counters
-      from 0 (each must grow), QPS each; 256 queries equal the same sharded
+      from 0 (each must grow), QPS each; S2 timed on one shard's
+      accumulator (its flat branch, below 2^17 docs) beside its plain
+      version and ``torch.topk``; 256 queries equal the same sharded
       index on the CPU (plain kernels); recall@10 = 1.0 against the float64
       oracle.  Then the stream index restarts: save, open with the WAL,
       1,024 inserts and 1% deleted through it, a prefilter, maintain, reopen
@@ -314,6 +322,92 @@ def p1_bound(post, starts, lens, rs):
         active * lane_bytes + 8 * starts.numel() + 4 * q * c * rs + extra,
         active * (4 if tf else 1),
     )
+
+
+def p1_fields(imp, loc, starts, lens, rs, out=None):
+    """P1 timed on one call's inputs (CUDA events: on the card, the
+    launches queued behind a sleeping kernel, and launched back to back),
+    beside its plain version, with its bound from those inputs, the active lanes and the
+    share of queries with no window at all (their rows are zeros).  With
+    ``out`` the kernel writes into that strided view, as the range sweep
+    does; the result is held ``torch.equal`` to the plain version."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import score_kernel
+
+    def kernel():
+        return score_kernel.fused_range_scores(imp, loc, starts, lens, rs=rs, out=out)
+
+    got = kernel()
+    want = score_kernel.fused_range_scores_plain(imp, loc, starts, lens, rs=rs)
+    torch.cuda.synchronize()
+    if not torch.equal(got.reshape(want.shape), want):
+        raise AssertionError("P1 != its plain version on a timed call")
+    q, t, c = starts.shape
+    return {
+        "ms": device_ms(kernel),
+        "launch_paced_ms": cuda_ms(kernel),
+        "plain_ms": cuda_ms(
+            lambda: score_kernel.fused_range_scores_plain(imp, loc, starts, lens, rs=rs),
+            iters=5,
+        ),
+        **p1_bound(imp, starts, lens, rs),
+        "active_lanes": int(lens.sum()),
+        "inactive_queries": float((lens.reshape(q, -1).amax(dim=1) <= 0).float().mean()),
+        "shape": {"Q": q, "T": t, "C": c, "RS": rs,
+                  "row_stride": c * rs if out is None else out.stride(0)},
+    }
+
+
+def s2_fields(acc, kk, n_docs):
+    """S2 timed on one accumulator (CUDA events: on the card, and launched
+    back to back) beside its plain version
+    and ``torch.topk`` on the same rows (no score > 0 mask, no tie rule),
+    with its bound: the doc columns read once and [Q, k] scores and ids
+    written, a compare and a max a column."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    q = acc.shape[0]
+    return {
+        "ms": device_ms(lambda: topk.dense_topk(acc, kk, n_docs), iters=10),
+        "launch_paced_ms": cuda_ms(lambda: topk.dense_topk(acc, kk, n_docs), iters=10),
+        "plain_ms": cuda_ms(lambda: topk.dense_topk_plain(acc, kk, n_docs), iters=5),
+        "library_ms": cuda_ms(lambda: torch.topk(acc[:, :n_docs], kk, dim=1), iters=5),
+        **bound(4 * q * n_docs + 8 * q * kk, q * n_docs),
+        "hierarchical": topk._hierarchical(acc.shape[1], kk, n_docs, 1024),
+        "shape": {"Q": q, "M": acc.shape[1], "n_docs": n_docs, "k": kk},
+    }
+
+
+def s2_pads_check(n_q, n_docs, kk, seed):
+    """S2 on accumulators whose rows hold 0 to kk - 1 positive docs (row r
+    holds r % kk), both branches: the pads' ids depend on which blocks the
+    kernel chose, so scores and every id must be ``torch.equal`` to the
+    plain version.  Returns the rows checked."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = 0
+    for n in (n_docs, 16384):
+        acc = topk.new_accumulator(n_q, n, "cuda")
+        cols = torch.randint(0, n, (n_q, kk), device="cuda", generator=gen)
+        vals = torch.rand((n_q, kk), device="cuda", generator=gen) + 0.5
+        keep = torch.arange(kk, device="cuda") < (torch.arange(n_q, device="cuda") % kk)[:, None]
+        acc.scatter_(1, cols, torch.where(keep, vals, 0.0))
+        acc[1::3, : n : 7] = -1.0  # non-positive lanes pad too
+        got = topk.dense_topk(acc, kk, n)
+        want = topk.dense_topk_plain(acc, kk, n)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"S2 != plain on rows with fewer than k positives ({n} docs)")
+        if not (~torch.isfinite(got[0])).any():
+            raise AssertionError("the pad check made no pad")
+        rows += n_q
+    return rows
 
 
 def hits_of(results):
@@ -690,7 +784,9 @@ def b1_merge_fields(inputs):
 def device_profile(fn, what, label, track=()):
     """One call of ``fn`` under ``torch.profiler``: the card's busy time, its
     share of the call's wall time, and the kernels by device time; each
-    kernel whose name holds a string of ``track`` is named on its own."""
+    kernel whose name holds a string of ``track`` is named on its own.
+    Returns the wall and busy ms and each tracked string's device ms and
+    launches (None if the profiler saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -711,20 +807,23 @@ def device_profile(fn, what, label, track=()):
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         print(f"{what}: the profiler saw no device time")
-        return
+        return None
     print(
         f"{what}: one profiled batch {wall_ms:.3f} ms, the card busy {busy_ms:.3f} "
         f"ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle); by kernel: "
         + "; ".join(f"{key[:48]} {ms:.3f} ms x{n}" for ms, n, key in rows[:8])
         + f" [{label}]"
     )
+    tracked = {}
     for name in track:
         hit = [(ms, n, key) for ms, n, key in rows if name in key]
+        tracked[name] = {"ms": sum(h[0] for h in hit), "launches": sum(h[1] for h in hit)}
         print(
             f"{what}: {name}: "
             + ("; ".join(f"{key[:64]} {ms:.3f} ms x{n}" for ms, n, key in hit) or "no row")
             + f" in the batch [{label}]"
         )
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "tracked": tracked}
 
 
 def rounds_equal(gpu_engine, cpu_engine, sample, what):
@@ -918,11 +1017,10 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     s1_plain_ms = cuda_ms(lambda: stream_kernel.stream_dense_accumulate_plain(*a), iters=5)
     zero_ms = cuda_ms(lambda: topk.new_accumulator(n_q, n_docs, "cuda"), iters=10)
     acc = stream_kernel.stream_dense_accumulate(*a)
-    s2_ms = cuda_ms(lambda: topk.dense_topk(acc, kk, n_docs), iters=10)
-    s2_plain_ms = cuda_ms(lambda: topk.dense_topk_plain(acc, kk, n_docs), iters=5)
-    # The library's top-k over the same rows (no score > 0 mask, no tie rule).
-    s2_lib_ms = cuda_ms(lambda: torch.topk(acc[:, :n_docs], kk, dim=1), iters=5)
+    s2 = s2_fields(acc, kk, n_docs)
+    s2_ms, s2_plain_ms, s2_lib_ms = s2["ms"], s2["plain_ms"], s2["library_ms"]
     del acc
+    pad_rows = s2_pads_check(n_q, n_docs, kk, args.seed + 12)
     # S1 must read each window's words and meta and write the accumulator;
     # S2 must read the accumulator's doc columns.
     n_words, lanes, n_win = window_words(si, a[6].cpu().numpy())
@@ -931,14 +1029,20 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
         + 4 * min(lanes, n_docs + 1) + 4 * n_q * (n_docs + 1),
         4 * lanes,
     )
-    s2_bound = bound(4 * n_q * n_docs + 8 * n_q * kk, n_q * n_docs)
+    s2_bound = {key: s2[key] for key in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")}
     print(
         f"(f) {len(dispatches)} dispatches; first: n_q={n_q}, N+1={n_docs + 1}, "
         f"{a[6].numel()} windows; S1 {s1_ms:.4f} ms vs plain {s1_plain_ms:.4f} ms "
         f"(both include the {zero_ms:.4f} ms accumulator zero-fill); S2 "
-        f"{s2_ms:.4f} ms vs plain {s2_plain_ms:.4f} ms at k={kk}, torch.topk "
+        f"{s2_ms:.4f} ms on the card ({s2['launch_paced_ms']:.4f} back to back) vs "
+        f"plain {s2_plain_ms:.4f} ms at k={kk}, torch.topk "
         f"{s2_lib_ms:.4f} ms; bounds S1 {s1_bound['bound_ms']:.4f} ms, S2 "
         f"{s2_bound['bound_ms']:.4f} ms [{label}]"
+    )
+    print(
+        f"(f) S2 on {pad_rows} rows with 0 to {kk - 1} positive docs (hierarchical at "
+        f"{n_docs} docs and flat at 16384): scores and every id, the pads' included, "
+        f"== plain (torch.equal)"
     )
     index.search_batch(queries, K)  # warm-up
     torch.cuda.synchronize()
@@ -962,6 +1066,24 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
         f"k={K}); S1 {s1_launches} launches, S2 {s2_launches}; QPS per batch "
         f"{[round(x, 1) for x in qps]} (median {float(np.median(qps)):.1f}) [{label}]"
     )
+    prof = device_profile(
+        lambda: index.search_batch(queries, K), "(f) profile", label,
+        track=("block_max_keys", "dense_topk_select", "stream_dense"),
+    )
+    s2_profile = None
+    if prof is not None:
+        s2_ms_batch = prof["tracked"]["block_max_keys"]["ms"] + prof["tracked"]["dense_topk_select"]["ms"]
+        s2_profile = {
+            "ms": s2_ms_batch,
+            "busy_ms": prof["busy_ms"],
+            "share_of_busy": s2_ms_batch / prof["busy_ms"],
+            "launches": prof["tracked"]["dense_topk_select"]["launches"],
+        }
+        print(
+            f"(f) profile: S2 (block_max_keys + dense_topk_select_kernel) {s2_ms_batch:.3f} ms of "
+            f"{prof['busy_ms']:.3f} ms busy ({100 * s2_profile['share_of_busy']:.1f}%) "
+            f"in one batch [{label}]"
+        )
 
     # (g) correctness at that size
     rng = np.random.default_rng(args.seed + 3)
@@ -1040,6 +1162,10 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
             "plain_ms": s2_plain_ms,
             **s2_bound,
             "library_ms": s2_lib_ms,
+            "launch_paced_ms": s2["launch_paced_ms"],
+            "shape": s2["shape"],
+            "pad_rows_checked": pad_rows,
+            "profile_f": s2_profile,
         },
     ]
 
@@ -1249,17 +1375,26 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
     s2_err, s2_ms, s2_plain_ms = _kernel_vs_plain(
         topk.dense_topk, topk.dense_topk_plain, s2_calls, "S2 in the sweep"
     )
-    (post, _, starts, lens), rs = p1_calls[0][0], p1_calls[0][1]["rs"]
+    (post, loc, starts, lens), rs = p1_calls[0][0], p1_calls[0][1]["rs"]
     acc, kk, n_docs = s2_calls[0][0]
     q = acc.shape[0]
+    # P1 as the sweep launches it: a chunk written at the accumulator's row
+    # stride into its columns.
+    width = len(p1_calls) * starts.shape[2] * rs
+    wide = torch.empty((q, (width + 3) & ~3), dtype=torch.float32, device="cuda")
+    strided = p1_fields(post, loc, starts, lens, rs, out=wide[:, : starts.shape[2] * rs])
+    del wide
     sweep = {
         "fused_range_scores": {
             "sweep_ms": p1_ms, "sweep_plain_ms": p1_plain_ms,
             "sweep_bound_ms": p1_bound(post, starts, lens, rs)["bound_ms"],
+            "sweep_strided": strided,
         },
         "dense_topk": {
             "sweep_ms": s2_ms, "sweep_plain_ms": s2_plain_ms,
             "sweep_bound_ms": bound(4 * q * n_docs + 8 * q * kk, q * n_docs)["bound_ms"],
+            "sweep_library_ms": cuda_ms(lambda: torch.topk(acc[:, :n_docs], kk, dim=1), iters=5),
+            "sweep_shape": {"Q": q, "M": acc.shape[1], "n_docs": n_docs, "k": kk},
         },
     }
     print(
@@ -1269,7 +1404,15 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
         f"plain {p1_plain_ms:.4f} ms a chunk (bound "
         f"{sweep['fused_range_scores']['sweep_bound_ms']:.4f} ms), S2 {s2_ms:.4f} "
         f"ms vs plain {s2_plain_ms:.4f} ms (bound "
-        f"{sweep['dense_topk']['sweep_bound_ms']:.4f} ms) [{label}]"
+        f"{sweep['dense_topk']['sweep_bound_ms']:.4f} ms), torch.topk "
+        f"{sweep['dense_topk']['sweep_library_ms']:.4f} ms [{label}]"
+    )
+    print(
+        f"(n) P1 written at the accumulator's row stride {strided['shape']['row_stride']}: "
+        f"kernel {strided['ms']:.4f} ms on the card ({strided['launch_paced_ms']:.4f} back "
+        f"to back), plain {strided['plain_ms']:.4f} ms, bound "
+        f"{strided['bound_ms']:.4f} ms ({strided['bound_bytes']} B), {strided['active_lanes']} "
+        f"active lanes, {strided['inactive_queries']:.4f} of queries inactive [{label}]"
     )
     del acc, post, starts, lens
     del p1_calls, s2_calls, restores
@@ -2550,7 +2693,8 @@ def sharded_restart(index, queries, new_docs, label):
 
 def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, build_times):
     """Phase (u): the sharded index on the 131,072-doc corpus (phase (d)'s
-    postings, 8 shards).  Returns launches by kernel name and phase."""
+    postings, 8 shards).  Returns launches by kernel name and phase, and
+    S2 timed on one shard's accumulator (its flat branch)."""
     import torch
 
     from vectorchord_bm25_tpu_torch import Document, IndexOptions, ShardedIndex
@@ -2570,7 +2714,21 @@ def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, buil
             index = built
         else:
             index = ShardedIndex(shards, IndexOptions(), device="cuda", engine=engine, **opts)
-        got, _, _, _ = serve_sharded(index, opts, queries, "(u)", what, label)
+        got, stats, _, _ = serve_sharded(index, opts, queries, "(u)", what, label)
+        if engine == "stream":
+            # S2's flat branch: one shard's accumulator, below 2^17 docs.
+            acc, kk, n_docs = stats["dense_topk"]["args"]
+            s2_flat = s2_fields(acc, kk, n_docs)
+            print(
+                f"(u) {what}: S2 on one shard's [{acc.shape[0]}, {acc.shape[1]}] "
+                f"accumulator (n_docs {n_docs}, k={kk}, hierarchical "
+                f"{s2_flat['hierarchical']}): kernel {s2_flat['ms']:.4f} ms on the card "
+                f"({s2_flat['launch_paced_ms']:.4f} back to back), plain "
+                f"{s2_flat['plain_ms']:.4f} ms, torch.topk {s2_flat['library_ms']:.4f} ms, "
+                f"bound {s2_flat['bound_ms']:.4f} ms [{label}]"
+            )
+            del acc
+        del stats
         for name, n in got.items():
             launches.setdefault(name, {})[f"(u) {what}"] = n
         cpu = cpu_twin(index)
@@ -2600,7 +2758,7 @@ def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, buil
     build_times["(u) all of it"] = time.perf_counter() - t0
     del stream_index, built
     torch.cuda.empty_cache()
-    return launches
+    return launches, s2_flat
 
 
 def sort_timings(sort, label):
@@ -2983,18 +3141,32 @@ def main() -> int:
             )
     starts, lens, rs = windows[0]
     shape = (*starts.shape, rs)
-    kernel_ms = cuda_ms(
+    kernel_ms = device_ms(
+        lambda: score_kernel.fused_range_scores(imp, loc, starts, lens, rs=rs)
+    )
+    kernel_paced_ms = cuda_ms(
         lambda: score_kernel.fused_range_scores(imp, loc, starts, lens, rs=rs)
     )
     plain_ms = cuda_ms(
         lambda: score_kernel.fused_range_scores_plain(imp, loc, starts, lens, rs=rs)
     )
     active = int(lens.sum())
+    p1_first_bound = p1_bound(imp, starts, lens, rs)
     print(
         f"(c) index windows: {len(windows)} rounds, kernel == plain "
         f"(torch.equal); Q,T,C,RS={shape}; {active} active lanes in round 1; "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"[{label}]"
+        f"kernel {kernel_ms:.4f} ms on the card ({kernel_paced_ms:.4f} launched back "
+        f"to back), plain {plain_ms:.4f} ms, bound {p1_first_bound['bound_ms']:.4f} ms "
+        f"({p1_first_bound['bound_bytes']} B) [{label}]"
+    )
+    p1_last = p1_fields(imp, loc, windows[-1][0], windows[-1][1], rs)
+    p1_last["round"] = len(windows)
+    print(
+        f"(c) P1 round {len(windows)} (the last): kernel {p1_last['ms']:.4f} ms on the "
+        f"card ({p1_last['launch_paced_ms']:.4f} back to back), plain "
+        f"{p1_last['plain_ms']:.4f} ms, bound {p1_last['bound_ms']:.4f} ms "
+        f"({p1_last['bound_bytes']} B); {p1_last['active_lanes']} active lanes, "
+        f"{p1_last['inactive_queries']:.4f} of {shape[0]} queries with no window [{label}]"
     )
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     p = imp.numel()
@@ -3042,10 +3214,14 @@ def main() -> int:
         f"{launches} P1 launches, B1 {b1_by_phase['(d)']}; {engine.last_rounds} pruning rounds in "
         f"the last batch; QPS per batch {[round(x, 1) for x in qps]} [{label}]"
     )
-    device_profile(
+    prof_d = device_profile(
         lambda: index.search_batch(queries, K), "(d) profile", label,
         track=("round_merge", "round_select", "range_scores"),
     )
+    p1_profile = None if prof_d is None else {
+        **prof_d["tracked"]["range_scores"], "busy_ms": prof_d["busy_ms"],
+        "wall_ms": prof_d["wall_ms"],
+    }
 
     # (e) correctness at that size
     rng = np.random.default_rng(args.seed + 2)
@@ -3092,7 +3268,7 @@ def main() -> int:
     build_times["(t) Block-Max"] = time.perf_counter() - t0
     del new_docs
     # (u) the sharded index on phase (d)'s postings
-    shard_launches = sharded_slice(
+    shard_launches, s2_flat = sharded_slice(
         args, seg, queries, keys, doc_ids, tfs, doc_start, label, build_times
     )
     # P1 and S2 entries count every main-path run that launched them.
@@ -3103,6 +3279,7 @@ def main() -> int:
     }
     s2_entry["launches"] = sum(s2_entry["launches_by_phase"].values())
     s2_entry.update(sweep["dense_topk"])
+    s2_entry["flat_u"] = s2_flat
     p1_bound_fields = p1_bound(imp, starts, lens, rs)
     p1_sweep = sweep["fused_range_scores"]
     slice_line = (
@@ -3147,9 +3324,12 @@ def main() -> int:
             "max_abs_err": max_err,
             "max_abs_err_random": rand_err,
             "ms": kernel_ms,
+            "launch_paced_ms": kernel_paced_ms,
             "plain_ms": plain_ms,
             **p1_bound_fields,
             "library_ms": None,
+            "last_round": p1_last,
+            "profile_d": p1_profile,
             **p1_sweep,
         },
         *rest,

@@ -269,6 +269,82 @@ def test_dense_topk_rejects_bad_inputs(card):
         topk.dense_topk(torch.zeros((8, 4096), device=card).t(), 2, 7)
 
 
+
+def _s2_design_case(name):
+    """The cases csrc/dense_topk.cu's design must keep: (acc, k, n_docs)."""
+    r = np.random.default_rng(31)
+    n = (1 << 17) + 777
+    flat = name.endswith("flat")
+    if name.startswith("pads"):
+        n = 5000 if flat else n
+        acc = np.zeros((6, n + 1), dtype=np.float32)
+        for row in range(1, 6):
+            acc[row, r.choice(n, size=2 * row, replace=False)] = 1.5
+        acc[5, : n : 3] = -1.0
+        return acc, 16, n
+    if name == "ties_at_kth_block_max":
+        acc = np.zeros((3, n + 1), dtype=np.float32)
+        for row in range(3):
+            for b in r.choice(n // 1024, size=24, replace=False):
+                acc[row, b * 1024 + r.choice(1024, size=3, replace=False)] = 2.0
+        return acc, 16, n
+    if name == "ties_overflow_shared_memory":
+        # About 3,300 docs tie at the threshold: more than the 2,048 keys
+        # a block keeps, so the kernel re-reads the row to select.
+        acc = np.zeros((2, n + 1), dtype=np.float32)
+        acc[:, :n] = (r.random((2, n)) < 0.2).astype(np.float32)
+        return acc, 16, n
+    if name.startswith("nan_and_negative_zero"):
+        n = 6000 if flat else n
+        acc = np.zeros((3, n + 1), dtype=np.float32)
+        acc[:, :n] = r.random((3, n), dtype=np.float32) - 0.6
+        acc[:, r.choice(n, size=n // 5, replace=False)] = np.nan
+        acc[:, r.choice(n, size=n // 5, replace=False)] = -0.0
+        acc[2, :n] = np.where(acc[2, :n] > 0, np.nan, acc[2, :n])
+        acc[2, 17] = 3.0
+        return acc, 16, n
+    if name == "tail_past_n_docs":
+        acc = np.zeros((3, n + 700), dtype=np.float32)
+        acc[:, n - 300 : n] = r.random((3, 300), dtype=np.float32) * 4
+        acc[1, n:] = 50.0
+        return acc, 16, n
+    k, n, dens = {
+        "k_above_32_hierarchical": (40, n, 0.05),
+        "k_above_32_flat": (100, 9000, 0.05),
+        "k_above_1024_hierarchical": (1100, 2 * 1100 * 1024 + 5, 0.01),
+        "k_above_2048_flat": (5000, 20000, 0.3),
+        "k_above_2048_pads_flat": (5000, 20000, 0.15),
+    }[name]
+    acc = np.zeros((2, n + 1), dtype=np.float32)
+    acc[:, :n] = np.where(r.random((2, n)) < dens, r.random((2, n), dtype=np.float32), 0)
+    return acc, k, n
+
+
+S2_DESIGN_CASES = [
+    "pads_hierarchical", "pads_flat", "ties_at_kth_block_max",
+    "ties_overflow_shared_memory", "nan_and_negative_zero_hierarchical",
+    "nan_and_negative_zero_flat", "tail_past_n_docs", "k_above_32_hierarchical",
+    "k_above_32_flat", "k_above_1024_hierarchical", "k_above_2048_flat",
+    "k_above_2048_pads_flat",
+]
+
+
+@pytest.mark.parametrize("case", S2_DESIGN_CASES)
+def test_dense_topk_design_cases_match_plain(card, case):
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    acc_np, k, n_docs = _s2_design_case(case)
+    assert topk._hierarchical(acc_np.shape[1], k, n_docs, 1024) == ("flat" not in case)
+    acc = topk.new_accumulator(acc_np.shape[0], acc_np.shape[1] - 1, card)
+    acc.copy_(torch.from_numpy(acc_np))
+    before = topk.LAUNCHES
+    s, i = topk.dense_topk(acc, k, n_docs)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    ps, pi = topk.dense_topk_plain(acc, k, n_docs)
+    # Scores and every id, the pads' included.
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+
 def test_stream_engine_on_card_equals_cpu(card, gen):
     from vectorchord_bm25_tpu.index.sealed import build_sealed_segment
     from vectorchord_bm25_tpu.index.stream import build_stream_index
@@ -581,6 +657,51 @@ def test_strided_output_matches_dense(card, gen):
     torch.testing.assert_close(view.reshape(q, c, rs), dense, rtol=1e-5, atol=1e-6)
     assert bool((wide[:, : c * rs] == -1).all()) and bool((wide[:, 2 * c * rs :] == -1).all())
 
+
+
+def _p1_unique_windows(gen, q, t, c, rs, slot_hi, card, p=8192):
+    """Windows with unique slots (as on index data) from [0, slot_hi)."""
+    loc = np.concatenate([gen.permutation(slot_hi)[:rs] for _ in range(p // rs)]).astype(np.uint8)
+    imp = (gen.random(loc.size) * 8).astype(np.float32)
+    starts = (gen.integers(0, loc.size // rs - 1, (q, t, c)) * rs).astype(np.int32)
+    lens = gen.integers(0, rs + 1, (q, t, c)).astype(np.int32)
+    lens[gen.random((q, t, c)) < 0.5] = 0
+    return [torch.from_numpy(x).to(card) for x in (imp, loc, starts, lens)]
+
+
+@pytest.mark.parametrize(
+    "case", ["all_inactive_queries", "row_stride_wider_than_c_rs", "bf16_impacts",
+             "slots_past_rs", "unaligned_output", "many_terms", "no_terms"],
+)
+def test_p1_design_cases_equal_plain(card, gen, case):
+    # Index-like windows (unique slots a window), so every case is equal
+    # bit for bit, not to a tolerance.
+    rs = 64 if case == "slots_past_rs" else 128
+    t = {"many_terms": 37, "no_terms": 0}.get(case, 4)
+    imp, loc, starts, lens = _p1_unique_windows(
+        gen, 64, t, 32, rs, 256 if case == "slots_past_rs" else rs, card
+    )
+    if case == "all_inactive_queries":
+        lens[::2] = 0
+    if case == "bf16_impacts":
+        imp = imp.to(torch.bfloat16)
+    q, _, c = starts.shape
+    want = score_kernel.fused_range_scores_plain(imp, loc, starts, lens, rs=rs)
+    if case in ("row_stride_wider_than_c_rs", "unaligned_output"):
+        off = 132 if case == "row_stride_wider_than_c_rs" else 1
+        wide = torch.full((q, c * rs + 2 * off + 4), -1.0, device=card)
+        view = wide[:, off : off + c * rs]
+        got = score_kernel.fused_range_scores(imp, loc, starts, lens, rs=rs, out=view)
+        torch.cuda.synchronize()
+        assert got is view
+        got = got.reshape(q, c, rs)
+        assert bool((wide[:, :off] == -1).all()) and bool((wide[:, off + c * rs :] == -1).all())
+    else:
+        got = score_kernel.fused_range_scores(imp, loc, starts, lens, rs=rs)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "all_inactive_queries":
+        assert not got[::2].any() and got[1::2].any()
 
 def test_launch_failure_raises(card, monkeypatch):
     # A nonzero CUDA error from the library raises; nothing falls back.

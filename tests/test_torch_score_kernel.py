@@ -187,3 +187,76 @@ def test_bf16_impacts_not_ported(rng):
         )
     )
     assert np.array_equal(got, want)
+
+
+def _unique_slot_windows(rng, q=6, t=4, c=8, rs=64, slot_hi=256, p=8192):
+    """Windows whose slots are unique (as on index data) and drawn from
+    [0, slot_hi): with slot_hi > rs some land in [RS, 256) and are dropped."""
+    post_local = np.concatenate(
+        [rng.permutation(slot_hi)[:rs] for _ in range(p // rs)]
+    ).astype(np.uint8)
+    post_impact = (rng.random(post_local.size) * 8).astype(np.float32)
+    starts = (rng.integers(0, post_local.size // rs - 1, (q, t, c)) * rs).astype(np.int32)
+    lens = rng.integers(0, rs + 1, (q, t, c)).astype(np.int32)
+    return post_impact, post_local, starts, lens
+
+
+def _design_inactive(rng):
+    post_impact, post_local, starts, lens = index_windows(rng)
+    lens[::2] = 0  # every other query has no window at all
+    return post_impact, post_local, starts, lens, 128, {}
+
+
+def _design_strided(rng):
+    return (*index_windows(rng), 128, {"stride_extra": 132})
+
+
+def _design_bf16(rng):
+    return (*index_windows(rng), 128, {"bf16": True})
+
+
+def _design_slots_past_rs(rng):
+    return (*_unique_slot_windows(rng), 64, {})
+
+
+# The cases P1's design must keep (csrc/score_kernel.cu): queries whose
+# windows are all empty (their rows are written as zeros), rows written at
+# a stride wider than C*RS (the range sweep's accumulator), bf16 impacts,
+# and slots in [RS, 256), which are dropped.
+P1_DESIGN_CASES = {
+    "all_inactive_queries": _design_inactive,
+    "row_stride_wider_than_c_rs": _design_strided,
+    "bf16_impacts": _design_bf16,
+    "slots_past_rs": _design_slots_past_rs,
+}
+
+
+@pytest.mark.parametrize("case", list(P1_DESIGN_CASES))
+def test_design_cases_equal_reference(rng, case):
+    import jax.numpy as jnp
+
+    post_impact, post_local, starts, lens, rs, opts = P1_DESIGN_CASES[case](rng)
+    q, _, c = starts.shape
+    ref_imp = jnp.asarray(post_impact, dtype=jnp.bfloat16) if opts.get("bf16") else post_impact
+    imp = torch.from_numpy(post_impact)
+    if opts.get("bf16"):
+        imp = imp.to(torch.bfloat16)
+    args = (imp, *(torch.from_numpy(a) for a in (post_local, starts, lens)))
+    want = np.asarray(
+        ref_fused_range_scores(ref_imp, post_local, starts, lens, rs=rs, interpret=True)
+    )
+    extra = opts.get("stride_extra", 0)
+    if extra:
+        wide = torch.full((q, c * rs + extra), -1.0)
+        view = wide[:, extra // 2 : extra // 2 + c * rs]
+        assert score_kernel.fused_range_scores(*args, rs=rs, out=view) is view
+        got = view.reshape(q, c, rs).numpy()
+        assert bool((wide[:, : extra // 2] == -1).all())
+        assert bool((wide[:, extra // 2 + c * rs :] == -1).all())
+    else:
+        got = score_kernel.fused_range_scores(*args, rs=rs).numpy()
+    assert np.array_equal(got, want)
+    if case == "all_inactive_queries":
+        assert not got[::2].any() and got[1::2].any()
+    if case == "slots_past_rs":
+        assert (post_local >= rs).any()

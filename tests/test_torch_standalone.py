@@ -87,6 +87,39 @@ def test_no_module_imports_jax_or_the_reference():
     assert not bad, bad
 
 
+def _reference_all():
+    """The reference package's ``__all__``, read by AST (no import)."""
+    path = os.path.join(REPO, "vectorchord_bm25_tpu", "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets
+        ):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    raise AssertionError("the reference's __init__.py has no __all__")
+
+
+# Text-processing entry points of the reference that the port does not
+# carry yet (ROADMAP queue 1 item 11).
+NOT_YET_PORTED = {"tsvector", "documents_from_texts"}
+
+
+def test_reference_public_names_resolve_in_port():
+    import vectorchord_bm25_tpu_torch as port
+
+    names = _reference_all()
+    assert {"Bm25Index", "BoundQuery", "SearchHit", "random_seed"} <= set(names)
+    for name in names:
+        if name in NOT_YET_PORTED:
+            continue
+        assert name in port.__all__, name
+        assert getattr(port, name) is not None, name
+    # The names are the port's own objects, not the reference's.
+    assert port.SearchHit.__module__.startswith("vectorchord_bm25_tpu_torch.")
+    assert port.BoundQuery.__module__.startswith("vectorchord_bm25_tpu_torch.")
+    assert isinstance(port.random_seed(), bytes)
+
 def test_port_runs_without_jax():
     # A CUDA install need not have jax, nor the JAX package: the port must
     # build and serve every ported engine, strategy and mode with jax, the

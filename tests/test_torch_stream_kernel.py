@@ -400,3 +400,92 @@ def test_dense_topk_rejects_bad_inputs():
         topk.dense_topk(torch.zeros(10), 2, 9)
     with pytest.raises(ValueError):
         topk.dense_topk(torch.zeros((2, 10)), 2, 11)
+
+
+def _design_pads(flat):
+    # Rows with 0 to k - 1 positive docs: the pads' ids are the lowest doc
+    # ids among the positions the plain version gathers (the chosen blocks,
+    # all-nonpositive ones by lowest block id, then the tail).
+    rng = np.random.default_rng(21)
+    n = 5000 if flat else N_HIER
+    acc = np.zeros((6, n + 1), dtype=np.float32)
+    for row in range(1, 6):
+        docs = rng.choice(n, size=2 * row, replace=False)
+        acc[row, docs] = rng.random(docs.size, dtype=np.float32) + 0.5
+    acc[5, : n : 3] = -1.0  # non-positive lanes are pads too
+    return acc, 16, n
+
+
+def _design_block_ties():
+    # More blocks than k share the k-th block maximum, and docs inside the
+    # chosen blocks tie with it: ties enter by doc id.
+    rng = np.random.default_rng(22)
+    acc = np.zeros((3, N_HIER + 1), dtype=np.float32)
+    acc[:, :N_HIER] = rng.choice(
+        np.array([0.0, 0.5, 1.0], dtype=np.float32), size=(3, N_HIER), p=[0.9, 0.09, 0.01]
+    )
+    blocks = rng.choice(N_HIER // 1024, size=(3, 24), replace=False)
+    for row in range(3):
+        for b in blocks[row]:
+            acc[row, b * 1024 + rng.choice(1024, size=3, replace=False)] = 2.0
+    return acc, 16, N_HIER
+
+
+def _design_nan_zero(flat):
+    rng = np.random.default_rng(23)
+    n = 6000 if flat else N_HIER
+    acc = np.zeros((3, n + 1), dtype=np.float32)
+    acc[:, :n] = rng.random((3, n), dtype=np.float32) - 0.6
+    acc[:, rng.choice(n, size=n // 5, replace=False)] = np.nan
+    acc[:, rng.choice(n, size=n // 5, replace=False)] = -0.0
+    acc[2, :n] = np.where(acc[2, :n] > 0, np.nan, acc[2, :n])  # no positive left
+    acc[2, 17] = 3.0
+    return acc, 16, n
+
+
+def _design_tail():
+    # A ragged tail of 700 columns past n_docs (as the range sweep's
+    # accumulator has) and a positive value past n_docs that must not win.
+    rng = np.random.default_rng(24)
+    m, n = N_HIER + 700, N_HIER
+    acc = np.zeros((3, m), dtype=np.float32)
+    acc[:, :n] = np.where(rng.random((3, n)) < 0.001, rng.random((3, n), dtype=np.float32), 0)
+    acc[:, n - 300 : n] = rng.random((3, 300), dtype=np.float32) * 4
+    acc[1, n:] = 50.0
+    acc[2, :n] = 0.0
+    return acc, 16, n
+
+
+def _design_wide_k(flat):
+    rng = np.random.default_rng(25)
+    n = 9000 if flat else N_HIER
+    acc = np.zeros((2, n + 1), dtype=np.float32)
+    acc[:, :n] = np.where(rng.random((2, n)) < 0.05, rng.random((2, n), dtype=np.float32), 0)
+    return acc, (100 if flat else 40), n
+
+
+# The cases the kernels' design must keep (csrc/dense_topk.cu): pad ids,
+# ties at the k-th block maximum, NaN and -0.0 lanes, a tail past n_docs,
+# k > 32, in both branches.
+DESIGN_CASES = {
+    "pads_hierarchical": lambda: _design_pads(False),
+    "pads_flat": lambda: _design_pads(True),
+    "ties_at_kth_block_max": _design_block_ties,
+    "nan_and_negative_zero_hierarchical": lambda: _design_nan_zero(False),
+    "nan_and_negative_zero_flat": lambda: _design_nan_zero(True),
+    "tail_past_n_docs": _design_tail,
+    "k_above_32_hierarchical": lambda: _design_wide_k(False),
+    "k_above_32_flat": lambda: _design_wide_k(True),
+}
+
+
+@pytest.mark.parametrize("case", list(DESIGN_CASES))
+def test_dense_topk_design_cases_equal_reference(case):
+    acc, k, n_docs = DESIGN_CASES[case]()
+    assert topk._hierarchical(acc.shape[1], k, n_docs, 1024) == ("flat" not in case)
+    _topk_check(acc, k, n_docs)
+    # Every id, the pads' included, equals the reference's.
+    r_i = np.asarray(ref_dense_topk(jnp.asarray(acc), k, n_docs)[1])
+    s, i = topk.dense_topk_plain(torch.from_numpy(acc), k, n_docs)
+    np.testing.assert_array_equal(i.numpy(), r_i)
+    assert (~torch.isfinite(s)).any() == ("pads" in case or "nan" in case or case == "tail_past_n_docs")

@@ -22,8 +22,11 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Bm25Index",
+    "BoundQuery",
+    "SearchHit",
     "Document",
     "Query",
+    "random_seed",
     "IndexOptions",
     "SearchOptions",
     "SessionConfig",
@@ -49,8 +52,11 @@ __all__ = [
 # Where each public name lives in the port.
 _HOME = {
     "Bm25Index": ".index.bm25index",
+    "BoundQuery": ".index.bm25index",
+    "SearchHit": ".index.bm25index",
     "Document": ".text.intern",
     "Query": ".text.intern",
+    "random_seed": ".text.intern",
     "IndexOptions": ".utils.options",
     "SearchOptions": ".utils.options",
     "SessionConfig": ".utils.options",

@@ -75,8 +75,7 @@ def _declare(lib):
         "bm25_stream_dense_accumulate": [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, i, ll, i, i, vp,
         ],
-        "bm25_block_max_keys": [vp, vp, i, i, ll, i, vp],
-        "bm25_gather_keys": [vp, vp, vp, i, i, i, i, i, i, ll, vp],
+        "bm25_dense_topk": [*([vp] * 7), i, i, i, i, i, ll, i, vp],
         "bm25_stream_sparse_decode": [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, vp],
         "bm25_sparse_combine": [vp, vp, vp, ll, i, i, i, vp],
         "bm25_stream_rescore": [

@@ -17,17 +17,21 @@ tie order.  Both selections therefore run on a packed int64 key (see
 ``(inf_bits - bits) << 32 | id`` ascending is (score desc, id asc), and
 every key is distinct.
 
-On a CUDA tensor ``dense_topk`` launches ``csrc/dense_topk.cu`` for pass 1
-(block maxima written straight as packed keys) and pass 3 (the gather of
-the chosen blocks and the tail into packed keys); the two small
-selections between and after them stay ``torch.topk`` on those keys, as
-the reference also runs its selections outside any Pallas kernel.  On a
-CPU tensor it runs ``dense_topk_plain``.
+On a CUDA tensor ``dense_topk`` makes one call into ``csrc/dense_topk.cu``:
+in the hierarchical branch a streaming pass writes one packed key a
+1024-doc block, then one block of threads a query selects the k best
+blocks, reads them and the tail once, and keeps the k best packed keys in
+shared memory behind a threshold (the k-th best block maximum: no doc
+below it can enter); past 2,048 selected keys a row is sorted in chunks
+and merged by rank.  The selection never leaves the kernels: no key
+matrix is written and no library selection runs.  On a CPU tensor it
+runs ``dense_topk_plain``.
 
-Pass 1 reads the whole accumulator once (1.07 GB for a ``[2048, 131073]``
-dispatch) for a compare and a max a value: it is bound by device-memory
-bytes, so it loads 16 B a thread and needs rows that start 16-B aligned
-(``new_accumulator`` pads the row stride to a multiple of 4 floats).
+The streaming pass reads the whole accumulator once (1.07 GB for a
+``[2048, 131073]`` dispatch) for a compare and a max a value: it is bound
+by device-memory bytes, so it loads 16 B a thread and needs rows that
+start 16-B aligned (``new_accumulator`` pads the row stride to a multiple
+of 4 floats).
 """
 
 from __future__ import annotations
@@ -42,9 +46,14 @@ __all__ = [
     "select_keys",
 ]
 
-# Number of dense_topk calls that launched the CUDA kernels (pass 1 and
-# pass 3); chip_smoke.py reads it to show the main path went through them.
+# Number of dense_topk calls that launched the CUDA kernels; chip_smoke.py
+# reads it to show the main path went through them.
 LAUNCHES = 0
+
+# Mirrors of csrc/dense_topk.cu's kMaxChunks and kCap: past them the kernel
+# needs a scratch row for the chosen block ids or the selected keys.
+_MAX_CHUNKS = 1024
+_CAP = 2048
 
 # Below this many docs the reference takes one masked top-k (topk.py:53).
 _HIER_MIN_DOCS = 1 << 17
@@ -152,8 +161,8 @@ def _check(acc, k, n_docs, block):
         raise ValueError(f"n_docs {n_docs} outside [0, {m}]")
     if block <= 0 or block % 128:
         raise ValueError(f"block must be a positive multiple of 128, got {block}")
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
+    if not 1 <= k <= n_docs:
+        raise ValueError(f"k must be in [1, n_docs = {n_docs}], got {k}")
 
 
 def dense_topk(acc, k: int, n_docs: int, block: int = 1024):
@@ -186,29 +195,25 @@ def dense_topk(acc, k: int, n_docs: int, block: int = 1024):
     dev = acc.device
     hier = _hierarchical(m, k, n_docs, block)
     t = m // block if hier else 0
-    kb = k if hier else 0
-    tail_start = t * block
-    tail_len = (m if hier else n_docs) - tail_start
+
+    def scratch(shape, dtype, needed):
+        return torch.empty(shape, dtype=dtype, device=dev) if needed else None
+
+    scores = torch.empty((q, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, k), dtype=torch.int32, device=dev)
+    bkeys = scratch((q, t), torch.int64, hier)
+    bi = scratch((q, k), torch.int32, hier and k > _MAX_CHUNKS)
+    sel = scratch((q, k), torch.int64, k > _CAP)
+    nsel = scratch((q,), torch.int32, k > _CAP)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if hier:
-            bkeys = torch.empty((q, t), dtype=torch.int64, device=dev)
-            err = lib.bm25_block_max_keys(
-                acc.data_ptr(), bkeys.data_ptr(), q, t, stride, block, stream
-            )
-            if err != 0:
-                raise RuntimeError(f"block-max kernel launch failed: cudaError {err}")
-            bi = (_select(bkeys, k) & _LOW32).int().sort(dim=1).values
-        else:
-            bi = torch.zeros((q, 1), dtype=torch.int32, device=dev)
-        width = kb * block + tail_len
-        keys = torch.empty((q, width), dtype=torch.int64, device=dev)
-        err = lib.bm25_gather_keys(
-            acc.data_ptr(), bi.data_ptr(), keys.data_ptr(), q, kb, block,
-            tail_start, tail_len, n_docs, stride, stream,
+        err = lib.bm25_dense_topk(
+            acc.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in (bkeys, bi, sel, nsel)),
+            scores.data_ptr(), ids.data_ptr(), q, m, n_docs, k, block, stride,
+            int(hier), stream,
         )
-        if err != 0:
-            raise RuntimeError(f"gather-keys kernel launch failed: cudaError {err}")
-        out = select_keys(keys, k)
+    if err != 0:
+        raise RuntimeError(f"dense_topk kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    return out
+    return scores, ids
