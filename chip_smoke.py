@@ -76,7 +76,9 @@ not 0 and no result line is printed):
       against it printed; ``memory_report()["total"]`` equals the
       reference's formula;
   (m) ``posting_mode="tf"``: the same with P1-tf (``tf_range_scores``)
-      and B1 held as in (l), then phase (e)'s audit (card == CPU-plain, also after deleting 1%
+      and B1 held as in (l), P1-tf timed on round 1 and on the batch's
+      last round (on the card and back to back, beside its plain version
+      and bound), then phase (e)'s audit (card == CPU-plain, also after deleting 1%
       and under a prefilter; recall@10 = 1.0 against the float64 oracle);
   (n) the exhaustive sweep ``search_rangescan_async`` on phase (d)'s f32
       engine: P1 on every chunk and S2 on the accumulator equal their
@@ -97,7 +99,10 @@ not 0 and no result line is printed):
       against it printed), with ``compact=True`` and as
       ``ExactEngine(share=<phase (d)'s BlockMaxEngine>)``: E3
       (``exact_compact_accumulate``) equals its plain version on every
-      dispatch; hit counts equal the dense f32 engine's, a rank may differ
+      dispatch, and is timed on the largest with and without its
+      accumulator's zero-fill (on the card and back to back, each beside
+      its bound; its rows must keep the planning's layout, so the parallel
+      path is the one timed); hit counts equal the dense f32 engine's, a rank may differ
       only between scores within 1e-4, scores within rtol 1e-5; the shared
       engine's tensors are Block-Max's (``data_ptr()``);
   (q) ``engine="hybrid"`` on phase (d)'s RangeIndex: (1) the default
@@ -356,6 +361,24 @@ def p1_fields(imp, loc, starts, lens, rs, out=None):
         "inactive_queries": float((lens.reshape(q, -1).amax(dim=1) <= 0).float().mean()),
         "shape": {"Q": q, "T": t, "C": c, "RS": rs,
                   "row_stride": c * rs if out is None else out.stride(0)},
+    }
+
+
+def tf_fields(a, kw):
+    """P1-tf timed on one recorded call (on the card, queued behind a
+    sleeping kernel, and back to back) beside its plain version, with its
+    bound from those inputs and the share of queries with no window."""
+    from vectorchord_bm25_tpu_torch.ops import score_kernel
+
+    starts, lens = a[6], a[7]
+    q = starts.shape[0]
+    return {
+        "ms": device_ms(lambda: score_kernel.tf_range_scores(*a, **kw)),
+        "launch_paced_ms": cuda_ms(lambda: score_kernel.tf_range_scores(*a, **kw)),
+        "plain_ms": cuda_ms(lambda: score_kernel.tf_range_scores_plain(*a, **kw), iters=5),
+        **p1_bound(a[0], starts, lens, kw["rs"]),
+        "active_lanes": int(lens.sum()),
+        "inactive_queries": float((lens.reshape(q, -1).amax(dim=1) <= 0).float().mean()),
     }
 
 
@@ -1284,10 +1307,26 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
         print(
             f"{phase} {mode}: {len(calls)} rounds, kernel == plain on every "
             f"round's windows (torch.equal); Q,T,C,RS={(*starts.shape, rs)}, "
-            f"{int(lens.sum())} active lanes in round 1: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {kb['bound_ms']:.4f} ms "
+            f"{int(lens.sum())} active lanes in round 1: kernel {ms:.4f} ms "
+            f"(back to back), plain {plain_ms:.4f} ms, bound {kb['bound_ms']:.4f} ms "
             f"({kb['bound_by']}) [{label}]"
         )
+        tf_rounds = {}
+        if mode == "tf":
+            # P1-tf on the card alone, round 1 and the batch's last round.
+            for key, (a, kw) in (("round_1", calls[0]), ("last_round", calls[-1])):
+                tf_rounds[key] = tf_fields(a, kw)
+                tf_rounds[key]["round"] = 1 if key == "round_1" else len(calls)
+            ms = tf_rounds["round_1"]["ms"]
+            for key, f in tf_rounds.items():
+                print(
+                    f"{phase} P1-tf round {f['round']}"
+                    f"{' (the last)' if key == 'last_round' else ''}: kernel "
+                    f"{f['ms']:.4f} ms on the card ({f['launch_paced_ms']:.4f} back to "
+                    f"back), plain {f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms "
+                    f"({f['bound_bytes']} B); {f['active_lanes']} active lanes, "
+                    f"{f['inactive_queries']:.4f} of queries with no window [{label}]"
+                )
         del calls
         b1_check(engine, queries, label, phase)
         qps, launches, _ = _serve(
@@ -1300,6 +1339,18 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
             f"{b1_by_phase[phase]}; QPS per batch "
             f"{[round(x, 1) for x in qps]} (median {float(np.median(qps)):.1f}) [{label}]"
         )
+        if mode == "tf":
+            # P1-tf's share of one batch (its kernel is P1's walk with the
+            # tf scorer).
+            prof = device_profile(
+                lambda: index.search_batch(queries, K), f"{phase} profile", label,
+                track=("TfScorer",),
+            )
+            if prof is not None:
+                tf_rounds["profile"] = {
+                    **prof["tracked"]["TfScorer"], "busy_ms": prof["busy_ms"],
+                    "wall_ms": prof["wall_ms"],
+                }
         # Device bytes by the reference's formula (search/blockmax.py:475-507).
         if mode == "bf16":
             want_bytes = 3 * p + meta + 4 * (n + 1)
@@ -1356,6 +1407,10 @@ def blockmax_rest(args, seg, seed, queries, ri, f32_engine, f32_cpu, label):
                 "plain_ms": plain_ms,
                 **kb,
                 "library_ms": None,
+                **({"last_round": tf_rounds["last_round"],
+                    "launch_paced_ms": tf_rounds["round_1"]["launch_paced_ms"],
+                    "profile": tf_rounds.get("profile")}
+                   if tf_rounds else {}),
             }
         )
         del index, engine, cpu
@@ -1478,6 +1533,46 @@ def e3_bound(a):
     )
 
 
+def e3_fields(a):
+    """E3 on one dispatch's arguments ``a``, on the card (queued behind a
+    sleeping kernel) and back to back: the wrapper with its zero-fill, its
+    one launch alone on an accumulator made beforehand (adding onto the
+    sums of the calls before it: the same work), and the zero-fill alone;
+    the launch's bound without the fill (each doc it touches read and
+    written once in place of the whole accumulator written); and whether
+    every row keeps the planning's layout, so the parallel path was timed."""
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel, topk
+
+    imp, loc, trr, trs, gi, go, n_ord, n_docs, rs = a
+    q = gi.shape[0]
+    acc = topk.new_accumulator(q, n_docs, gi.device)
+    touched = int((exact_kernel.exact_compact_accumulate(*a) != 0).sum())
+    whole = e3_bound(a)
+    alone = bound(
+        whole["bound_bytes"] - 4 * q * (n_docs + 1) + 8 * touched, whole["bound_ops"]
+    )
+
+    def wrapper():
+        return exact_kernel.exact_compact_accumulate(*a)
+
+    def scatter():
+        return exact_kernel.compact_scatter(acc, *a)
+
+    return {
+        "ms": device_ms(wrapper),
+        "launch_paced_ms": cuda_ms(wrapper),
+        "scatter_ms": device_ms(scatter),
+        "scatter_launch_paced_ms": cuda_ms(scatter),
+        "fill_ms": device_ms(lambda: topk.new_accumulator(q, n_docs, gi.device)),
+        "scatter_bound_ms": alone["bound_ms"],
+        "scatter_bound_bytes": alone["bound_bytes"],
+        "touched_docs": touched,
+        "rows_in_layout": bool(
+            exact_kernel.compact_rows_in_layout(gi, go, trr, n_ord, n_docs, rs).all()
+        ),
+    }
+
+
 def e2_bound(a):
     """E2 on one dispatch: each live lane's doc id and impact and its live
     and filter entries, each window's row and lanes, and one doc and one
@@ -1558,11 +1653,25 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
         print(
             f"{what}: {len(calls)} dispatches a batch, kernel == plain on every "
             f"one (torch.equal); largest {shape}, {kb['bound_bytes']} B to "
-            f"move: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (both with the "
-            f"accumulator's zero-fill), bound {kb['bound_ms']:.4f} ms "
+            f"move: kernel {ms:.4f} ms (back to back), plain {plain_ms:.4f} ms "
+            f"(both with the accumulator's zero-fill), bound {kb['bound_ms']:.4f} ms "
             f"({kb['bound_by']}) [{label}]"
         )
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kb}
+        if name != compact_name:
+            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kb}
+        f = e3_fields(big)
+        if not f["rows_in_layout"]:
+            raise AssertionError(f"{what}: a timed row is off the planning's layout")
+        print(
+            f"{what} on {shape} groups, every row on the planning's layout: with "
+            f"its zero-fill {f['ms']:.4f} ms on the card ({f['launch_paced_ms']:.4f} "
+            f"back to back), bound {kb['bound_ms']:.4f} ms; the launch alone "
+            f"{f['scatter_ms']:.4f} ms on the card ({f['scatter_launch_paced_ms']:.4f} "
+            f"back to back), bound {f['scatter_bound_ms']:.4f} ms "
+            f"({f['scatter_bound_bytes']} B, {f['touched_docs']} docs touched); the "
+            f"zero-fill alone {f['fill_ms']:.4f} ms [{label}]"
+        )
+        return {"max_abs_err": err, "plain_ms": plain_ms, **kb, **f}
 
     def entry(name, source, line, launches, by_phase, measured):
         return {
@@ -1854,14 +1963,16 @@ def exact_sparse(args, seg, batches, label, build_times):
     if not c["checked"]:
         raise AssertionError("E2 saw no dispatch")
     a = c["args"]
-    ms = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
+    ms = device_ms(lambda: c["real"](*a), iters=5, warmup=1)
+    paced_ms = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
     plain_ms = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
     kb = e2_bound(a)
     print(
         f"(r) exact_sparse_gather: {c['checked']} dispatches equal to the plain "
         f"version (torch.equal); largest {tuple(a[4].shape)} windows "
-        f"({c['size']} lanes) {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
-        f"{kb['bound_ms']:.4f} ms ({kb['bound_by']}) [{label}]"
+        f"({c['size']} lanes) {ms:.4f} ms on the card ({paced_ms:.4f} back to "
+        f"back) vs plain {plain_ms:.4f} ms, bound {kb['bound_ms']:.4f} ms "
+        f"({kb['bound_by']}) [{label}]"
     )
     c["args"] = a = None
 
@@ -1930,6 +2041,7 @@ def exact_sparse(args, seg, batches, label, build_times):
         "launches_by_phase": {"(r)": launches},
         "max_abs_err": c["err"],
         "ms": ms,
+        "launch_paced_ms": paced_ms,
         "plain_ms": plain_ms,
         **kb,
         "library_ms": None,
@@ -3216,10 +3328,10 @@ def main() -> int:
     )
     prof_d = device_profile(
         lambda: index.search_batch(queries, K), "(d) profile", label,
-        track=("round_merge", "round_select", "range_scores"),
+        track=("round_merge", "round_select", "ImpactScorer"),
     )
     p1_profile = None if prof_d is None else {
-        **prof_d["tracked"]["range_scores"], "busy_ms": prof_d["busy_ms"],
+        **prof_d["tracked"]["ImpactScorer"], "busy_ms": prof_d["busy_ms"],
         "wall_ms": prof_d["wall_ms"],
     }
 

@@ -703,6 +703,149 @@ def test_p1_design_cases_equal_plain(card, gen, case):
     if case == "all_inactive_queries":
         assert not got[::2].any() and got[1::2].any()
 
+@pytest.mark.parametrize(
+    "case", ["four_terms", "all_inactive_queries", "many_terms", "no_terms", "u16_tf",
+             "slots_past_rs", "b1_fieldnorm_zero"],
+)
+def test_p1_tf_design_cases_equal_plain(card, gen, case):
+    # P1-tf on P1's walk, on index-like windows: equal bit for bit.  With
+    # b = 1, s1_table[0] is 0; every window is full there, so no lane past
+    # a window's length (which the plain version scores as 0/0) exists.
+    rs = 64 if case == "slots_past_rs" else 128
+    t = {"many_terms": 37, "no_terms": 0}.get(case, 4)
+    q, c, n_docs = 64, 32, 5000
+    _, loc, starts, lens = _p1_unique_windows(
+        gen, q, t, c, rs, 256 if case == "slots_past_rs" else rs, card
+    )
+    p = loc.numel()
+    if case == "u16_tf":
+        tf = gen.integers(1, 1 << 16, p).astype(np.uint16).view(np.int16)
+    else:
+        tf = gen.integers(1, 256, p).astype(np.uint8)
+    fn = gen.integers(0, 256, n_docs + 1).astype(np.uint8)
+    s1 = (gen.random(256) * 3 + 0.5).astype(np.float32)
+    if case == "b1_fieldnorm_zero":
+        s1[0] = 0.0
+        fn[::3] = 0
+        lens.fill_(rs)
+    s0 = (gen.random((q, t)) * 4).astype(np.float32)
+    cand = gen.integers(0, n_docs // rs + 1, (q, c)).astype(np.int32)
+    if case == "all_inactive_queries":
+        lens[::2] = 0
+    args = [torch.from_numpy(x).to(card) for x in (tf, fn, s1, s0, cand)]
+    args = (args[0], loc, *args[1:], starts, lens)
+    before = score_kernel.TF_LAUNCHES
+    got = score_kernel.tf_range_scores(*args, rs=rs, n_docs=n_docs)
+    torch.cuda.synchronize()
+    assert score_kernel.TF_LAUNCHES == before + 1
+    want = score_kernel.tf_range_scores_plain(*args, rs=rs, n_docs=n_docs)
+    assert not want.isnan().any()
+    assert torch.equal(got, want)
+    if case == "all_inactive_queries":
+        assert not got[::2].any() and got[1::2].any()
+
+
+def _e3_index(gen, n_docs, rs, density, full=False):
+    """A compact range index as index/ranges.py lays it out: per term, its
+    (term, range) groups in range order, each with distinct ascending
+    locals below rs; ``full``: every group holds all docs of its range.
+    Returns the posting streams and group tables (pad slot M appended) and
+    the per-term group CSR."""
+    n_ranges = -(-n_docs // rs)
+    imp, loc, trr, trs, tts = [], [], [], [], [0]
+    for dens in density:
+        for r in range(n_ranges):
+            width = min(rs, n_docs - r * rs)
+            if gen.random() >= dens:
+                continue
+            n = width if full else int(gen.integers(1, min(3, width) + 1))
+            if not full and gen.random() < 0.2:
+                n = int(gen.integers(1, width + 1))
+            trr.append(r)
+            trs.append(len(loc))
+            loc.extend(np.sort(gen.choice(width, n, replace=False)).tolist())
+            imp.extend((gen.random(n) * 8).tolist())
+        tts.append(len(trr))
+    m = len(trr)
+    trr.append(2**31 - 1)
+    trs += [len(loc), len(loc)]
+    streams = (
+        np.asarray(imp + [0.0] * rs, np.float32), np.asarray(loc + [0] * rs, np.uint8),
+        np.asarray(trr, np.int32), np.asarray(trs, np.int32),
+    )
+    return streams, np.asarray(tts), m
+
+
+def _e3_rows(queries, tts, m, width=None):
+    """The planning's [q, G] matrices: each query's terms in order, a term's
+    groups in range order with its ordinal, then pads (M, -1)."""
+    rows = []
+    for terms in queries:
+        ids = [g for tok in terms for g in range(tts[tok], tts[tok + 1])]
+        ords = [o for o, tok in enumerate(terms) for _ in range(tts[tok], tts[tok + 1])]
+        rows.append((ids, ords))
+    g = width or max(8, max(len(ids) for ids, _ in rows))
+    grp_ids = np.full((len(rows), g), m, np.int32)
+    grp_ord = np.full((len(rows), g), -1, np.int32)
+    for r, (ids, ords) in enumerate(rows):
+        grp_ids[r, : len(ids)] = ids
+        grp_ord[r, : len(ords)] = ords
+    return grp_ids, grp_ord
+
+
+@pytest.mark.parametrize(
+    "case", ["groups_of_rs_postings", "row_of_only_pads", "single_query_long_row",
+             "more_than_32_ordinals", "repeated_term", "bf16_impacts",
+             "g_not_a_multiple_of_the_block", "rows_off_the_layout"],
+)
+def test_e3_design_cases_equal_plain(card, gen, case):
+    # E3's one launch on planned rows (and on rows off the planning's
+    # layout, which one thread a block serves): equal bit for bit.
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel
+
+    n_docs, rs, vocab = 3000, 128, 12
+    if case == "single_query_long_row":
+        n_docs, rs = 20000, 16  # 1,252 clamped ranges: about 157 blocks, 2 tiles
+    if case == "more_than_32_ordinals":
+        vocab = 40
+    full = case == "groups_of_rs_postings"
+    density = np.full(vocab, 0.9) if case != "repeated_term" else gen.random(vocab)
+    streams, tts, m = _e3_index(gen, n_docs, rs, density[: 3 if full else vocab], full)
+    queries = [list(gen.integers(0, len(tts) - 1, int(gen.integers(1, 6)))) for _ in range(6)]
+    queries = {
+        "row_of_only_pads": [[], [0], []],
+        "single_query_long_row": [list(range(vocab))],
+        "more_than_32_ordinals": [list(range(37)), [1, 2]],
+        "repeated_term": queries + [[3, 3, 5], [5, 3, 5]],
+        "groups_of_rs_postings": [[0, 1, 2], [2]],
+    }.get(case, queries)
+    width = None
+    if case == "g_not_a_multiple_of_the_block":
+        width = max(len(range(tts[t], tts[t + 1])) * len(qr) for qr in queries for t in qr) + 301
+    grp_ids, grp_ord = _e3_rows(queries, tts, m, width)
+    if case == "rows_off_the_layout":
+        for r in (1, 3):
+            perm = gen.permutation(grp_ids.shape[1])
+            grp_ids[r], grp_ord[r] = grp_ids[r, perm], grp_ord[r, perm]
+    imp, loc, trr, trs = (torch.from_numpy(x).to(card) for x in streams)
+    if case == "bf16_impacts":
+        imp = imp.to(torch.bfloat16)
+    gi, go = torch.from_numpy(grp_ids).to(card), torch.from_numpy(grp_ord).to(card)
+    n_ord = int(grp_ord.max()) + 1
+    in_layout = exact_kernel.compact_rows_in_layout(gi, go, trr, n_ord, n_docs, rs)
+    assert bool(in_layout.all()) == (case != "rows_off_the_layout")
+    if full:
+        assert int((trs[1:-1] - trs[:-2]).max()) == rs
+    args = (imp, loc, trr, trs, gi, go, n_ord, n_docs, rs)
+    before = exact_kernel.COMPACT_LAUNCHES
+    got = exact_kernel.exact_compact_accumulate(*args)
+    torch.cuda.synchronize()
+    assert exact_kernel.COMPACT_LAUNCHES == before + (1 if n_ord else 0)
+    want = exact_kernel.exact_compact_accumulate_plain(*args)
+    assert torch.equal(got, want)
+    assert got.any() or case == "row_of_only_pads"
+
+
 def test_launch_failure_raises(card, monkeypatch):
     # A nonzero CUDA error from the library raises; nothing falls back.
     from vectorchord_bm25_tpu_torch.ops import _build
@@ -722,6 +865,29 @@ def test_launch_failure_raises(card, monkeypatch):
             loc, loc, loc, torch.zeros(256, device=card),
             torch.zeros((1, 1), device=card), st[0], st, st, rs=128, n_docs=255,
         )
+
+
+def test_e3_launch_failure_raises(card, monkeypatch):
+    # E3's one launch: a nonzero CUDA error raises and counts no launch.
+    from vectorchord_bm25_tpu_torch.ops import _build, exact_kernel
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *a: 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_build, "library", lambda: Failing())
+    imp = torch.zeros(64, device=card)
+    loc = torch.zeros(64, dtype=torch.uint8, device=card)
+    trr = torch.tensor([0, 2**31 - 1], dtype=torch.int32, device=card)
+    trs = torch.tensor([0, 3, 3], dtype=torch.int32, device=card)
+    gi = torch.tensor([[0, 1]], dtype=torch.int32, device=card)
+    go = torch.tensor([[0, -1]], dtype=torch.int32, device=card)
+    before = exact_kernel.COMPACT_LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        exact_kernel.exact_compact_accumulate(imp, loc, trr, trs, gi, go, 1, 200, 128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        exact_kernel.exact_compact_accumulate(imp.bfloat16(), loc, trr, trs, gi, go, 1, 200, 128)
+    assert exact_kernel.COMPACT_LAUNCHES == before
 
 
 # --- the exact engine's kernels E1-E3 and the hybrid engine's routes

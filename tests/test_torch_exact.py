@@ -237,6 +237,108 @@ def test_term_ordinals(lockstep_case):
     assert set(wo[repeated][wo[repeated] >= 0].tolist()) == {0, 1, 2}
 
 
+def layout_ok_numpy(grp_ids, grp_ord, tr_range, n_ord, n_docs, rs):
+    """E3's layout rule (csrc/exact_compact.cu, L1 and L2), entry by entry:
+    (ordinal, clamped range) strictly rises over a row's groups with an
+    ordinal in [0, n_ord), which come before every other entry."""
+    cap = n_docs // rs + 1
+    out = []
+    for ids, ords in zip(np.asarray(grp_ids).tolist(), np.asarray(grp_ord).tolist()):
+        ok, prev = True, (-1, 0)
+        for g, o in zip(ids, ords):
+            if not 0 <= o < n_ord:
+                prev = None
+                continue
+            r = int(tr_range[g]) if 0 <= g < len(tr_range) else -1
+            cur = (o, min(r, cap) if r >= 0 else -1)
+            ok &= prev is not None and prev < cur
+            prev = cur
+        out.append(ok)
+    return np.array(out)
+
+
+def assert_compact_layout(grp_ids, grp_ord, tr_range, n_docs, rs):
+    """What E3 relies on, on a planned group matrix: each row's ordinals in
+    non-decreasing runs with every pad (-1) at the end, and inside one
+    ordinal the groups' ranges strictly rising."""
+    tr_range = np.asarray(tr_range)
+    n_ord = int(grp_ord.max(initial=-1)) + 1
+    for ids, ords in zip(grp_ids, grp_ord):
+        n_real = int((ords >= 0).sum())
+        assert (ords[n_real:] == -1).all() and (ords[:n_real] >= 0).all()
+        real_ords, real_ids = ords[:n_real], ids[:n_real].astype(np.int64)
+        assert (np.diff(real_ords) >= 0).all()
+        ranges = tr_range[real_ids]
+        same = real_ords[1:] == real_ords[:-1]
+        assert (np.diff(ranges)[same] > 0).all()
+    args = (grp_ids, grp_ord, tr_range, n_ord, n_docs, rs)
+    assert layout_ok_numpy(*args).all()
+    assert exact_kernel.compact_rows_in_layout(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in args[:3]), *args[3:]
+    ).all()
+
+
+@pytest.mark.parametrize("subset", [False, True])
+@pytest.mark.parametrize("corpus", ["random", "synth"])
+def test_compact_layout_of_planning(lockstep_case, corpus, subset):
+    # The rows `_assemble_compact` writes keep E3's layout, on a random
+    # corpus (with a repeated and an absent term) and a synthetic one, for
+    # the whole batch and for a dispatch's subset of it.
+    if corpus == "random":
+        seg, queries, _, _ = lockstep_case
+    else:
+        from vectorchord_bm25_tpu_torch.data.synth import (
+            synth_corpus_postings, synth_queries_fast,
+        )
+
+        keys, doc_ids, tfs, doc_start = synth_corpus_postings(4096, 3000, 40, seed=3)
+        seg = build_sealed_segment_from_postings(keys, doc_ids, tfs, 4096, doc_grouped=True)
+        queries = synth_queries_fast(keys, doc_start, seg, 64, seed=4)
+    _, port = both(seg, compact=True)
+    lists = port._grp_lists(queries)
+    sub = np.arange(len(queries))
+    if subset:
+        sub = np.sort(np.random.default_rng(5).choice(len(queries), len(queries) // 2, replace=False))
+    grp_ids, grp_ord = port._assemble_compact(lists, sub)
+    assert (grp_ord >= 0).any()
+    assert_compact_layout(
+        grp_ids, grp_ord, port._ranges.tr_range, seg.n_docs, port._ranges.range_size
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compact_layout_check_matches_numpy(lockstep_case, seed):
+    # `compact_rows_in_layout` against the entry-by-entry walk, on planned
+    # rows with entries swapped, ordinals and ids past their ranges, and
+    # pads moved forward.
+    seg, queries, _, _ = lockstep_case
+    _, port = both(seg, compact=True)
+    grp_ids, grp_ord = port._prepare_compact(queries)
+    tr_range = port._ranges.tr_range
+    rng = np.random.default_rng(seed)
+    q, g = grp_ids.shape
+    for row in rng.choice(q, q // 2, replace=False):
+        i, j = rng.integers(0, g, 2)
+        kind = rng.integers(0, 4)
+        if kind == 0:
+            grp_ids[row, [i, j]] = grp_ids[row, [j, i]]
+            grp_ord[row, [i, j]] = grp_ord[row, [j, i]]
+        elif kind == 1:
+            grp_ord[row, i] = rng.integers(-3, int(grp_ord.max()) + 3)
+        elif kind == 2:
+            grp_ids[row, i] = rng.integers(-2, tr_range.size + 2)
+        else:
+            grp_ord[row, : i + 1] = -1
+    n_ord = int(grp_ord.max()) + 1
+    want = layout_ok_numpy(grp_ids, grp_ord, tr_range, n_ord, seg.n_docs, port._ranges.range_size)
+    got = exact_kernel.compact_rows_in_layout(
+        torch.from_numpy(grp_ids), torch.from_numpy(grp_ord), torch.from_numpy(tr_range),
+        n_ord, seg.n_docs, port._ranges.range_size,
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
+
+
 def test_wrappers_check_inputs():
     pd = torch.zeros((3, 128), dtype=torch.int32)
     pi = torch.zeros((3, 128))

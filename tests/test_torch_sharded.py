@@ -360,6 +360,35 @@ def test_maxscore_per_shard_fallback(synth16k, monkeypatch):
     assert st["fallback_windows_skipped"] > 0 and st["fallback_windows_scanned"] > 0, st
 
 
+@pytest.mark.parametrize("source", ["random", "synth"])
+def test_compact_layout_of_sharded_planning(corpus, synth16k, source):
+    # The group matrices the sharded `_prepare_compact` writes keep, in
+    # every shard, the layout E3 relies on (csrc/exact_compact.cu).
+    from test_torch_exact import assert_compact_layout
+
+    gen = np.random.default_rng(11)
+    if source == "random":
+        docs, ids, _, _ = corpus
+        built = ShardedIndex.build(port_docs(docs), 8, device="cpu", engine="hybrid")
+    else:
+        keys, doc_ids, tfs, doc_start = synth16k
+        built = ShardedIndex.build_from_postings(
+            keys, doc_ids, tfs, doc_start, 8, device="cpu", engine="hybrid",
+            device_build=False,
+        )
+        ids = [gen.integers(0, 300, size=int(n)).tolist() for n in gen.integers(1, 6, size=24)]
+    index = ShardedIndex(
+        [v.segment for v in built.views], built.options, device="cpu",
+        engine="hybrid", memory_mode="compact", seed=built.seed,
+    )
+    grp_ids, grp_ord = index._prepare_compact([Query.from_int_ids(q) for q in ids])
+    assert (grp_ord >= 0).any()
+    for si in range(index.n_shards):
+        assert_compact_layout(
+            grp_ids[si], grp_ord[si], index.dev_bm_tr_range[si].numpy(), index._nmax, index._rs
+        )
+
+
 @pytest.mark.parametrize("entry", ["documents", "postings"])
 def test_host_build_equals_device_build_and_reference(mesh8, entry):
     gen = np.random.default_rng(9)

@@ -15,43 +15,13 @@
 // (search/blockmax.py::_rangescan_kernel) writes each chunk straight into
 // its [Q, n_chunks * C * RS] accumulator.
 //
-// Design.  Eight warps a block.  A warp works on two (query, range) rows
-// at once, sixteen lanes each, and keeps their 256 f32 slot accumulators
-// in shared memory (RS <= 256: index/ranges.py caps range-local ids at one
-// byte).  The first version of this kernel gave a row a block of RS
-// threads and walked its terms one by one: a dependent load of the term's
-// start and length, the posting loads, a shared atomic, a block barrier,
-// four such chains in series at T = 4, with about 10 of 128 threads active
-// (5,103,349 active lanes over 524,288 (row, term) pairs in round 1 at
-// Q=4096, C=32).  Now:
-//   - a warp walks 32 / T consecutive rows (at most 8), and one load brings
-//     the starts and lengths of all of them (lane r * T + t holds term t
-//     of row r; they are C apart in [Q, T, C]); each half-warp reads its
-//     row's by shuffle;
-//   - a row whose lengths are all 0 writes its zero row with 16-B stores
-//     and reads nothing else (most rows of a later round);
-//   - window lane `sub` of four terms loads before the first add, so four
-//     dependent chains become one; lanes past 16 of a long window load
-//     three at a time;
-//   - the adds run term by term in ascending t, a __syncwarp between terms,
-//     as shared-memory atomics (the GPU's native scatter: the TPU kernel
-//     built a one-hot matmul for the MXU instead);
-//   - the rows leave shared memory in 16-B stores where the output allows.
-// The loads wait on latency, not bytes (bf16 impacts take as long as
-// f32): sixteen lanes a row cover a typical window (about 10 postings) and
-// put twice the rows in flight of a warp a row.  Eight lanes a row,
-// pipelining the next row's loads behind this row's adds, and a launch
-// bound of eight blocks an SM ran slower (PERF.md, section 6).
+// Design: the warp-row walk of range_rows.cuh (two rows a warp, sixteen
+// lanes a row, all the warp's starts and lengths in one load, four terms'
+// posting loads before the first add, all-zero rows written straight),
+// instantiated with a scorer that reads the stored impact.  P1-tf
+// (tf_range_scores.cu) instantiates the same walk with the tf rebuild.
 // Mosaic's slice-alignment rule kept the gather out of the Pallas kernel;
 // CUDA has no such rule, so the gather and the length mask are fused here.
-//
-// Exactness.  On index data the range-local slots inside one (term,
-// range) group are unique (postings are doc-ascending), so no two lanes
-// ever add to one slot within a term and each slot sums its terms in
-// ascending t from 0.  That is the order of the one-hot matmul (one nonzero
-// per slot per term) and of the plain PyTorch version, so the result is
-// equal bit for bit.  Inputs with duplicate slots in one window (random
-// tests) add in atomic order and agree to f32 rounding.
 //
 // Bound.  Each active lane reads 5 B (f32 impact + u8 slot; 3 B with bf16),
 // each row its 8 * T B of starts and lengths, and writes 4 * RS B; one add a
@@ -60,175 +30,28 @@
 // round (Q=4096, T=4, C=32) and about 1.3 times in a later round, whose
 // bound is the zero rows it writes.
 
-#include "impact.cuh"
+#include "range_rows.cuh"
 
 namespace {
 
-constexpr int kMaxRangeSize = 256;
-constexpr int kRowWarps = 8;     // warps a block
-constexpr int kMaxRowsPerWarp = 8;
-constexpr int kTermBatch = 4;    // terms whose first posting loads issue together
-constexpr int kRowLanes = 16;    // lanes a row: a warp works on 32 / kRowLanes rows at once
-constexpr int kRowsAtOnce = 32 / kRowLanes;
-constexpr unsigned kFull = 0xFFFFFFFFu;
+namespace rr = bm25::range_rows;
 
-// Rows a warp walks: as many as leave one lane for each (row, term) of
-// them, so one load brings all their starts and lengths (8 rows at T <= 4).
-int rows_per_warp(int n_terms) {
-  if (n_terms > 32) return 1;
-  const int fit = 32 / (n_terms > 1 ? n_terms : 1);
-  return fit < kMaxRowsPerWarp ? fit : kMaxRowsPerWarp;
-}
-
+// The stored impact is the posting's score.
 template <typename Impact>
-__global__ void __launch_bounds__(kRowWarps * 32) fused_range_scores_kernel(
-    const Impact* __restrict__ post_impact,  // [P]
-    const uint8_t* __restrict__ post_local,  // [P]
-    const int32_t* __restrict__ starts,      // [Q, T, C]
-    const int32_t* __restrict__ lens,        // [Q, T, C]
-    float* __restrict__ out,                 // [Q, *] rows of C * RS
-    long long n_rows, int n_terms, int chunk, int rs, long long out_stride,
-    int vec_out, int rows_per) {
-  __shared__ __align__(16) float acc_all[kRowWarps][kRowsAtOnce][kMaxRangeSize];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int half = lane / kRowLanes;  // this lane's row of those at once
-  const int sub = lane % kRowLanes;   // its lane in that row
-  const long long first =
-      (static_cast<long long>(blockIdx.x) * kRowWarps + warp) * rows_per;
-  if (first >= n_rows) return;  // a whole warp: no block barrier below
-  const long long end = min(first + rows_per, n_rows);
-  float* acc = acc_all[warp][half];
-  const int group = max(1, min(n_terms, 32));  // terms a meta load covers
-
-  // Lane l holds term l % group of row first + l / group (rows_per * group
-  // <= 32), or of the current row's later term groups past 32 terms.
-  auto load_meta = [&](long long row, int t, int* start, int* len) {
-    *start = 0;
-    *len = 0;
-    if (row < end && t < n_terms) {
-      const long long q = row / chunk;
-      const int64_t m = (q * n_terms + t) * chunk + (row - q * chunk);
-      *start = starts[m];
-      *len = lens[m];
-    }
+struct ImpactScorer {
+  static constexpr bool kRebuilds = false;
+  struct Shared {
+    char unused;
   };
-  int m_start, m_len;
-  load_meta(lane < rows_per * group ? first + lane / group : end, lane % group,
-            &m_start, &m_len);
+  const Impact* __restrict__ post_impact;  // [P]
 
-  // Window lanes sub, sub + kRowLanes, ... of terms tb .. tb + 3 of this
-  // lane's row, whose metadata sits in lanes base + t; the first loads of the four
-  // terms issue before any add.
-  struct Batch {
-    float v[kTermBatch];
-    int slot[kTermBatch], n[kTermBatch], st[kTermBatch];
-  };
-  auto load_batch = [&](int base, int tb, int nt, Batch& b) {
-#pragma unroll
-    for (int j = 0; j < kTermBatch; ++j) {
-      const int tt = tb + j;
-      const int src = (base + tt) & 31;
-      const int len = __shfl_sync(kFull, m_len, src);
-      b.st[j] = __shfl_sync(kFull, m_start, src);
-      b.n[j] = tt < nt ? min(len, rs) : 0;
-      b.slot[j] = -1;
-      if (sub < b.n[j]) {
-        const int64_t p = static_cast<int64_t>(b.st[j]) + sub;
-        b.v[j] = bm25::widen(post_impact[p]);
-        b.slot[j] = post_local[p];
-      }
-    }
-  };
-  // The adds, term by term in ascending t.
-  auto add_batch = [&](const Batch& b) {
-#pragma unroll
-    for (int j = 0; j < kTermBatch; ++j) {
-      // A u8 slot stays inside the 256-entry acc.  Slots in [RS, 256)
-      // land in entries that are never written out, so they are dropped,
-      // as the TPU kernel's one-hot matmul drops them.
-      if (b.slot[j] >= 0) atomicAdd(&acc[b.slot[j]], b.v[j]);
-      // Longer windows: three loads in flight.
-      for (int pos0 = kRowLanes; pos0 < b.n[j]; pos0 += 3 * kRowLanes) {
-        float w[3];
-        int ws[3];
-#pragma unroll
-        for (int u = 0; u < 3; ++u) {
-          const int pos = pos0 + kRowLanes * u + sub;
-          ws[u] = -1;
-          if (pos < b.n[j]) {
-            const int64_t p = static_cast<int64_t>(b.st[j]) + pos;
-            w[u] = bm25::widen(post_impact[p]);
-            ws[u] = post_local[p];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 3; ++u) {
-          if (ws[u] >= 0) atomicAdd(&acc[ws[u]], w[u]);
-        }
-      }
-      __syncwarp();  // term t's adds land before term t + 1's
-    }
-  };
-
-  // kRowsAtOnce rows at a time, kRowLanes lanes each.
-  for (long long pair = first; pair < end; pair += kRowsAtOnce) {
-    const long long row = pair + half;
-    const int r = static_cast<int>(row - first);
-    bool live = false;
-    for (int t0 = 0; t0 < n_terms; t0 += 32) {
-      int base = r * group;  // the lane holding term t0 of this row
-      if (t0 > 0) {         // rows_per == 1: the next 32 terms, row 0
-        load_meta(pair, t0 + lane, &m_start, &m_len);
-        base = 0;
-      }
-      const int nt = row < end ? min(32, n_terms - t0) : 0;
-      const unsigned any = __ballot_sync(kFull, m_len > 0);
-      const unsigned bits = nt == 32 ? kFull : (1u << nt) - 1u;
-      const bool act = nt > 0 && ((any >> base) & bits) != 0u;
-      if (!__any_sync(kFull, act)) continue;
-      if (act && !live) {
-        for (int s = sub; s < kMaxRangeSize; s += kRowLanes) acc[s] = 0.0f;
-        live = true;
-      }
-      __syncwarp();
-      const int n_batch = __reduce_max_sync(kFull, act ? nt : 0);
-      for (int tb = 0; tb < n_batch; tb += kTermBatch) {
-        Batch b;
-        load_batch(base, tb, act ? nt : 0, b);
-        add_batch(b);
-      }
-    }
-
-    if (row < end) {
-      const long long q = row / chunk;
-      float* dst = out + q * out_stride + (row - q * chunk) * rs;
-      if (vec_out) {
-        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        for (int s = 4 * sub; s < rs; s += 4 * kRowLanes) {
-          reinterpret_cast<float4*>(dst + s)[0] =
-              live ? reinterpret_cast<const float4*>(acc + s)[0] : zero;
-        }
-      } else {
-        for (int s = sub; s < rs; s += kRowLanes) dst[s] = live ? acc[s] : 0.0f;
-      }
-    }
-    __syncwarp();  // the rows are read out before the next ones zero acc
-  }
-}
-
-template <typename Impact>
-cudaError_t launch(const Impact* imp, const uint8_t* loc, const int32_t* st,
-                   const int32_t* ln, float* o, long long rows, int n_terms,
-                   int chunk, int rs, long long out_stride, int vec_out,
-                   cudaStream_t s) {
-  const int per = rows_per_warp(n_terms);
-  const long long rows_a_block = static_cast<long long>(kRowWarps) * per;
-  const unsigned grid = static_cast<unsigned>((rows + rows_a_block - 1) / rows_a_block);
-  fused_range_scores_kernel<Impact><<<grid, kRowWarps * 32, 0, s>>>(
-      imp, loc, st, ln, o, rows, n_terms, chunk, rs, out_stride, vec_out, per);
-  return cudaGetLastError();
-}
+  __device__ void stage(Shared&) const {}
+  __device__ int row_base(long long) const { return 0; }
+  __device__ float term(int64_t) const { return 0.0f; }
+  __device__ float value(int64_t p) const { return bm25::widen(post_impact[p]); }
+  __device__ int gather(int, int) const { return 0; }
+  __device__ float score(float v, int, float, const Shared&) const { return v; }
+};
 
 }  // namespace
 
@@ -238,7 +61,7 @@ extern "C" int bm25_fused_range_scores(
     const void* post_impact, const void* post_local, const void* starts,
     const void* lens, void* out, int n_queries, int n_terms, int chunk,
     int rs, long long out_stride, int impact_bf16, void* stream) {
-  if (rs < 1 || rs > kMaxRangeSize) return static_cast<int>(cudaErrorInvalidValue);
+  if (rs < 1 || rs > rr::kMaxRangeSize) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(n_queries) * chunk;
   if (rows == 0) return 0;
   const int vec_out = reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
@@ -250,9 +73,12 @@ extern "C" int bm25_fused_range_scores(
   float* o = static_cast<float*>(out);
   const cudaError_t err =
       impact_bf16
-          ? launch(static_cast<const __nv_bfloat16*>(post_impact), loc, st, ln,
-                   o, rows, n_terms, chunk, rs, out_stride, vec_out, s)
-          : launch(static_cast<const float*>(post_impact), loc, st, ln, o, rows,
-                   n_terms, chunk, rs, out_stride, vec_out, s);
+          ? rr::launch(ImpactScorer<__nv_bfloat16>{
+                           static_cast<const __nv_bfloat16*>(post_impact)},
+                       loc, st, ln, o, rows, n_terms, chunk, rs, out_stride,
+                       vec_out, s)
+          : rr::launch(ImpactScorer<float>{static_cast<const float*>(post_impact)},
+                       loc, st, ln, o, rows, n_terms, chunk, rs, out_stride,
+                       vec_out, s);
   return static_cast<int>(err);
 }

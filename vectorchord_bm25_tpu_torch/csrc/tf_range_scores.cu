@@ -13,16 +13,18 @@
 //
 //     out[q, c, slot] = sum_t sum_{lane < lens[q,t,c], local == slot} score
 //
-// Design: P1's (csrc/score_kernel.cu).  One block per (query, candidate
-// range) row, one thread per slot, the RS f32 accumulators and the
-// 256-entry s1 table in shared memory; terms in ascending t with a barrier
-// between them, a shared-memory atomicAdd as the scatter.  Each lane does
-// one u8/u16 load, one u8 slot load, one u8 fieldnorm load (a gather over
-// the [N+1] table, L2-resident at the engine's sizes) and an IEEE
-// multiply, add and divide in the reference's order (__fmul_rn,
-// __fadd_rn, __fdiv_rn; the library is built without fast math), so each
-// score is the reference's f32 expression bit for bit.
-//
+// Design: P1's warp-row walk (range_rows.cuh) instantiated with a scorer
+// that rebuilds each score.  Per row it adds one load (the candidate
+// range, with the starts and lengths), per (row, term) one (s0), per
+// posting a u8 fieldnorm gather over the [N+1] table (L2-resident at the
+// engine's sizes), issued for four terms together after their posting
+// loads, and an IEEE multiply, add and divide in the reference's order
+// (__fmul_rn, __fadd_rn, __fdiv_rn; the library is built without fast
+// math), so each score is the reference's f32 expression bit for bit.
+// The 1 KB s1 table is staged in shared memory once a block (64 rows at
+// T <= 4); the first design copied it once a row, 134 MB of L2 reads in a
+// first round (Q=4096, C=32), more than the kernel's whole DRAM bound.
+
 // Lanes at or past a window's length add 0 / s1 = +0.0 (tf = 0) in the
 // reference; adding +0.0 to a non-negative sum changes no bit, so the
 // kernel skips them.  (With b = 1, s1_table[0] is 0 and such a lane adds
@@ -36,55 +38,51 @@
 // one divide; the row writes 4*RS B.  Memory traffic bounds it, as P1;
 // the divide is far below the card's f32 rate.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "range_rows.cuh"
 
 namespace {
 
-constexpr int kMaxRangeSize = 256;
+namespace rr = bm25::range_rows;
 constexpr int kFieldnorms = 256;
 
+// tf * s0 / (tf + s1[fieldnorm of the posting's doc]).
 template <typename Tf>
-__global__ void tf_range_scores_kernel(
-    const Tf* __restrict__ post_tf,          // [P]
-    const uint8_t* __restrict__ post_local,  // [P]
-    const uint8_t* __restrict__ doc_fn,      // [N+1]
-    const float* __restrict__ s1_table,      // [256]
-    const float* __restrict__ q_s0,          // [Q, T]
-    const int32_t* __restrict__ cand_r,      // [Q, C]
-    const int32_t* __restrict__ starts,      // [Q, T, C]
-    const int32_t* __restrict__ lens,        // [Q, T, C]
-    float* __restrict__ out,                 // [Q, C, RS]
-    int n_terms, int chunk, int rs, int n_docs) {
-  __shared__ float acc[kMaxRangeSize];
-  __shared__ float s1[kFieldnorms];
-  const int row = blockIdx.x;  // q * C + c
-  const int q = row / chunk;
-  const int c = row - q * chunk;
-  const int lane = threadIdx.x;
+struct TfScorer {
+  static constexpr bool kRebuilds = true;
+  struct Shared {
+    float s1[kFieldnorms];
+  };
+  const Tf* __restrict__ post_tf;          // [P]
+  const uint8_t* __restrict__ doc_fn;      // [N+1]
+  const float* __restrict__ s1_table;      // [256]
+  const float* __restrict__ q_s0;          // [Q, T]
+  const int32_t* __restrict__ cand_r;      // [Q, C] = one entry a row
+  int rs, n_docs;
 
-  acc[lane] = 0.0f;
-  for (int i = lane; i < kFieldnorms; i += blockDim.x) s1[i] = s1_table[i];
-  const int base_doc = cand_r[row] * rs;
-  __syncthreads();
-  for (int t = 0; t < n_terms; ++t) {
-    const int64_t meta = (static_cast<int64_t>(q) * n_terms + t) * chunk + c;
-    const int len = lens[meta];
-    if (lane < len) {
-      const int64_t p = static_cast<int64_t>(starts[meta]) + lane;
-      const int local = post_local[p];
-      const float tf = static_cast<float>(post_tf[p]);
-      const int doc = min(base_doc + local, n_docs);
-      const float s0 = q_s0[static_cast<int64_t>(q) * n_terms + t];
-      const float score =
-          __fdiv_rn(__fmul_rn(tf, s0), __fadd_rn(tf, s1[doc_fn[doc]]));
-      // Slots in [RS, 256) are never written out: dropped, as the
-      // reference's scatter drops out-of-range slots.
-      atomicAdd(&acc[local], score);
-    }
-    __syncthreads();
+  __device__ void stage(Shared& sh) const {
+    for (int i = threadIdx.x; i < kFieldnorms; i += blockDim.x) sh.s1[i] = s1_table[i];
   }
-  out[static_cast<int64_t>(row) * rs + lane] = acc[lane];
+  __device__ int row_base(long long row) const { return cand_r[row] * rs; }
+  __device__ float term(int64_t qt) const { return q_s0[qt]; }
+  __device__ float value(int64_t p) const { return static_cast<float>(post_tf[p]); }
+  __device__ int gather(int base, int slot) const {
+    return doc_fn[min(base + slot, n_docs)];
+  }
+  __device__ float score(float tf, int fn, float s0, const Shared& sh) const {
+    return __fdiv_rn(__fmul_rn(tf, s0), __fadd_rn(tf, sh.s1[fn]));
+  }
+};
+
+template <typename Tf>
+cudaError_t launch(const void* post_tf, const uint8_t* loc, const uint8_t* fn,
+                   const float* s1, const float* s0, const int32_t* cr,
+                   const int32_t* st, const int32_t* ln, float* o,
+                   long long rows, int n_terms, int chunk, int rs, int n_docs,
+                   cudaStream_t s) {
+  const TfScorer<Tf> scorer{static_cast<const Tf*>(post_tf), fn, s1, s0, cr, rs, n_docs};
+  const int vec_out = reinterpret_cast<uintptr_t>(o) % 16 == 0 && rs % 4 == 0;
+  return rr::launch(scorer, loc, st, ln, o, rows, n_terms, chunk, rs,
+                    static_cast<long long>(chunk) * rs, vec_out, s);
 }
 
 }  // namespace
@@ -95,10 +93,9 @@ extern "C" int bm25_tf_range_scores(
     const void* s1_table, const void* q_s0, const void* cand_r,
     const void* starts, const void* lens, void* out, int n_queries,
     int n_terms, int chunk, int rs, int n_docs, int tf_u16, void* stream) {
-  if (rs < 1 || rs > kMaxRangeSize) return static_cast<int>(cudaErrorInvalidValue);
+  if (rs < 1 || rs > rr::kMaxRangeSize) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(n_queries) * chunk;
   if (rows == 0) return 0;
-  const dim3 grid(static_cast<unsigned int>(rows));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* loc = static_cast<const uint8_t*>(post_local);
   const uint8_t* fn = static_cast<const uint8_t*>(doc_fn);
@@ -108,14 +105,10 @@ extern "C" int bm25_tf_range_scores(
   const int32_t* st = static_cast<const int32_t*>(starts);
   const int32_t* ln = static_cast<const int32_t*>(lens);
   float* o = static_cast<float*>(out);
-  if (tf_u16) {
-    tf_range_scores_kernel<uint16_t><<<grid, rs, 0, s>>>(
-        static_cast<const uint16_t*>(post_tf), loc, fn, s1, s0, cr, st, ln,
-        o, n_terms, chunk, rs, n_docs);
-  } else {
-    tf_range_scores_kernel<uint8_t><<<grid, rs, 0, s>>>(
-        static_cast<const uint8_t*>(post_tf), loc, fn, s1, s0, cr, st, ln, o,
-        n_terms, chunk, rs, n_docs);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      tf_u16 ? launch<uint16_t>(post_tf, loc, fn, s1, s0, cr, st, ln, o, rows,
+                                n_terms, chunk, rs, n_docs, s)
+             : launch<uint8_t>(post_tf, loc, fn, s1, s0, cr, st, ln, o, rows,
+                               n_terms, chunk, rs, n_docs, s);
+  return static_cast<int>(err);
 }

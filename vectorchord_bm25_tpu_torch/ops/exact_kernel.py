@@ -22,12 +22,17 @@ PyTorch version beside it, which the CPU tests hold against the reference.
 
 Exactness.  The reference's scatter-add adds each (query, doc)'s terms in
 window order, which is term order inside a query.  E1 and E3 take each
-window's term ordinal and launch once per ordinal, ascending, every launch
-over the whole window matrix (a warp whose window carries another ordinal
-leaves at once, so nothing is sorted on the host): inside one ordinal a
-(query, doc) is hit at most once, since a term's postings are unique per
-doc, so the adds land in the reference's order with no atomics.  Kernels,
-plain versions and reference agree bit for bit.
+window's term ordinal.  E1 launches once per ordinal, ascending, every
+launch over the whole window matrix (a warp whose window carries another
+ordinal leaves at once, so nothing is sorted on the host).  E3 launches
+once: a block owns one query's slice of the doc axis and walks the
+ordinals in ascending order inside it, on the planning's layout (each
+row's ordinals in non-decreasing runs, pads last, ranges rising inside an
+ordinal; a row off that layout is served in the reference's order by one
+thread).  Inside one ordinal a (query, doc) is hit at most once, since a
+term's postings are unique per doc, so the adds land in the reference's
+order with no atomics.  Kernels, plain versions and reference agree bit
+for bit.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from .stream_sparse import sparse_lanes_topk
 from .topk import new_accumulator
 
 __all__ = [
+    "compact_rows_in_layout",
+    "compact_scatter",
     "exact_compact_accumulate",
     "exact_compact_accumulate_plain",
     "exact_dense_accumulate",
@@ -48,8 +55,8 @@ __all__ = [
     "exact_sparse_topk",
 ]
 
-# CUDA kernel launches: E1 on f32 and on bf16 rows and E3 (one per term
-# ordinal of a dispatch), and E2 (one per dispatch).  chip_smoke.py reads
+# CUDA kernel launches: E1 on f32 and on bf16 rows (one per term ordinal
+# of a dispatch), E2 and E3 (one per dispatch).  chip_smoke.py reads
 # them to show the main path went through the kernels.
 DENSE_LAUNCHES = 0
 DENSE_BF16_LAUNCHES = 0
@@ -58,6 +65,7 @@ COMPACT_LAUNCHES = 0
 
 ROW = 128  # lanes per posting row (index/sealed.py BLOCK)
 _IMPACT = (torch.float32, torch.bfloat16)
+_INT_MAX = (1 << 31) - 1
 
 
 def _check_ordinals(ords, like, n_ord, name):
@@ -304,6 +312,24 @@ def exact_compact_accumulate_plain(
     return acc
 
 
+def compact_rows_in_layout(grp_ids, grp_ord, tr_range, n_ord: int, n_docs: int, range_size: int):
+    """[q] bool: whether each row of a group matrix keeps the layout E3's
+    parallel path relies on (``csrc/exact_compact.cu``, L1 and L2): the
+    groups with an ordinal in [0, n_ord) first, in non-decreasing ordinal
+    order, pads after them, and inside one ordinal clamped ranges that
+    strictly rise.  The kernel serves any other row with one thread a
+    block, in the reference's order."""
+    real = (grp_ord >= 0) & (grp_ord < n_ord)
+    g = grp_ids.long()
+    known = real & (g >= 0) & (g < tr_range.numel())
+    r = tr_range[g.clamp(0, tr_range.numel() - 1)]
+    rng = torch.where(known & (r >= 0), r.clamp_max(n_docs // range_size + 1), -1)
+    key = torch.where(real, grp_ord, _INT_MAX)
+    po, co, pr, cr = key[:, :-1], key[:, 1:], rng[:, :-1], rng[:, 1:]
+    follows = (po < co) | ((po == co) & (pr < cr))
+    return ((co == _INT_MAX) | ((po != _INT_MAX) & follows)).all(dim=1)
+
+
 def exact_compact_accumulate(
     post_impact, post_local, tr_range, tr_start, grp_ids, grp_ord, n_ord: int,
     n_docs: int, range_size: int,
@@ -316,11 +342,8 @@ def exact_compact_accumulate(
     grp_ids [q, G] int32 (term, range) group ids (pad = M); grp_ord [q, G]
     int32, each group's term ordinal inside its query, -1 for a pad; n_ord,
     one more than the largest ordinal.  The live mask and the filter are
-    the caller's, after the sum.  A CUDA
-    tensor launches the kernel once per ordinal, ascending, or raises; a CPU
-    tensor runs the plain version."""
-    global COMPACT_LAUNCHES
-
+    the caller's, after the sum.  A CUDA tensor launches the kernel once
+    (none for n_ord = 0) or raises; a CPU tensor runs the plain version."""
     _check_compact(post_impact, post_local, tr_range, tr_start, grp_ids, range_size)
     _check_ordinals(grp_ord, grp_ids, n_ord, "grp_ord")
     args = (
@@ -331,28 +354,50 @@ def exact_compact_accumulate(
         return exact_compact_accumulate_plain(*args)
     if post_impact.device.type != "cuda":
         raise ValueError(f"unsupported device {post_impact.device}")
+    return compact_scatter(new_accumulator(grp_ids.shape[0], n_docs, post_impact.device), *args)
+
+
+def compact_scatter(
+    acc, post_impact, post_local, tr_range, tr_start, grp_ids, grp_ord,
+    n_ord: int, n_docs: int, range_size: int,
+):
+    """E3's launch alone: add every group's impacts into ``acc``, a
+    ``[q, n_docs + 1]`` f32 row view (unit column stride) on the inputs'
+    CUDA device, and return it.  ``exact_compact_accumulate`` calls it on a
+    fresh zero accumulator; on one that holds sums it adds to them (timing
+    the launch without its zero-fill).  Raises where the kernel cannot
+    take the inputs or the launch fails."""
+    global COMPACT_LAUNCHES
+
+    _check_compact(post_impact, post_local, tr_range, tr_start, grp_ids, range_size)
+    _check_ordinals(grp_ord, grp_ids, n_ord, "grp_ord")
     q, g_width = grp_ids.shape
+    if (
+        post_impact.device.type != "cuda"
+        or acc.device != post_impact.device
+        or acc.dtype != torch.float32
+        or acc.shape != (q, n_docs + 1)
+        or acc.stride(1) != 1
+    ):
+        raise ValueError(f"acc must be a float32 [{q}, {n_docs + 1}] row view on the inputs' CUDA device")
     if q * g_width >= 1 << 31:
         raise ValueError(f"{q * g_width} groups exceed the kernel's int32 group index")
+    if n_ord == 0:
+        return acc
 
     from ._build import library
 
     lib = library()
-    dev = post_impact.device
-    acc = new_accumulator(q, n_docs, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for o in range(n_ord):
-            err = lib.bm25_exact_compact_accumulate(
-                post_impact.data_ptr(), post_local.data_ptr(), tr_range.data_ptr(),
-                tr_start.data_ptr(), grp_ids.data_ptr(), grp_ord.data_ptr(),
-                acc.data_ptr(), q * g_width, g_width, o, acc.stride(0), n_docs,
-                range_size, tr_range.numel(), post_impact.numel(),
-                int(post_impact.dtype == torch.bfloat16), stream,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"exact_compact_accumulate kernel launch failed: cudaError {err}"
-                )
-            COMPACT_LAUNCHES += 1
+    with torch.cuda.device(acc.device):
+        err = lib.bm25_exact_compact_accumulate(
+            post_impact.data_ptr(), post_local.data_ptr(), tr_range.data_ptr(),
+            tr_start.data_ptr(), grp_ids.data_ptr(), grp_ord.data_ptr(),
+            acc.data_ptr(), q, g_width, n_ord, acc.stride(0), n_docs,
+            range_size, tr_range.numel(), post_impact.numel(),
+            int(post_impact.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"exact_compact_accumulate kernel launch failed: cudaError {err}")
+    COMPACT_LAUNCHES += 1
     return acc
