@@ -49,22 +49,24 @@ not 0 and no result line is printed):
   (f) the served default: ``Bm25Index(seg, seed, IndexOptions(),
       device="cuda")`` (engine "stream", dense below 2^21 docs) on the same
       corpus.  On every dispatch the engine hands its kernels, S1
-      (``stream_dense_accumulate``) and S2 (``dense_topk``) must equal
-      their plain versions (``torch.equal``); both and their plain
-      versions are timed with CUDA events on the first dispatch, S2 also
-      beside ``torch.topk`` on the same rows; S2 on rows with 0 to k - 1
-      positive docs, both branches, equals its plain version, pad ids
-      included.  Then 5 batches of 4,096 queries at k=10, QPS each; both
-      launch counts must grow; one batch profiled, with S2's share of the
-      card's busy time;
+      (``stream_dense_accumulate``, its spans on the planning's layout)
+      and S2 (``dense_topk``) must equal their plain versions
+      (``torch.equal``, S1's padded rows included); both and their plain
+      versions are timed with CUDA events on the first dispatch, S1 also
+      at each doc tile of ``TILE_SWEEP`` and beside the old ``torch.zeros``
+      fill alone, S2 also beside ``torch.topk`` on the same rows; S2 on
+      rows with 0 to k - 1 positive docs, both branches, equals its plain
+      version, pad ids included.  Then 5 batches of 4,096 queries at k=10,
+      QPS each; both launch counts must grow; one batch profiled, with
+      S2's share of the card's busy time, S1's and any fill's;
   (g) 256 sampled queries equal the same facade on the CPU (plain
       versions), also after deleting 1% and under a prefilter; recall@10
       = 1.0 against the float64 oracle; ``memory_report()["total"]``
       equals the bytes of the stream's host arrays;
   (h) 1,024 inserted docs (the term counts of corpus docs, so every term
       is known) served by ``search_batch`` through the growing segment's
-      stream engine on the card: equal to the CPU, and its S1 launches
-      grow;
+      stream engine on the card: equal to the CPU, every S1 call of a
+      batch equal to its plain version, and its S1 launches grow;
   (l) bf16 impacts on the same corpus and RangeIndex:
       ``Bm25Index(..., engine="blockmax", engine_options={"impact_dtype":
       "bfloat16", "range_index": ri})``.  On every round's windows P1 on
@@ -90,7 +92,10 @@ not 0 and no result line is printed):
       IndexOptions(), engine="exact", device="cuda")`` on the same corpus.
       On every dispatch's windows E1 (``exact_dense_accumulate``) equals
       its plain version (``torch.equal``), both timed on the largest
-      dispatch; 5 batches of 4,096 at k=10, QPS each and the dispatches a
+      dispatch (its rows on the planning's layout), E1 also at each doc
+      tile and with a filter fused into its write beside the separate
+      ``mul_`` pass it replaces; 5 batches of 4,096 at k=10, QPS each and
+      the dispatches a
       batch; then phase (e)'s audit (card == CPU-plain, also after deleting
       1% and under a prefilter; recall@10 = 1.0 against the float64
       oracle); ``memory_report()["total"]`` equals the reference's formula;
@@ -106,14 +111,16 @@ not 0 and no result line is printed):
       only between scores within 1e-4, scores within rtol 1e-5; the shared
       engine's tensors are Block-Max's (``data_ptr()``);
   (q) ``engine="hybrid"`` on phase (d)'s RangeIndex: (1) the default
-      ``heavy_mode``: every query goes to the exact engine, the Block-Max
-      engine is never built, results equal phase (o)'s; (2)
+      ``heavy_mode``: every query goes to the exact engine, every E1 call
+      of a batch equals its plain version, the Block-Max engine is never
+      built, results equal phase (o)'s; (2)
       ``heavy_mode="pruned"``, ``memory_mode="compact"``, ``oneshot_cap=64``:
       queries by route printed, P1's launches must grow, ids equal phase
       (o)'s on all 4,096 queries and scores within rtol 1e-5,
       ``memory_report()`` is one copy by the reference's formula; (3)
-      ``heavy_mode="rangescan"``: P1's and S2's launches grow, the same
-      equality.  ``route_threshold`` starts at the default 0.10 and is
+      ``heavy_mode="rangescan"``: P1's and S2's launches grow, every E1
+      call of a batch equals its plain version, the same equality.
+      ``route_threshold`` starts at the default 0.10 and is
       lowered (printed) until some query takes the heavy route;
   (i) the served default at scale: a 2,097,152-doc corpus (``--sparse-docs``;
       the same generator and shape, only the doc count raised, the
@@ -280,6 +287,25 @@ def cuda_ms_fresh(fn, fresh, iters=20, warmup=3, queued=False):
     return start.elapsed_time(end) / iters
 
 
+# The doc tiles (f32 cells of shared memory a block owns) S1 and E1 are
+# timed at, around the wrapper's default (``ops/dense_tiles.py``).
+TILE_SWEEP = (2048, 4096, 8192, 16384, 32768)
+
+
+def tile_sweep(fn):
+    """Device ms of ``fn()`` at each doc tile of ``TILE_SWEEP``."""
+    from vectorchord_bm25_tpu_torch.ops import dense_tiles
+
+    default, out = dense_tiles.TILE, {}
+    try:
+        for tile in TILE_SWEEP:
+            dense_tiles.TILE = tile
+            out[tile] = device_ms(fn, iters=10)
+    finally:
+        dense_tiles.TILE = default
+    return out
+
+
 # The card's published peaks (NVIDIA's H100 SXM data sheet, dense rates),
 # which a kernel's least time (``bound_ms``) is taken against.
 HBM_BYTES_PER_S = 3.35e12
@@ -298,6 +324,11 @@ def bound(n_bytes, n_ops):
         "bound_bytes": int(n_bytes),
         "bound_ops": int(n_ops),
     }
+
+
+def rows_whole(acc):
+    """An accumulator's rows with their stride padding (S2 reads it)."""
+    return acc.as_strided((acc.shape[0], acc.stride(0)), (acc.stride(0), 1))
 
 
 def window_words(si, wins):
@@ -808,6 +839,10 @@ def device_profile(fn, what, label, track=()):
     """One call of ``fn`` under ``torch.profiler``: the card's busy time, its
     share of the call's wall time, and the kernels by device time; each
     kernel whose name holds a string of ``track`` is named on its own.
+    Busy time sums the device's own rows (kernels, copies, fills): an
+    operator row (``aten::copy_``, ``aten::zero_``) carries the device time
+    of the kernels it launched, which its kernel rows count already.  The
+    sum over every row, which counts those twice, is printed beside it.
     Returns the wall and busy ms and each tracked string's device ms and
     launches (None if the profiler saw no device time)."""
     import torch
@@ -819,12 +854,13 @@ def device_profile(fn, what, label, track=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, every_ms = [], 0.0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        if us > 0:
+        every_ms += us / 1e3
+        if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
@@ -833,7 +869,8 @@ def device_profile(fn, what, label, track=()):
         return None
     print(
         f"{what}: one profiled batch {wall_ms:.3f} ms, the card busy {busy_ms:.3f} "
-        f"ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle); by kernel: "
+        f"ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle; {every_ms:.3f} ms with the "
+        f"operator rows counted too); by kernel: "
         + "; ".join(f"{key[:48]} {ms:.3f} ms x{n}" for ms, n, key in rows[:8])
         + f" [{label}]"
     )
@@ -846,7 +883,7 @@ def device_profile(fn, what, label, track=()):
             + ("; ".join(f"{key[:64]} {ms:.3f} ms x{n}" for ms, n, key in hit) or "no row")
             + f" in the batch [{label}]"
         )
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "tracked": tracked}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "every_row_ms": every_ms, "tracked": tracked}
 
 
 def rounds_equal(gpu_engine, cpu_engine, sample, what):
@@ -1014,11 +1051,14 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     kk = min(1 << (K - 1).bit_length(), seg.n_docs)
     s1_err = s2_err = 0.0
     for a in dispatches:
+        if not stream_kernel.stream_spans_in_layout(a[6], a[7], a[8], a[3]).all():
+            raise AssertionError("(f) a dispatch's spans are off the planning's layout")
         got = stream_kernel.stream_dense_accumulate(*a)
         want = stream_kernel.stream_dense_accumulate_plain(*a)
         torch.cuda.synchronize()
         s1_err = max(s1_err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
+        # The padded rows too: the kernel writes every cell itself.
+        if not torch.equal(got, want) or not torch.equal(rows_whole(got), rows_whole(want)):
             raise AssertionError(f"S1 != plain on a dispatch: max abs err {s1_err}")
         del want
         ks, ki = topk.dense_topk(got, kk, seg.n_docs)
@@ -1030,15 +1070,23 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
             raise AssertionError("S2 != plain on a dispatch")
         print(
             f"(f) dispatch [{a[-2]} rows, {a[6].numel()} windows, "
-            f"{len(np.unique(a[8]))} ordinals, {int((got > 0).sum())} nonzero "
-            f"accumulator cells]: S1 == plain, S2 == plain (torch.equal)"
+            f"{int(a[8].max()) + 1} ordinals, {int((got > 0).sum())} nonzero "
+            f"accumulator cells]: spans on the layout; S1 == plain, its padded rows "
+            f"included, S2 == plain (torch.equal)"
         )
         del got
     a = dispatches[0]
     n_q, n_docs = a[-2], a[-1]
-    s1_ms = cuda_ms(lambda: stream_kernel.stream_dense_accumulate(*a), iters=10)
+
+    def s1():
+        return stream_kernel.stream_dense_accumulate(*a)
+
+    s1_ms = device_ms(s1, iters=10)
+    s1_paced_ms = cuda_ms(s1, iters=10)
+    s1_tiles = tile_sweep(s1)
     s1_plain_ms = cuda_ms(lambda: stream_kernel.stream_dense_accumulate_plain(*a), iters=5)
-    zero_ms = cuda_ms(lambda: topk.new_accumulator(n_q, n_docs, "cuda"), iters=10)
+    # The zero-fill the first design ran before its launches, alone.
+    zero_ms = device_ms(lambda: topk.new_accumulator(n_q, n_docs, "cuda"), iters=10)
     acc = stream_kernel.stream_dense_accumulate(*a)
     s2 = s2_fields(acc, kk, n_docs)
     s2_ms, s2_plain_ms, s2_lib_ms = s2["ms"], s2["plain_ms"], s2["library_ms"]
@@ -1048,15 +1096,21 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     # S2 must read the accumulator's doc columns.
     n_words, lanes, n_win = window_words(si, a[6].cpu().numpy())
     s1_bound = bound(
-        4 * n_words + 14 * n_win + 8 * a[6].numel()
+        4 * n_words + 14 * n_win + 8 * a[6].numel() + 4 * a[7].numel()
         + 4 * min(lanes, n_docs + 1) + 4 * n_q * (n_docs + 1),
         4 * lanes,
     )
     s2_bound = {key: s2[key] for key in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")}
     print(
+        f"(f) S1 doc tiles on the first dispatch, device ms by tile (cells): "
+        + ", ".join(f"{t} {ms:.4f}" for t, ms in s1_tiles.items()) + f" [{label}]"
+    )
+    print(
         f"(f) {len(dispatches)} dispatches; first: n_q={n_q}, N+1={n_docs + 1}, "
-        f"{a[6].numel()} windows; S1 {s1_ms:.4f} ms vs plain {s1_plain_ms:.4f} ms "
-        f"(both include the {zero_ms:.4f} ms accumulator zero-fill); S2 "
+        f"{a[6].numel()} windows; S1 {s1_ms:.4f} ms on the card ({s1_paced_ms:.4f} "
+        f"back to back; one launch, every cell written, no zero-fill) vs plain "
+        f"{s1_plain_ms:.4f} ms (with its zero-fill); the old torch.zeros fill alone "
+        f"{zero_ms:.4f} ms; S2 "
         f"{s2_ms:.4f} ms on the card ({s2['launch_paced_ms']:.4f} back to back) vs "
         f"plain {s2_plain_ms:.4f} ms at k={kk}, torch.topk "
         f"{s2_lib_ms:.4f} ms; bounds S1 {s1_bound['bound_ms']:.4f} ms, S2 "
@@ -1091,7 +1145,7 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     )
     prof = device_profile(
         lambda: index.search_batch(queries, K), "(f) profile", label,
-        track=("block_max_keys", "dense_topk_select", "stream_dense"),
+        track=("block_max_keys", "dense_topk_select", "dense_tiles_kernel", "FillFunctor"),
     )
     s2_profile = None
     if prof is not None:
@@ -1099,8 +1153,13 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
         s2_profile = {
             "ms": s2_ms_batch,
             "busy_ms": prof["busy_ms"],
+            "wall_ms": prof["wall_ms"],
+            "every_row_ms": prof["every_row_ms"],
             "share_of_busy": s2_ms_batch / prof["busy_ms"],
             "launches": prof["tracked"]["dense_topk_select"]["launches"],
+            "s1_ms": prof["tracked"]["dense_tiles_kernel"]["ms"],
+            "s1_launches": prof["tracked"]["dense_tiles_kernel"]["launches"],
+            "fill_ms": prof["tracked"]["FillFunctor"]["ms"],
         }
         print(
             f"(f) profile: S2 (block_max_keys + dense_topk_select_kernel) {s2_ms_batch:.3f} ms of "
@@ -1132,11 +1191,19 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
         doc = Document(keys=keys[lo:hi], values=tfs[lo:hi])
         index.insert(doc, base + j)
         cpu.insert(doc, base + j)
+    restore, grow_st = _checked(
+        port_stream, "stream_dense_accumulate", stream_kernel.stream_dense_accumulate_plain,
+        lambda a: a[6].numel(), _finite_err,
+    )
+    try:
+        index.growing.topk_batch_async(sample, K)()  # every S1 call held to plain
+    finally:
+        restore()
     stream_kernel.LAUNCHES = 0
     index.growing.topk_batch_async(sample, K)()
     grow_launches = stream_kernel.LAUNCHES
     g_engine = index.growing.device_engine()
-    if not grow_launches or not g_engine.dev_words.is_cuda:
+    if not grow_launches or not grow_st["checked"] or not g_engine.dev_words.is_cuda:
         raise AssertionError("the growing segment was not served by S1 on the card")
     got = hits_of(index.search_batch(sample, K))
     if got != hits_of(cpu.search_batch(sample, K)):
@@ -1146,7 +1213,7 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
         f"(h) {len(index.growing)} growing docs ({g_engine.n_docs} in the card "
         f"engine, {g_engine.stream.n_windows} windows): GPU == CPU-plain on "
         f"{AUDIT} queries, {n_new} growing hits; growing engine S1 launches "
-        f"{grow_launches}"
+        f"{grow_launches}, {grow_st['checked']} calls == plain (torch.equal)"
     )
     # (t) this index, with its deletes and its growing segment, restarted
     picks = rng.choice(seg.n_docs, 1024, replace=False)
@@ -1168,8 +1235,11 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
             "replaces": "vectorchord_bm25_tpu/search/stream.py:171",
             "launches": s1_launches,
             "launches_growing": grow_launches,
-            "max_abs_err": s1_err,
+            "max_abs_err": max(s1_err, grow_st["err"]),
             "ms": s1_ms,
+            "launch_paced_ms": s1_paced_ms,
+            "tile_ms": s1_tiles,
+            "old_fill_ms": zero_ms,
             "plain_ms": s1_plain_ms,
             **s1_bound,
             "library_ms": None,
@@ -1518,6 +1588,50 @@ def e1_bound(a):
     )
 
 
+def e1_fields(a, what, label):
+    """E1 on one dispatch's arguments ``a`` (the rows must keep the
+    planning's layout, so the parallel walk is timed): device ms and back
+    to back, by doc tile; and with a filter (60% kept) fused into its write
+    beside E1 unfiltered, the separate ``mul_`` pass alone on the same
+    accumulator and E1 followed by that pass.  The fused result must equal
+    the separate pass's (``torch.equal``)."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel
+
+    if not exact_kernel.dense_rows_in_layout(a[0], *a[3:8]).all():
+        raise AssertionError(f"{what}: a timed row is off the planning's layout")
+    n_docs = a[8]
+
+    def e1(fm=None):
+        return exact_kernel.exact_dense_accumulate(*a, filter_mask=fm)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    fm = (torch.rand(n_docs + 1, device="cuda", generator=gen) < 0.6).float()
+    fm[n_docs] = 1.0
+    acc = e1()
+    if not torch.equal(e1(fm), acc.clone().mul_(fm)):
+        raise AssertionError(f"{what}: the fused filter != E1 then mul_")
+    out = {
+        "ms": device_ms(e1),
+        "launch_paced_ms": cuda_ms(e1),
+        "tile_ms": tile_sweep(e1),
+        "filtered_ms": device_ms(lambda: e1(fm)),
+        "mul_ms": device_ms(lambda: acc.mul_(fm)),
+        "then_mul_ms": device_ms(lambda: e1().mul_(fm)),
+    }
+    print(
+        f"{what}: rows on the layout; E1 {out['ms']:.4f} ms on the card "
+        f"({out['launch_paced_ms']:.4f} back to back; one launch, every cell written, "
+        f"no zero-fill); by doc tile: "
+        + ", ".join(f"{t} {ms:.4f}" for t, ms in out["tile_ms"].items())
+        + f"; with the filter fused {out['filtered_ms']:.4f} ms; the separate "
+        f"acc.mul_(filter) alone {out['mul_ms']:.4f} ms, E1 then mul_ "
+        f"{out['then_mul_ms']:.4f} ms [{label}]"
+    )
+    return out
+
+
 def e3_bound(a):
     """E3 on one dispatch: each group's impacts and u8 locals, its id and
     ordinal, each real group's range and two starts, and the accumulator
@@ -1654,11 +1768,11 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
             f"{what}: {len(calls)} dispatches a batch, kernel == plain on every "
             f"one (torch.equal); largest {shape}, {kb['bound_bytes']} B to "
             f"move: kernel {ms:.4f} ms (back to back), plain {plain_ms:.4f} ms "
-            f"(both with the accumulator's zero-fill), bound {kb['bound_ms']:.4f} ms "
+            f"(with its zero-fill), bound {kb['bound_ms']:.4f} ms "
             f"({kb['bound_by']}) [{label}]"
         )
         if name != compact_name:
-            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kb}
+            return {"max_abs_err": err, "plain_ms": plain_ms, **kb, **e1_fields(big, what, label)}
         f = e3_fields(big)
         if not f["rows_in_layout"]:
             raise AssertionError(f"{what}: a timed row is off the planning's layout")
@@ -1808,9 +1922,26 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
         index_h.bulkdelete(doomed)
         return index_h, index_h.engine()
 
+    def held_e1(engine, phase):
+        """One batch with every E1 call held to its plain version; returns
+        the calls checked."""
+        restore, st = _checked(
+            exact, dense_name, exact_kernel.exact_dense_accumulate_plain,
+            lambda a: a[3].numel(), _finite_err,
+        )
+        try:
+            engine.search(queries, K)
+        finally:
+            restore()
+        e1_held[phase] = st["checked"]
+        return st["checked"]
+
+    e1_held = {}
     counters = [(exact_kernel, "DENSE_LAUNCHES"), s2]
     index_h, hyb = hybrid({})
     routes = np.bincount(hyb._route(queries)[0], minlength=3)
+    if not held_e1(hyb, "(q1)"):
+        raise AssertionError("(q1): the hybrid engine made no E1 call")
     qps, launches, _ = _serve(index_h, queries, counters, "hybrid", rounds=3)
     if hyb._blockmax is not None:
         raise AssertionError("the default hybrid built the Block-Max engine")
@@ -1818,7 +1949,8 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
         raise AssertionError("default hybrid != the exact engine")
     served(
         "(q1)", f"hybrid, default heavy_mode (one-shot/dense/heavy {routes.tolist()}; "
-        f"Block-Max never built; results == phase (o)'s)", qps, launches,
+        f"Block-Max never built; results == phase (o)'s; {e1_held['(q1)']} E1 calls "
+        f"== plain, torch.equal)", qps, launches,
     )
     hybrid_e1 = launches["DENSE_LAUNCHES"]
     s2_by_phase["(q1)"] = launches["S2"]
@@ -1855,6 +1987,8 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
             counters = [p1] if phase == "(q2)" else [p1, s2]
         # B1 runs wherever P1 does: the one-shot and pruned groups' rounds.
         counters += b1_counters()
+        if phase == "(q3)" and routes[1] and not held_e1(hyb, phase):
+            raise AssertionError("(q3): the dense route made no E1 call")
         qps, launches, _ = _serve(index_h, queries, counters, phase, rounds=3)
         p1_by_phase[phase] = launches["P1"]
         b1_by_phase[phase] = {name: launches[name] for name in B1_NAMES}
@@ -1884,7 +2018,7 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
     entries = [
         entry(
             dense_name, "exact_dense.cu", 148, e1_launches + hybrid_e1,
-            {"(o)": e1_launches, "(q)": hybrid_e1}, e1,
+            {"(o)": e1_launches, "(q)": hybrid_e1}, {**e1, "held_calls": e1_held},
         ),
         entry(
             dense_name + "_bf16", "exact_dense.cu", 148, bf_launches,
@@ -3094,7 +3228,8 @@ def sharded_large(args, seg, batches, single, keys, doc_ids, tfs, doc_start, lab
             swaps = held_to_single(results, single[mix], f"(w) {what}")
             if mix == "informative":
                 device_profile(
-                    lambda: index.search(queries, K), f"(w) {what} profile", label
+                    lambda: index.search(queries, K), f"(w) {what} profile", label,
+                    track=("dense_tiles_kernel", "FillFunctor", "dense_topk_select"),
                 )
             print(
                 f"(w) {what}: held to phase (i)'s single index on {len(queries)} queries "

@@ -170,54 +170,125 @@ def _stream_case(gen, n_docs=20_000, tf_hi=400):
     return si, tables, wsrc, wq, word_ord, 32
 
 
+def _port_lists(si, wsrc, wq, word_ord, n_q, device="cuda"):
+    """A ``_stream_case`` dispatch in the port's form: (wsrc, q_start,
+    w_ord) int32 tensors, the trailing pad windows outside every span with
+    ordinal -1; the rows past the 24 queries own no window."""
+    t = int((wsrc < si.n_windows).sum())
+    q_start = np.searchsorted(wq[:t], np.arange(n_q + 1)).astype(np.int32)
+    w_ord = np.where(np.arange(wsrc.size) < t, word_ord, -1).astype(np.int32)
+    return [torch.from_numpy(x).to(device) for x in (wsrc, q_start, w_ord)]
+
+
+def _shuffled_spans(gen, q_start, n):
+    """A permutation of n windows that shuffles each span in place."""
+    qs = q_start.cpu().numpy()
+    return torch.from_numpy(np.concatenate(
+        [lo + gen.permutation(hi - lo) for lo, hi in zip(qs[:-1], qs[1:])]
+        + [np.arange(qs[-1], n)]
+    )).cuda()
+
+
 @pytest.mark.parametrize("tf_hi", [1, 15, 400])
 def test_stream_kernel_matches_plain(card, gen, tf_hi):
     from vectorchord_bm25_tpu_torch.ops import stream_kernel
 
     si, tables, wsrc, wq, word_ord, n_q = _stream_case(gen, tf_hi=tf_hi)
-    # Windows in a shuffled order: the ordinals alone fix the add order.
-    perm = gen.permutation(wsrc.size)
-    ws = torch.from_numpy(wsrc[perm]).cuda()
-    q = torch.from_numpy(wq[perm]).cuda()
-    before = stream_kernel.LAUNCHES
-    got = stream_kernel.stream_dense_accumulate(
-        *tables, ws, q, word_ord[perm], n_q, si.n_docs
-    )
-    torch.cuda.synchronize()
-    assert stream_kernel.LAUNCHES == before + len(np.unique(word_ord))
-    want = stream_kernel.stream_dense_accumulate_plain(
-        *tables, ws, q, word_ord[perm], n_q, si.n_docs
-    )
-    assert torch.equal(got, want)
-    assert int((got > 0).sum()) > 1000
-    cpu = stream_kernel.stream_dense_accumulate(
-        *[t.cpu() for t in tables], ws.cpu(), q.cpu(), word_ord[perm], n_q,
-        si.n_docs,
-    )
-    assert torch.equal(got.cpu(), cpu)
+    ws, q_start, w_ord = _port_lists(si, wsrc, wq, word_ord, n_q)
+    # The planning's order, and each span shuffled (off the layout: the
+    # one-thread path): the ordinals alone fix the add order.
+    perm = _shuffled_spans(gen, q_start, wsrc.size)
+    assert stream_kernel.stream_spans_in_layout(ws, q_start, w_ord, tables[3]).all()
+    assert not stream_kernel.stream_spans_in_layout(ws[perm], q_start, w_ord[perm], tables[3]).all()
+    for lists in ((ws, q_start, w_ord), (ws[perm], q_start, w_ord[perm])):
+        before = stream_kernel.LAUNCHES
+        got = stream_kernel.stream_dense_accumulate(*tables, *lists, n_q, si.n_docs)
+        torch.cuda.synchronize()
+        assert stream_kernel.LAUNCHES == before + 1
+        want = stream_kernel.stream_dense_accumulate_plain(*tables, *lists, n_q, si.n_docs)
+        assert torch.equal(got, want)
+        assert int((got > 0).sum()) > 1000
+        cpu = stream_kernel.stream_dense_accumulate(
+            *[t.cpu() for t in tables], *[x.cpu() for x in lists], n_q, si.n_docs,
+        )
+        assert torch.equal(got.cpu(), cpu)
 
 
 def test_stream_kernel_rejects_bad_inputs(card, gen):
     from vectorchord_bm25_tpu_torch.ops import stream_kernel
 
     si, tables, wsrc, wq, word_ord, n_q = _stream_case(gen, n_docs=5_000)
-    ws, q = torch.from_numpy(wsrc).cuda(), torch.from_numpy(wq).cuda()
+    ws, qs, wo = _port_lists(si, wsrc, wq, word_ord, n_q)
     with pytest.raises(TypeError, match="wsrc"):
         stream_kernel.stream_dense_accumulate(
-            *tables, ws.long(), q, word_ord, n_q, si.n_docs
+            *tables, ws.long(), qs, wo, n_q, si.n_docs
         )
-    with pytest.raises(ValueError, match="wq"):
+    with pytest.raises(ValueError, match="q_start"):
         stream_kernel.stream_dense_accumulate(
-            *tables, ws, q.cpu(), word_ord, n_q, si.n_docs
+            *tables, ws, qs.cpu(), wo, n_q, si.n_docs
         )
     with pytest.raises(ValueError, match="contiguous"):
         stream_kernel.stream_dense_accumulate(
-            *tables, torch.stack([ws, ws], 1)[:, 0], q, word_ord, n_q, si.n_docs
+            *tables, torch.stack([ws, ws], 1)[:, 0], qs, wo, n_q, si.n_docs
         )
-    with pytest.raises(ValueError, match="word_ord"):
+    with pytest.raises(TypeError, match="w_ord"):
         stream_kernel.stream_dense_accumulate(
-            *tables, ws, q, torch.from_numpy(word_ord).cuda(), n_q, si.n_docs
+            *tables, ws, qs, wo.long(), n_q, si.n_docs
         )
+
+
+def _dirty_pool(n_q, n_docs):
+    """Fill and free a block of the caching allocator's size for a [n_q,
+    N+1] accumulator with NaN, so an uninitialised one that a kernel left a
+    cell of shows it."""
+    stride = (n_docs + 1 + 3) & ~3
+    junk = torch.full((n_q, stride), float("nan"), device="cuda")
+    del junk
+
+
+def _rows_whole(acc):
+    """The accumulator's rows with their stride padding."""
+    return acc.as_strided((acc.shape[0], acc.stride(0)), (acc.stride(0), 1))
+
+
+@pytest.mark.parametrize("tile", [4, 64, 1000, 8192, 16384, 32768])
+def test_stream_tiles_equal_plain(card, gen, monkeypatch, tile):
+    # Tiles of 4 to 32,768 cells over N+1 = 20,001: every window straddles
+    # tiles at 4 and 64, the rare terms' windows (a posting every 1,000
+    # docs) span every tile, and from 16,384 the tile takes shared memory
+    # past 48 KB.  The rows past the queries own no window: all zeros, pad
+    # column and stride padding included.
+    from vectorchord_bm25_tpu_torch.ops import dense_tiles, stream_kernel
+
+    si, tables, wsrc, wq, word_ord, n_q = _stream_case(gen, tf_hi=15)
+    lists = _port_lists(si, wsrc, wq, word_ord, n_q)
+    monkeypatch.setattr(dense_tiles, "TILE", tile)
+    _dirty_pool(n_q, si.n_docs)
+    got = stream_kernel.stream_dense_accumulate(*tables, *lists, n_q, si.n_docs)
+    want = stream_kernel.stream_dense_accumulate_plain(*tables, *lists, n_q, si.n_docs)
+    torch.cuda.synchronize()
+    assert torch.equal(_rows_whole(got), _rows_whole(want))
+    assert not _rows_whole(got)[24:].any()
+
+
+@pytest.mark.parametrize("n_docs", [2_999, 5_001])
+def test_stream_tiles_small_rows(card, gen, n_docs):
+    # N+1 below one tile (3,000 and 5,002 cells: one tile a row) and not a
+    # multiple of the tile (over 1,000-cell tiles).
+    from vectorchord_bm25_tpu_torch.ops import dense_tiles, stream_kernel
+
+    si, tables, wsrc, wq, word_ord, n_q = _stream_case(gen, n_docs=n_docs, tf_hi=15)
+    lists = _port_lists(si, wsrc, wq, word_ord, n_q)
+    for tile in (dense_tiles.TILE, 1000):
+        old, dense_tiles.TILE = dense_tiles.TILE, tile
+        try:
+            _dirty_pool(n_q, si.n_docs)
+            got = stream_kernel.stream_dense_accumulate(*tables, *lists, n_q, si.n_docs)
+        finally:
+            dense_tiles.TILE = old
+        want = stream_kernel.stream_dense_accumulate_plain(*tables, *lists, n_q, si.n_docs)
+        torch.cuda.synchronize()
+        assert torch.equal(_rows_whole(got), _rows_whole(want))
 
 
 def _topk_cases(n=(1 << 17) + 777):
@@ -984,6 +1055,10 @@ def test_exact_kernels_reject_bad_inputs(card):
     with pytest.raises(ValueError):
         exact_kernel.exact_dense_accumulate(pd, pi, live, win, win, win, win.cpu(), 1, 4)
     with pytest.raises(ValueError):
+        exact_kernel.exact_dense_accumulate(
+            pd, pi, live, win, win, win, win, 1, 4, filter_mask=live.cpu()
+        )
+    with pytest.raises(ValueError):
         exact_kernel.exact_sparse_gather(pd, pi, live, live[:4], win, win, win, 4)
     loc = torch.zeros(64, dtype=torch.uint8, device=card)
     tr = torch.zeros(4, dtype=torch.int32, device=card)
@@ -991,6 +1066,55 @@ def test_exact_kernels_reject_bad_inputs(card):
         exact_kernel.exact_compact_accumulate(
             torch.zeros(64, device=card), loc, tr, tr, win, win, 1, 4, 128
         )
+
+
+@pytest.mark.parametrize("order", ["planned", "shuffled"])
+@pytest.mark.parametrize("tile", [64, 8192])
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("impact_dtype", ["float32", "bfloat16"])
+def test_exact_tiles_equal_plain(card, gen, monkeypatch, impact_dtype, filtered, tile, order):
+    # E1 on the exact planner's windows (a repeated term, an absent one, an
+    # empty query: rows with no window), f32 and bf16, with the filter fused
+    # into the write and without; tiles of 64 cells (windows straddle
+    # tiles) and 8,192 (N+1 = 3,001 below one tile); the planned rows, and
+    # each row's windows shuffled (off the layout: the one-thread path).
+    from vectorchord_bm25_tpu_torch.index.sealed import segment_from_reference
+    from vectorchord_bm25_tpu_torch.ops import dense_tiles, exact_kernel
+    from vectorchord_bm25_tpu_torch.search.exact import ExactEngine
+
+    n_docs = 3000
+    seg = segment_from_reference(build_sealed_segment(make_docs(gen, n_docs, vocab=40)))
+    engine = ExactEngine(seg, device=card, strategy="dense", impact_dtype=impact_dtype)
+    engine.set_deleted(gen.random(n_docs) < 0.1)
+    wins = list(engine._prepare(_exact_queries(gen, 40)))
+    if order == "shuffled":
+        for r in range(wins[0].shape[0]):
+            perm = gen.permutation(wins[0].shape[1])
+            for w in wins:
+                w[r] = w[r, perm]
+    dev = engine.dev
+    args = (
+        dev.post_docid, dev.post_impact, dev.doc_live,
+        *(torch.from_numpy(w).to(card) for w in wins), int(wins[3].max()) + 1, n_docs,
+    )
+    in_layout = exact_kernel.dense_rows_in_layout(dev.post_docid, *args[3:8])
+    assert bool(in_layout.all()) == (order == "planned")
+    fm = None
+    if filtered:
+        fm = torch.ones(n_docs + 1, device=card)
+        fm[:n_docs] = torch.from_numpy((gen.random(n_docs) < 0.6).astype(np.float32))
+    monkeypatch.setattr(dense_tiles, "TILE", tile)
+    counter = "DENSE_BF16_LAUNCHES" if impact_dtype == "bfloat16" else "DENSE_LAUNCHES"
+    before = getattr(exact_kernel, counter)
+    _dirty_pool(wins[0].shape[0], n_docs)
+    got = exact_kernel.exact_dense_accumulate(*args, filter_mask=fm)
+    assert getattr(exact_kernel, counter) == before + 1
+    want = exact_kernel.exact_dense_accumulate_plain(*args, filter_mask=fm)
+    torch.cuda.synchronize()
+    assert torch.equal(_rows_whole(got), _rows_whole(want))
+    assert int((got > 0).sum()) > 1000
+    empty = (wins[3] < 0).all(axis=1)
+    assert empty.any() and not _rows_whole(got)[torch.from_numpy(empty).to(card)].any()
 
 
 def test_exact_launch_failure_raises(card, monkeypatch):

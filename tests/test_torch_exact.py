@@ -143,8 +143,8 @@ def test_lockstep_dense(lockstep_case, impact_dtype, filtered, k):
         dev.post_docid, dev.post_impact, dev.doc_live,
         torch.from_numpy(wr), torch.from_numpy(wl), torch.from_numpy(wh),
         torch.from_numpy(wo), int(wo.max()) + 1, seg.n_docs,
+        filter_mask=torch.from_numpy(fm) if filtered else None,
     )
-    acc.mul_(torch.from_numpy(fm))
     got_s, got_i = topk.dense_topk(acc, kk, seg.n_docs)
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     live = np.isfinite(np.asarray(want_s))
@@ -358,6 +358,14 @@ def test_wrappers_check_inputs():
         exact_kernel.exact_dense_accumulate(pd, pi, live, win, win, win, win, -1, 4)
     with pytest.raises(ValueError):
         exact_kernel.exact_dense_accumulate(pd, pi, live[:4], win, win, win, win, 1, 4)
+    with pytest.raises(ValueError):
+        exact_kernel.exact_dense_accumulate(
+            pd, pi, live, win, win, win, win, 1, 4, filter_mask=live[:4]
+        )
+    with pytest.raises(TypeError):
+        exact_kernel.exact_dense_accumulate(
+            pd, pi, live, win, win, win, win, 1, 4, filter_mask=live.double()
+        )
     with pytest.raises(ValueError):
         exact_kernel.exact_sparse_gather(pd, pi, live, live[:4], win, win, win, 4)
     with pytest.raises(ValueError):

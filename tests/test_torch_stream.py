@@ -160,8 +160,12 @@ def test_lockstep_dispatch_inputs(rng):
     seg = random_segment(rng, 2000, 50, 20000, tf_hi=20)
     ref, port = engines(seg)
     queries = rand_queries(rng, 12, 55) + [Query.from_int_ids([7, 7])]
-    (rows, wsrc, wq, word_ord, n_qb), = list(port._dispatches(port._win_lists(queries)[0]))
+    (rows, wsrc, q_start, w_ord, n_qb), = list(port._dispatches(port._win_lists(queries)[0]))
     assert rows.size == len(queries) and wsrc.size % 128 == 0
+    # The reference's per-window query rows (its pad windows add to row 0).
+    wq = np.zeros(wsrc.size, dtype=np.int32)
+    wq[: q_start[-1]] = np.repeat(np.arange(n_qb, dtype=np.int32), np.diff(q_start))
+    assert (w_ord[q_start[-1] :] == -1).all() and (wsrc[q_start[-1] :] == port._pad_win).all()
     n = seg.n_docs
     r_s, r_i = _stream_dense(
         ref.dev_words, ref.dev_s1bd, ref.dev_w_off, ref.dev_w_base,
@@ -170,8 +174,8 @@ def test_lockstep_dispatch_inputs(rng):
     )
     acc = stream_kernel.stream_dense_accumulate(
         port.dev_words, port.dev_s1bd, port.dev_w_off, port.dev_w_base,
-        port.dev_w_meta, port.dev_w_s0, torch.from_numpy(wsrc),
-        torch.from_numpy(wq), word_ord, n_qb, n,
+        port.dev_w_meta, port.dev_w_s0,
+        *(torch.from_numpy(x) for x in (wsrc, q_start, w_ord)), n_qb, n,
     )
     s, i = topk.dense_topk(acc, 16, n)
     r_s, r_i = np.asarray(r_s), np.asarray(r_i)

@@ -182,6 +182,17 @@ def dispatch(si, rng, n_q=6):
     return wsrc, wq, word_ord, 8
 
 
+def port_lists(si, wsrc, wq, word_ord, n_q):
+    """A dispatch in the port's form: (wsrc, q_start [n_q + 1], w_ord) int32
+    tensors, each query's span of the windows and the trailing pad windows
+    outside every span with ordinal -1 (the rows past the queries own
+    none)."""
+    t = int((wsrc < si.n_windows).sum())
+    q_start = np.searchsorted(wq[:t], np.arange(n_q + 1)).astype(np.int32)
+    w_ord = np.where(np.arange(wsrc.size) < t, word_ord, -1).astype(np.int32)
+    return torch.from_numpy(wsrc), torch.from_numpy(q_start), torch.from_numpy(w_ord)
+
+
 def port_tensors(si, s1_eff):
     off, base, meta, s0 = tables(si)
     return (
@@ -212,8 +223,8 @@ def test_dense_accumulate_equals_reference_accumulator(rng, tf_hi):
     ref = jnp.zeros(n_q * n1, jnp.float32).at[idx.reshape(-1)].add(r_sc.reshape(-1))
     ref = np.asarray(ref).reshape(n_q, n1)
     acc = stream_kernel.stream_dense_accumulate(
-        *port_tensors(si, s1_eff), torch.from_numpy(wsrc),
-        torch.from_numpy(wq), word_ord, n_q, si.n_docs,
+        *port_tensors(si, s1_eff), *port_lists(si, wsrc, wq, word_ord, n_q),
+        n_q, si.n_docs,
     )
     assert acc.shape == (n_q, n1) and acc.stride(0) % 4 == 0
     assert np.array_equal(acc.numpy(), ref)
@@ -235,8 +246,8 @@ def test_lockstep_with_reference_stream_dense(rng):
         dwidths=dw, twidths=tw,
     )
     acc = stream_kernel.stream_dense_accumulate(
-        *port_tensors(si, s1_eff), torch.from_numpy(wsrc),
-        torch.from_numpy(wq), word_ord, n_q, si.n_docs,
+        *port_tensors(si, s1_eff), *port_lists(si, wsrc, wq, word_ord, n_q),
+        n_q, si.n_docs,
     )
     s, i = topk.dense_topk(acc, 16, si.n_docs)
     r_s, r_i = np.asarray(r_s), np.asarray(r_i)
@@ -247,22 +258,27 @@ def test_lockstep_with_reference_stream_dense(rng):
 
 
 def test_ordinal_order_is_what_makes_it_exact(rng):
-    # Windows handed over in any order give the same accumulator: the
-    # ordinals, not the window order, fix the order of the adds.
+    # Windows handed over in any order inside their query's span give the
+    # same accumulator: the ordinals, not the window order, fix the order
+    # of the adds.
     si = build_stream_index(width_segment(rng, 3, n_docs=20_000))
     s1_eff, _ = s1_eff_of(si, rng)
     wsrc, wq, word_ord, n_q = dispatch(si, rng)
     args = port_tensors(si, s1_eff)
-    a = stream_kernel.stream_dense_accumulate(
-        *args, torch.from_numpy(wsrc), torch.from_numpy(wq), word_ord,
-        n_q, si.n_docs,
+    ws, q_start, w_ord = port_lists(si, wsrc, wq, word_ord, n_q)
+    a = stream_kernel.stream_dense_accumulate(*args, ws, q_start, w_ord, n_q, si.n_docs)
+    qs = q_start.numpy()
+    perm = np.concatenate(
+        [lo + rng.permutation(hi - lo) for lo, hi in zip(qs[:-1], qs[1:])]
+        + [np.arange(qs[-1], wsrc.size)]
     )
-    perm = rng.permutation(wsrc.size)
     b = stream_kernel.stream_dense_accumulate(
-        *args, torch.from_numpy(wsrc[perm]), torch.from_numpy(wq[perm]),
-        word_ord[perm], n_q, si.n_docs,
+        *args, ws[perm], q_start, w_ord[perm], n_q, si.n_docs
     )
     assert torch.equal(a, b)
+    assert not stream_kernel.stream_spans_in_layout(
+        ws[perm], q_start, w_ord[perm], args[3]
+    ).all()
 
 
 def test_accumulate_rejects_bad_inputs(rng):
@@ -270,28 +286,36 @@ def test_accumulate_rejects_bad_inputs(rng):
     s1_eff, _ = s1_eff_of(si, rng)
     wsrc, wq, word_ord, n_q = dispatch(si, rng)
     args = list(port_tensors(si, s1_eff))
-    ws, q = torch.from_numpy(wsrc), torch.from_numpy(wq)
+    ws, qs, wo = port_lists(si, wsrc, wq, word_ord, n_q)
     with pytest.raises(TypeError, match="wsrc"):
         stream_kernel.stream_dense_accumulate(
-            *args, ws.long(), q, word_ord, n_q, si.n_docs
+            *args, ws.long(), qs, wo, n_q, si.n_docs
         )
     bad = list(args)
     bad[4] = bad[4].to(torch.int32)
     with pytest.raises(TypeError, match="w_meta"):
         stream_kernel.stream_dense_accumulate(
-            *bad, ws, q, word_ord, n_q, si.n_docs
+            *bad, ws, qs, wo, n_q, si.n_docs
         )
     with pytest.raises(ValueError, match="contiguous"):
         stream_kernel.stream_dense_accumulate(
-            *args, torch.stack([ws, ws], 1)[:, 0], q, word_ord, n_q, si.n_docs
+            *args, torch.stack([ws, ws], 1)[:, 0], qs, wo, n_q, si.n_docs
         )
-    with pytest.raises(ValueError, match="word_ord"):
+    with pytest.raises(ValueError, match="w_ord"):
         stream_kernel.stream_dense_accumulate(
-            *args, ws, q, word_ord[:-1], n_q, si.n_docs
+            *args, ws, qs, wo[:-1], n_q, si.n_docs
+        )
+    with pytest.raises(TypeError, match="w_ord"):
+        stream_kernel.stream_dense_accumulate(
+            *args, ws, qs, wo.long(), n_q, si.n_docs
+        )
+    with pytest.raises(ValueError, match="q_start"):
+        stream_kernel.stream_dense_accumulate(
+            *args, ws, qs[:-1], wo, n_q, si.n_docs
         )
     with pytest.raises(ValueError, match="s1_eff"):
         stream_kernel.stream_dense_accumulate(
-            *args, ws, q, word_ord, n_q, si.n_docs + 1
+            *args, ws, qs, wo, n_q, si.n_docs + 1
         )
 
 

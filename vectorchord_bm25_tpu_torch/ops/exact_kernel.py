@@ -8,7 +8,8 @@ posting lane; the top-k that follows is ``ops/topk.py`` (dense, compact) or
 - ``exact_dense_accumulate`` (E1, ``csrc/exact_dense.cu``): the gather of
   masked 128-lane windows of the ``[R+1, 128]`` posting rows (f32 or bf16
   impacts), times ``doc_live[doc]``, scatter-added into a ``[q, N+1]``
-  accumulator (``_score_and_topk``, ``search/exact.py:148-182``);
+  accumulator and times the filter (``_score_and_topk``,
+  ``search/exact.py:148-182``);
 - ``exact_sparse_gather`` (E2, ``csrc/exact_sparse.cu``): the same gather
   into ``[q, P*128]`` (doc, score) lanes, times live and filter per lane,
   dead lanes ``(n_docs, 0.0)`` (``_score_and_topk_sparse``, ``:217-225``);
@@ -22,23 +23,25 @@ PyTorch version beside it, which the CPU tests hold against the reference.
 
 Exactness.  The reference's scatter-add adds each (query, doc)'s terms in
 window order, which is term order inside a query.  E1 and E3 take each
-window's term ordinal.  E1 launches once per ordinal, ascending, every
-launch over the whole window matrix (a warp whose window carries another
-ordinal leaves at once, so nothing is sorted on the host).  E3 launches
-once: a block owns one query's slice of the doc axis and walks the
-ordinals in ascending order inside it, on the planning's layout (each
-row's ordinals in non-decreasing runs, pads last, ranges rising inside an
-ordinal; a row off that layout is served in the reference's order by one
-thread).  Inside one ordinal a (query, doc) is hit at most once, since a
-term's postings are unique per doc, so the adds land in the reference's
-order with no atomics.  Kernels, plain versions and reference agree bit
-for bit.
+window's term ordinal and launch once, on the planning's layout (each
+row's ordinals in non-decreasing runs, pads last; first docs rising
+inside an ordinal for E1, ranges for E3): E1's blocks own one query's doc
+tile in shared memory and write it once, the filter applied in the write
+(``csrc/dense_tiles.cuh``, no zero-fill before it), and E3's own one
+query's slice of the doc axis in the accumulator; both walk the ordinals
+in ascending order, and a row off the layout is served in the
+reference's order by one thread.  Inside one ordinal a (query, doc) is
+hit at most once, since a term's postings are unique per doc, so the adds
+land in the reference's order with no atomics.  Kernels, plain versions
+and reference agree bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import dense_tiles
+from .dense_tiles import PAD, lists_in_layout
 from .stream_kernel import check_tensors
 from .stream_sparse import sparse_lanes_topk
 from .topk import new_accumulator
@@ -46,6 +49,7 @@ from .topk import new_accumulator
 __all__ = [
     "compact_rows_in_layout",
     "compact_scatter",
+    "dense_rows_in_layout",
     "exact_compact_accumulate",
     "exact_compact_accumulate_plain",
     "exact_dense_accumulate",
@@ -55,9 +59,9 @@ __all__ = [
     "exact_sparse_topk",
 ]
 
-# CUDA kernel launches: E1 on f32 and on bf16 rows (one per term ordinal
-# of a dispatch), E2 and E3 (one per dispatch).  chip_smoke.py reads
-# them to show the main path went through the kernels.
+# CUDA kernel launches: E1 on f32 and on bf16 rows, E2 and E3 (one a
+# dispatch each).  chip_smoke.py reads them to show the main path went
+# through the kernels.
 DENSE_LAUNCHES = 0
 DENSE_BF16_LAUNCHES = 0
 SPARSE_LAUNCHES = 0
@@ -100,6 +104,12 @@ def _check_rows(post_docid, post_impact, doc_live, n_docs, wins):
         raise ValueError("win_row, win_lo and win_hi must share one [q, P] shape, q, P >= 1")
 
 
+def _check_filter(post_docid, filter_mask, n_docs):
+    check_tensors(post_docid, ((filter_mask, torch.float32, "filter_mask", 1),))
+    if filter_mask.numel() != n_docs + 1:
+        raise ValueError(f"filter_mask has {filter_mask.numel()} entries, need {n_docs + 1}")
+
+
 def _gather_rows(post_docid, post_impact, doc_live, rows, lo, hi):
     """The reference's masked gather of posting rows: (d, sc) with ``sc =
     where(valid, impact, 0) * doc_live[d]`` for every lane."""
@@ -113,11 +123,12 @@ def _gather_rows(post_docid, post_impact, doc_live, rows, lo, hi):
 
 def exact_dense_accumulate_plain(
     post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
-    n_ord: int, n_docs: int,
+    n_ord: int, n_docs: int, filter_mask=None,
 ):
     """Plain PyTorch version of ``exact_dense_accumulate``: per term ordinal
     in ascending order, the reference's gather of that ordinal's windows,
-    every lane added into the accumulator (lanes outside a window add 0.0)."""
+    every lane added into the accumulator (lanes outside a window add 0.0),
+    then the filter multiplied into the sums."""
     q, p = win_row.shape
     acc = new_accumulator(q, n_docs, win_row.device)
     flat, stride = _flat_rows(acc)
@@ -130,12 +141,33 @@ def exact_dense_accumulate_plain(
         d, _, sc = _gather_rows(post_docid, post_impact, doc_live, rows[sel], lo[sel], hi[sel])
         idx = (sel // p)[:, None] * stride + d.long()
         flat.index_add_(0, idx.reshape(-1), sc.reshape(-1))
+    if filter_mask is not None:
+        acc.mul_(filter_mask)  # the same product as acc * filter[None, :]
     return acc
+
+
+def dense_rows_in_layout(post_docid, win_row, win_lo, win_hi, win_ord, n_ord: int):
+    """[q] bool: whether each row of a window matrix keeps the layout E1's
+    tile walk relies on (``ops/dense_tiles.py``): the windows with an
+    ordinal in [0, n_ord) first, in non-decreasing ordinal order, pads
+    after them, each of them a row in range with lanes ``0 <= lo < hi <=
+    128``, and inside one ordinal first docs ``post_docid[row, lo]``
+    strictly rising.  The kernel serves any other row one lane at a time,
+    in the reference's order."""
+    q, p = win_row.shape
+    o, r = win_ord.reshape(-1), win_row.reshape(-1).long()
+    lo, hi = win_lo.reshape(-1).long(), win_hi.reshape(-1).long()
+    real = (o >= 0) & (o < n_ord)
+    bad = (r < 0) | (r >= post_docid.shape[0]) | (lo < 0) | (lo >= hi) | (hi > ROW)
+    cell = torch.where(real & ~bad, r * ROW + lo, 0)
+    first = post_docid.reshape(-1)[cell]
+    query = torch.arange(q, device=o.device).repeat_interleave(p)
+    return lists_in_layout(torch.where(real, o, PAD), first, bad, query, q)
 
 
 def exact_dense_accumulate(
     post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
-    n_ord: int, n_docs: int,
+    n_ord: int, n_docs: int, filter_mask=None,
 ):
     """``[q, n_docs + 1]`` f32 accumulator of every window's impacts.
 
@@ -143,18 +175,23 @@ def exact_dense_accumulate(
     128] f32 or bf16, doc_live [N+1] f32; win_row/win_lo/win_hi [q, P] int32
     posting rows and their live lanes [lo, hi) (pad: row R, lo = hi = 0);
     win_ord [q, P] int32, each window's term ordinal inside its query, -1
-    for a pad; n_ord, one more than the largest ordinal.  The result is a
-    row view of a 16-B-aligned allocation (``ops.topk.new_accumulator``);
-    the filter is the caller's.  A CUDA tensor launches the kernel once per
-    ordinal, ascending, or raises; a CPU tensor runs the plain version."""
+    for a pad; n_ord, one more than the largest ordinal; filter_mask [N+1]
+    f32 or None, multiplied into the sums (``acc * filter``).  The result
+    is a row view of a 16-B-aligned allocation
+    (``ops.topk.new_accumulator``).  A CUDA tensor launches the kernel once
+    (it writes every cell, the filter applied in the write: the
+    accumulator is not zero-filled first) or raises; a CPU tensor runs the
+    plain version."""
     global DENSE_LAUNCHES, DENSE_BF16_LAUNCHES
 
     wins = (("win_row", win_row), ("win_lo", win_lo), ("win_hi", win_hi))
     _check_rows(post_docid, post_impact, doc_live, n_docs, wins)
     _check_ordinals(win_ord, win_row, n_ord, "win_ord")
+    if filter_mask is not None:
+        _check_filter(post_docid, filter_mask, n_docs)
     args = (
         post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
-        n_ord, n_docs,
+        n_ord, n_docs, filter_mask,
     )
     if post_docid.device.type == "cpu":
         return exact_dense_accumulate_plain(*args)
@@ -168,25 +205,24 @@ def exact_dense_accumulate(
 
     lib = library()
     dev = post_docid.device
-    acc = new_accumulator(q, n_docs, dev)
+    acc = new_accumulator(q, n_docs, dev, zero=False)
     bf16 = post_impact.dtype == torch.bfloat16
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for o in range(n_ord):
-            err = lib.bm25_exact_dense_accumulate(
-                post_docid.data_ptr(), post_impact.data_ptr(), doc_live.data_ptr(),
-                win_row.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
-                win_ord.data_ptr(), acc.data_ptr(), q * p, p, o,
-                acc.stride(0), n_docs, post_docid.shape[0], int(bf16), stream,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"exact_dense_accumulate kernel launch failed: cudaError {err}"
-                )
-            if bf16:
-                DENSE_BF16_LAUNCHES += 1
-            else:
-                DENSE_LAUNCHES += 1
+        err = lib.bm25_exact_dense_accumulate(
+            post_docid.data_ptr(), post_impact.data_ptr(), doc_live.data_ptr(),
+            win_row.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
+            win_ord.data_ptr(),
+            None if filter_mask is None else filter_mask.data_ptr(),
+            acc.data_ptr(), q, p, n_ord, acc.stride(0), n_docs,
+            post_docid.shape[0], dense_tiles.TILE, int(bf16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"exact_dense_accumulate kernel launch failed: cudaError {err}")
+    if bf16:
+        DENSE_BF16_LAUNCHES += 1
+    else:
+        DENSE_LAUNCHES += 1
     return acc
 
 
@@ -216,9 +252,7 @@ def exact_sparse_gather(
 
     wins = (("win_row", win_row), ("win_lo", win_lo), ("win_hi", win_hi))
     _check_rows(post_docid, post_impact, doc_live, n_docs, wins)
-    check_tensors(post_docid, ((filter_mask, torch.float32, "filter_mask", 1),))
-    if filter_mask.numel() != n_docs + 1:
-        raise ValueError(f"filter_mask has {filter_mask.numel()} entries, need {n_docs + 1}")
+    _check_filter(post_docid, filter_mask, n_docs)
     args = (post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi, n_docs)
     if post_docid.device.type == "cpu":
         return exact_sparse_gather_plain(*args)

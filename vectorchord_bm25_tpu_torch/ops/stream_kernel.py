@@ -7,19 +7,27 @@ in f32, and the score is added into its query's row of a dense
 ``[n_q, N+1]`` accumulator.
 
 On a CUDA tensor ``stream_dense_accumulate`` launches the hand-written
-kernel ``csrc/stream_dense.cu``, which fuses the reference's
-``_unpack_and_score`` (``search/stream.py:171-266``) with the scatter-add
-of ``_stream_dense`` (``:296-303``): decoded lanes live in registers and
-only the accumulator is written.  On a CPU tensor it runs
-``stream_dense_accumulate_plain``, built on ``unpack_and_score_plain``,
-the plain PyTorch twin of M1.
+kernel ``csrc/stream_dense.cu`` once, which fuses the reference's
+``_unpack_and_score`` (``search/stream.py:171-266``) with the zero-fill
+and the scatter-add of ``_stream_dense`` (``:296-303``): a block sums one
+doc tile of one query's row in shared memory and writes it once
+(``csrc/dense_tiles.cuh``, stated in ``ops/dense_tiles.py``), so the
+accumulator is allocated uninitialised and written cell by cell exactly
+once.  On a CPU tensor it runs ``stream_dense_accumulate_plain``, built on
+``unpack_and_score_plain``, the plain PyTorch twin of M1.
+
+The windows come in the planning's order (``search/stream.py::
+_win_lists``: query-major, term-major, a term's windows consecutive and
+doc-ascending) with each query's span and each window's term ordinal.
 
 Exactness.  The reference's scatter-add adds each (query, doc)'s terms in
-window order, which is term order inside a query.  Here the windows are
-launched one term ordinal at a time, in ascending order: inside one
-ordinal a (query, doc) is hit at most once (a term's postings are unique
-per doc), so a plain read-add-write is race-free, and across ordinals the
-adds land in the reference's order.  Kernel, plain version and reference
+window order, which is term order inside a query.  Both versions add one
+term ordinal at a time, in ascending order: inside one ordinal a (query,
+doc) is hit at most once (a term's postings are unique per doc), so the
+kernel's plain read-add-write in shared memory is race-free, and across
+ordinals the adds land in the reference's order.  A span off the
+planning's layout (``stream_spans_in_layout``) is served by the kernel
+one lane at a time, in that order.  Kernel, plain version and reference
 agree bit for bit.
 
 Storage types: the stream words (u32 on the host) are uploaded as int32
@@ -30,19 +38,21 @@ after every shift, so the arithmetic shift of a negative word is harmless.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from . import dense_tiles
+from .dense_tiles import PAD, lists_in_layout, span_windows
 from .topk import new_accumulator
 
 __all__ = [
     "stream_dense_accumulate",
     "stream_dense_accumulate_plain",
+    "stream_spans_in_layout",
     "unpack_and_score_plain",
 ]
 
-# Number of CUDA kernel launches (one per term ordinal of a dispatch);
-# chip_smoke.py reads it to show the main path went through the kernel.
+# Number of CUDA kernel launches (one a dispatch); chip_smoke.py reads it
+# to show the main path went through the kernel.
 LAUNCHES = 0
 
 WINDOW = 128  # lanes per window (index/stream.py)
@@ -91,43 +101,41 @@ def unpack_and_score_plain(
     return doc, sc
 
 
-def _ordinal_groups(word_ord, t: int):
-    """Host (order, bounds): a stable permutation grouping the windows by
-    term ordinal, ascending, and the [n_ord + 1] group bounds in it."""
-    ords = np.asarray(word_ord, dtype=np.int64).reshape(-1)
-    if ords.size != t:
-        raise ValueError(f"word_ord has {ords.size} entries, wsrc {t}")
-    if t and int(ords.min()) < 0:
-        raise ValueError("word_ord must be >= 0")
-    order = np.argsort(ords, kind="stable")
-    counts = np.bincount(ords, minlength=1) if t else np.zeros(1, np.int64)
-    bounds = np.concatenate(([0], np.cumsum(counts)))
-    return order, bounds
-
-
 def stream_dense_accumulate_plain(
-    words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, wq, word_ord,
+    words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, q_start, w_ord,
     n_q: int, n_docs: int,
 ):
     """Plain PyTorch version of ``stream_dense_accumulate``: per term
-    ordinal in ascending order, decode and score its windows and add the
-    lanes into the accumulator (dead lanes add 0.0 to the pad column)."""
+    ordinal in ascending order, decode and score the windows of the spans
+    that carry it and add the lanes into their query's row (dead lanes add
+    0.0 to the pad column)."""
     acc = new_accumulator(n_q, n_docs, words.device)
     stride = acc.stride(0)
     flat = acc.as_strided((n_q * stride,), (1,))  # the padded rows, flat
-    order, bounds = _ordinal_groups(word_ord, wsrc.numel())
-    order = torch.from_numpy(order).to(wsrc.device)
-    for o in range(bounds.size - 1):
-        sel = order[int(bounds[o]) : int(bounds[o + 1])]
-        if sel.numel() == 0:
-            continue
-        ws = wsrc[sel].long()
+    entry, query = span_windows(q_start, wsrc.numel())
+    ords = w_ord[entry]
+    for o in torch.unique(ords[ords >= 0]).tolist():  # ascending
+        sel = ords == o
+        ws = wsrc[entry[sel]].long()
         doc, sc = unpack_and_score_plain(
             words, s1_eff, w_off[ws], w_base[ws], w_meta[ws], w_s0[ws], n_docs
         )
-        idx = wq[sel].long()[:, None] * stride + doc.long()
+        idx = query[sel][:, None] * stride + doc.long()
         flat.index_add_(0, idx.reshape(-1), sc.reshape(-1))
     return acc
+
+
+def stream_spans_in_layout(wsrc, q_start, w_ord, w_base):
+    """[n_q] bool: whether each query's span keeps the layout S1's tile
+    walk relies on (``ops/dense_tiles.py``): ordinals (< 0: a pad)
+    non-decreasing with pads last, and inside one ordinal the windows'
+    first docs ``w_base[wsrc]`` strictly rising.  The kernel serves any
+    other span one lane at a time, in the reference's order."""
+    entry, query = span_windows(q_start, wsrc.numel())
+    o = w_ord[entry]
+    key = torch.where(o >= 0, o, PAD)
+    first = w_base[wsrc[entry].long()]
+    return lists_in_layout(key, first, torch.zeros_like(o, dtype=torch.bool), query, q_start.numel() - 1)
 
 
 def check_tensors(words, want) -> None:
@@ -161,39 +169,43 @@ def check_tables(words, s1_eff, w_off, w_base, w_meta, w_s0, n_docs: int) -> Non
         raise ValueError("w_off, w_base, w_meta and w_s0 must be equal length")
 
 
-def _check(words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, wq, n_q, n_docs):
+def _check(words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, q_start, w_ord, n_q, n_docs):
     check_tables(words, s1_eff, w_off, w_base, w_meta, w_s0, n_docs)
-    check_tensors(words, ((wsrc, torch.int32, "wsrc", 1), (wq, torch.int32, "wq", 1)))
-    if wq.numel() != wsrc.numel():
-        raise ValueError("wsrc and wq must be equal length")
+    check_tensors(words, (
+        (wsrc, torch.int32, "wsrc", 1),
+        (q_start, torch.int32, "q_start", 1),
+        (w_ord, torch.int32, "w_ord", 1),
+    ))
+    if w_ord.numel() != wsrc.numel():
+        raise ValueError(f"w_ord has {w_ord.numel()} entries, wsrc {wsrc.numel()}")
     if n_q < 1:
         raise ValueError(f"n_q must be >= 1, got {n_q}")
+    if q_start.numel() != n_q + 1:
+        raise ValueError(f"q_start has {q_start.numel()} entries, need n_q + 1 = {n_q + 1}")
 
 
 def stream_dense_accumulate(
-    words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, wq, word_ord,
+    words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, q_start, w_ord,
     n_q: int, n_docs: int,
 ):
     """``[n_q, n_docs + 1]`` f32 accumulator of every window's scores.
 
     words [S] int32 stream; s1_eff [N+1] f32; w_off/w_base [W+1] int32,
     w_meta [W+1] int16, w_s0 [W+1] f32 (entry W: the zero-length pad
-    window); wsrc/wq [T] int32 window ids and their query rows (< n_q);
-    word_ord [T] host ints, each window's term ordinal inside its query.
-    The result is a row view of a 16-B-aligned allocation
-    (``ops.topk.new_accumulator``).  A CUDA tensor launches the kernel
-    once per ordinal, ascending, or raises; a CPU tensor runs the plain
-    version."""
+    window); wsrc [T] int32 window ids in the planning's order; q_start
+    [n_q + 1] int32, query q's span ``[q_start[q], q_start[q + 1])`` of
+    wsrc (windows outside every span add nothing); w_ord [T] int32, each
+    window's term ordinal inside its query (< 0: a pad, which adds
+    nothing).  The result is a row view of a 16-B-aligned allocation
+    (``ops.topk.new_accumulator``).  A CUDA tensor launches the kernel once
+    (it writes every cell: the accumulator is not zero-filled first) or
+    raises; a CPU tensor runs the plain version."""
     global LAUNCHES
 
-    _check(words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, wq, n_q, n_docs)
-    if isinstance(word_ord, torch.Tensor) and word_ord.device.type != "cpu":
-        raise ValueError("word_ord is host data: pass a numpy array or a CPU tensor")
+    args = (words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, q_start, w_ord, n_q, n_docs)
+    _check(*args)
     if words.device.type == "cpu":
-        return stream_dense_accumulate_plain(
-            words, s1_eff, w_off, w_base, w_meta, w_s0, wsrc, wq, word_ord,
-            n_q, n_docs,
-        )
+        return stream_dense_accumulate_plain(*args)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
 
@@ -201,27 +213,16 @@ def stream_dense_accumulate(
 
     lib = library()
     dev = words.device
-    t = wsrc.numel()
-    order, bounds = _ordinal_groups(word_ord, t)
-    if t and np.any(order != np.arange(t)):
-        perm = torch.from_numpy(order).to(dev)
-        wsrc, wq = wsrc[perm], wq[perm]
-    acc = new_accumulator(n_q, n_docs, dev)
+    acc = new_accumulator(n_q, n_docs, dev, zero=False)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for o in range(bounds.size - 1):
-            lo, hi = int(bounds[o]), int(bounds[o + 1])
-            if hi == lo:
-                continue
-            err = lib.bm25_stream_dense_accumulate(
-                words.data_ptr(), s1_eff.data_ptr(), w_off.data_ptr(),
-                w_base.data_ptr(), w_meta.data_ptr(), w_s0.data_ptr(),
-                wsrc.data_ptr() + 4 * lo, wq.data_ptr() + 4 * lo,
-                acc.data_ptr(), hi - lo, acc.stride(0), n_q, n_docs, stream,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"stream_dense_accumulate kernel launch failed: cudaError {err}"
-                )
-            LAUNCHES += 1
+        err = lib.bm25_stream_dense_accumulate(
+            words.data_ptr(), s1_eff.data_ptr(), w_off.data_ptr(),
+            w_base.data_ptr(), w_meta.data_ptr(), w_s0.data_ptr(),
+            wsrc.data_ptr(), q_start.data_ptr(), w_ord.data_ptr(),
+            acc.data_ptr(), wsrc.numel(), acc.stride(0), n_q, n_docs,
+            dense_tiles.TILE, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stream_dense_accumulate kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
     return acc

@@ -105,12 +105,15 @@ def select_keys(keys, k: int):
     return _unpack(_select(keys, k))
 
 
-def new_accumulator(n_q: int, n_docs: int, device) -> torch.Tensor:
-    """A zeroed ``[n_q, n_docs + 1]`` f32 accumulator whose rows start
-    16-B aligned: a view of ``[n_q, stride]`` with the stride rounded up
-    to a multiple of 4 floats (pass 1's vector loads need it)."""
+def new_accumulator(n_q: int, n_docs: int, device, zero: bool = True) -> torch.Tensor:
+    """A ``[n_q, n_docs + 1]`` f32 accumulator whose rows start 16-B
+    aligned: a view of ``[n_q, stride]`` with the stride rounded up to a
+    multiple of 4 floats (pass 1's vector loads need it, padding
+    included).  Zeroed, or with ``zero=False`` uninitialised, for a kernel
+    that writes every cell of the ``[n_q, stride]`` rows itself."""
     stride = (n_docs + 1 + 3) & ~3
-    base = torch.zeros((n_q, stride), dtype=torch.float32, device=device)
+    make = torch.zeros if zero else torch.empty
+    base = make((n_q, stride), dtype=torch.float32, device=device)
     return base[:, : n_docs + 1]
 
 

@@ -902,9 +902,8 @@ class ShardedIndex:
                 words, w_off, w_base, w_meta, w_s0 = self._stream_tables(si)
                 acc = stream_dense_accumulate(
                     words, s1_eff[si], w_off, w_base, w_meta, w_s0,
-                    self._put(wsrc.astype(np.int32)),
-                    self._put(wq.astype(np.int32)),
-                    word_ord, nq, nmax,
+                    *(self._put(x.astype(np.int32)) for x in (wsrc, q_starts, word_ord)),
+                    nq, nmax,
                 )
                 self._dense_local(acc, kk, cand_s, cand_i, si)
                 del acc
@@ -1623,10 +1622,12 @@ class ShardedIndex:
         return win_row, win_lo, win_hi, win_ord
 
     def _search_dense(self, queries, k, fmask_dev):
-        """Per shard, E1 over its posting rows, the filter, S2; then
+        """Per shard, E1 over its posting rows with the filter, S2; then
         SH-merge.  The reference multiplies the 0/1 filter into every
-        lane before the adds; multiplying the sum instead gives the same
-        bits (x * 1 = x, and a zeroed doc sums to +0 either way)."""
+        lane before the adds; E1 multiplies the sum as it writes it, which
+        gives the same bits (x * 1 = x, and a zeroed doc sums to +0 either
+        way); with no filter it multiplies nothing."""
+        unfiltered = fmask_dev is self._dev_ones
         win_row, win_lo, win_hi, win_ord = self._prepare(queries)
         kk = _bucket(k, 1)
         cand_s, cand_i = self._candidates(len(queries), kk)
@@ -1641,8 +1642,8 @@ class ShardedIndex:
                 self._put(win_ord[si]),
                 int(win_ord[si].max(initial=-1)) + 1,
                 self._nmax,
+                filter_mask=None if unfiltered else fmask_dev[si],
             )
-            acc.mul_(fmask_dev[si])
             self._dense_local(acc, kk, cand_s, cand_i, si)
             del acc
         return self._merged(cand_s, cand_i, kk)

@@ -66,12 +66,13 @@ def _score_and_topk(
     post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
     n_ord: int, filter_mask, k: int, n_docs: int,
 ):
-    """The reference's ``_score_and_topk``: E1, the filter, then S2."""
+    """The reference's ``_score_and_topk``: E1 with the filter multiplied
+    into the sums as it writes them (``acc * filter``; None: no filter),
+    then S2."""
     acc = exact_dense_accumulate(
         post_docid, post_impact, doc_live, win_row, win_lo, win_hi, win_ord,
-        n_ord, n_docs,
+        n_ord, n_docs, filter_mask=filter_mask,
     )
-    acc.mul_(filter_mask)  # in place: the same product as acc * filter[None, :]
     return dense_topk(acc, k, n_docs)
 
 
@@ -507,7 +508,7 @@ class ExactEngine:
                         put(wh),
                         put(wo),
                         int(wo.max(initial=-1)) + 1,
-                        fm_dev,
+                        None if filter_mask is None else fm_dev,
                         k=kk,
                         n_docs=dev.n_docs,
                     )

@@ -468,9 +468,11 @@ class StreamEngine:
 
     def _dispatches(self, lists):
         """The reference's dense chunking (search/stream.py:1016-1047) of
-        ``_win_lists``' output: yields (query rows, wsrc [tb] int32, wq [tb]
-        int32, word_ord [tb], n_qb) per dispatch, windows in the reference's
-        order with pad windows (len 0) up to the bucketed tb."""
+        ``_win_lists``' output: yields (query rows, wsrc [tb] int32, q_start
+        [n_qb + 1] int32, w_ord [tb] int32, n_qb) per dispatch: windows in
+        the reference's order with pad windows (len 0, ordinal -1, outside
+        every span) up to the bucketed tb, and each query's span of them
+        (the bucket's extra rows own none)."""
         wsrc_all, starts, sizes = lists
         qn = sizes.size
         n_docs = self.n_docs
@@ -492,13 +494,12 @@ class StreamEngine:
             tb = _bucket(max(t, 1), 128)
             wsrc = np.full(tb, self._pad_win, dtype=np.int32)
             wsrc[:t] = wsrc_all[t0:t1]
-            wq = np.zeros(tb, dtype=np.int32)
-            wq[:t] = np.repeat(
-                np.arange(q1 - q0, dtype=np.int32), sizes[q0:q1]
-            )
-            word_ord = np.zeros(tb, dtype=np.int64)
-            word_ord[:t] = ord_all[t0:t1]
-            yield np.arange(q0, q1), wsrc, wq, word_ord, _bucket(q1 - q0, 8)
+            n_qb = _bucket(q1 - q0, 8)
+            q_start = np.full(n_qb + 1, t, dtype=np.int32)
+            q_start[: q1 - q0 + 1] = starts[q0 : q1 + 1] - t0
+            w_ord = np.full(tb, -1, dtype=np.int32)
+            w_ord[:t] = ord_all[t0:t1]
+            yield np.arange(q0, q1), wsrc, q_start, w_ord, n_qb
             q0 = q1
 
     def _ms_tier(
@@ -714,15 +715,13 @@ class StreamEngine:
             use_sparse = sparse_sel.size > 0
 
         if not use_sparse and ms_sel is None:
-            for rows, wsrc, wq, word_ord, n_qb in self._dispatches(lists):
-                # Group the windows by ordinal on the host, so the kernel's
-                # launches read contiguous spans.
-                order = np.argsort(word_ord, kind="stable")
+            for rows, wsrc, q_start, w_ord, n_qb in self._dispatches(lists):
+                # The planning's order: each query's span holds its term
+                # runs in ordinal order, as S1's tile walk reads them.
                 acc = stream_dense_accumulate(
                     self.dev_words, s1_eff, *self._window_tables(),
-                    torch.from_numpy(wsrc[order]).to(self.device),
-                    torch.from_numpy(wq[order]).to(self.device),
-                    word_ord[order], n_qb, n_docs,
+                    *(torch.from_numpy(x).to(self.device) for x in (wsrc, q_start, w_ord)),
+                    n_qb, n_docs,
                 )
                 pending.append((rows, dense_topk(acc, kk, n_docs)))
                 # The accumulator (1 GiB at the budget) goes before the
