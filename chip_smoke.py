@@ -30,7 +30,8 @@ not 0 and no result line is printed):
       (``round_merge``), each against its plain version on every call of a
       4,096-query batch (``torch.equal`` on every output and on every tensor
       updated in place; R=1,024, k=16), timed on the first round's inputs
-      beside the library call nearest to it (``torch.topk`` on the same rows
+      (on the card, launches queued behind a sleeping kernel, and back to
+      back) beside the library call nearest to it (``torch.topk`` on the same rows
       or packed keys, which computes only the selection), and B1-merge also
       on the batch's last round's inputs, with the share of its queries
       whose lanes are all zero;
@@ -129,11 +130,17 @@ not 0 and no result line is printed):
       512-query batch of informative queries (``synth_queries_fast``) and
       one of heavy ones (``synth_queries_from_segment(mix="heavy")``), k=10:
       on every dispatch the engine hands them, S3 (``stream_sparse_decode``),
-      S4 (``sparse_combine``) and S5 (``stream_rescore``) must equal their
-      plain versions (``torch.equal``); each and its plain version timed
-      with CUDA events on its largest dispatch.  Then 5 batches of each mix,
-      QPS each and ``last_ms_stats``; the three launch counts must grow from
-      0 and the heavy mix must route queries to MaxScore;
+      S4 (``sparse_combine``) and S5 (``rescore_topk``: scores and the top-k
+      in one launch, ids included; its scores-only entry ``stream_rescore``
+      held on the same inputs) must equal their plain versions
+      (``torch.equal``); each and its plain version timed with CUDA events
+      on its largest dispatch, S5 on the card (launches queued behind a
+      sleeping kernel) and back to back, beside its scores-only launch, the
+      two-step scores-then-``lex_topk`` and ``torch.topk`` on the packed
+      keys.  Then 5 batches of each mix, QPS each and ``last_ms_stats``;
+      the three launch counts must grow from 0 and the heavy mix must route
+      queries to MaxScore; one heavy batch profiled, S5's, S4's and the
+      top-k kernels' launches named;
   (j) 64 sampled queries (32 of each mix): the card equals the CPU-plain
       engine under ``auto``, ``sparse`` and ``maxscore``, also after
       deleting 1% and under a prefilter; recall@10 = 1.0 against the
@@ -718,7 +725,8 @@ def b1_check(engine, queries, label, phase, select_inputs=None):
     groups = int((tts[tid + 1] - tts[tid]).sum())
     out = {}
     out["range_bounds"] = {
-        "ms": cuda_ms(lambda: br.range_bounds(*a, **kw)),
+        "ms": device_ms(lambda: br.range_bounds(*a, **kw)),
+        "launch_paced_ms": cuda_ms(lambda: br.range_bounds(*a, **kw)),
         "plain_ms": cuda_ms(lambda: br.range_bounds_plain(*a, **kw)),
         **bound(12 * q * t + 8 * groups + 4 * q * n_ranges, groups + q * n_ranges),
         "library_ms": None,
@@ -752,6 +760,11 @@ def b1_check(engine, queries, label, phase, select_inputs=None):
             f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}, {m['bound_bytes']} B), "
             f"library {lib} [{label}]"
         )
+    print(
+        f"{phase} range_bounds launched back to back: kernel "
+        f"{out['range_bounds']['launch_paced_ms']:.4f} ms (the line above: device time) "
+        f"[{label}]"
+    )
     m = out["round_select"]
     print(
         f"{phase} round_select launched back to back: kernel {m['launch_paced_ms']:.4f} "
@@ -2069,6 +2082,71 @@ def _finite_err(a, b):
     return float(torch.where(live, a - b, 0.0).abs().max()) if a.numel() else 0.0
 
 
+def rescore_plain_held(phase, held):
+    """``rescore_topk_plain`` for ``_checked``, which first holds S5's
+    scores-only entry (``stream_rescore``, the same kernel writing its
+    ``[Q, C]`` scores) to ``stream_rescore_plain`` on the same inputs
+    (``torch.equal``) and appends to ``held`` for each call it checked."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import stream_rescore as sr
+
+    def plain(*a):
+        got = sr.stream_rescore(*a[:9], a[10])
+        want = sr.stream_rescore_plain(*a[:9], a[10])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{phase} stream_rescore != its plain version")
+        held.append(None)
+        return sr.rescore_topk_plain(*a)
+
+    return plain
+
+
+def s5_fields(a):
+    """S5 timed on one ``rescore_topk`` call's inputs (words, s1_eff, the
+    four window tables, cand, t_lo, t_hi, k, n_docs): the main path's call
+    on the card (launches queued behind a sleeping kernel) and back to back;
+    the scores-only launch; the two-step composition scores, then
+    ``lex_topk``, its ``where`` and pads (``topk_of_scores``); the plain
+    version; and ``torch.topk`` on the packed keys of the same scores (the
+    selection half alone)."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import stream_rescore as sr
+    from vectorchord_bm25_tpu_torch.ops import topk
+
+    cand, k, n_docs = a[6], a[9], a[10]
+    kk = min(k, cand.shape[1])
+
+    def fused():
+        sr.rescore_topk(*a)
+
+    def scores_only():
+        return sr.stream_rescore(*a[:9], n_docs)
+
+    def pair():
+        sr.topk_of_scores(scores_only(), cand, k)
+
+    keys = topk._pack(scores_only(), cand)
+
+    def library():
+        torch.topk(keys, kk, dim=1, largest=False, sorted=True)
+
+    return {
+        "ms": device_ms(fused),
+        "launch_paced_ms": cuda_ms(fused),
+        "scores_ms": device_ms(scores_only),
+        "scores_launch_paced_ms": cuda_ms(scores_only),
+        "pair_ms": device_ms(pair),
+        "pair_launch_paced_ms": cuda_ms(pair),
+        "plain_ms": cuda_ms(lambda: sr.rescore_topk_plain(*a), iters=2, warmup=1),
+        "library_ms": device_ms(library),
+        "library_launch_paced_ms": cuda_ms(library),
+        "shape": {"Q": cand.shape[0], "C": cand.shape[1], "T": a[7].shape[1], "k": k},
+    }
+
+
 def exact_sparse(args, seg, batches, label, build_times):
     """Phase (r): the exact engine where its ``auto`` strategy is the sparse
     sort path, on phase (i)'s corpus and query mixes.  Returns the
@@ -2183,6 +2261,13 @@ def exact_sparse(args, seg, batches, label, build_times):
     return entry, s4_launches
 
 
+# The fields of S5's kernels-line entry besides the common ones.
+S5_EXTRA = (
+    "launch_paced_ms", "scores_ms", "scores_launch_paced_ms", "pair_ms",
+    "pair_launch_paced_ms", "library_launch_paced_ms", "scores_bound", "shape",
+)
+
+
 def sparse_slice(args, label, build_times):
     """Phases (i)-(j) and (r): the served default at scale, where ``auto``
     leaves the dense path, then the exact engine on the same corpus.  Returns
@@ -2200,6 +2285,7 @@ def sparse_slice(args, label, build_times):
         synth_queries_from_segment,
     )
     from vectorchord_bm25_tpu_torch.ops import stream_rescore, stream_sparse, topk
+    from vectorchord_bm25_tpu_torch.search import stream as stream_mod
     from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
 
     # (i) the corpus: bench.py's generator and shape, only the doc count raised
@@ -2241,7 +2327,9 @@ def sparse_slice(args, label, build_times):
         f"index); device index {engine.memory_report()['total']} B"
     )
 
-    # Every dispatch the engine hands S3, S4 and S5 against the plain versions.
+    # Every dispatch the engine hands S3, S4 and S5 against the plain versions
+    # (S5: its scores and ids, and its scores-only entry on the same inputs).
+    scores_held = []
     checks = [
         _checked(
             stream_sparse, "stream_sparse_decode",
@@ -2254,8 +2342,9 @@ def sparse_slice(args, label, build_times):
             lambda out, want: _finite_err(topk._unpack(out)[0], topk._unpack(want)[0]),
         ),
         _checked(
-            stream_rescore, "stream_rescore", stream_rescore.stream_rescore_plain,
-            lambda a: a[6].numel() * a[7].shape[1], _finite_err,
+            stream_mod, "rescore_topk", rescore_plain_held("(i)", scores_held),
+            lambda a: a[6].numel() * a[7].shape[1],
+            lambda out, want: _finite_err(out[0], want[0]),
         ),
     ]
     try:
@@ -2266,7 +2355,7 @@ def sparse_slice(args, label, build_times):
                 f"(i) {mix}: {len(queries)} queries, routed to MaxScore "
                 f"{st and st['routed_queries']}; dispatches checked so far: "
                 + ", ".join(f"{c['name']} {c['checked']}" for _, c in checks)
-                + " (torch.equal)"
+                + f", stream_rescore (scores only) {len(scores_held)} (torch.equal)"
             )
     finally:
         for restore, _ in checks:
@@ -2287,9 +2376,12 @@ def sparse_slice(args, label, build_times):
         )
 
     def rescore_bound(a):
-        # The candidates, spans and scores, and each window some candidate
-        # falls in (its words and meta), read once.
+        # rescore_topk: the candidates, their s1_eff entries, the spans and
+        # each window some candidate falls in (its words and meta) read once,
+        # the [Q, k] scores and ids written; the scores-only entry writes
+        # [Q, C] scores instead.
         cand, t_lo, t_hi = (x.cpu().numpy() for x in a[6:9])
+        k = a[9]
         wins = set()
         for qi in range(cand.shape[0]):
             cq = cand[qi][cand[qi] < n]
@@ -2298,11 +2390,17 @@ def sparse_slice(args, label, build_times):
                     w = lo + np.searchsorted(si.w_base[lo:hi], cq, side="right") - 1
                     wins.update(np.unique(w[w >= lo]).tolist())
         n_words, lanes, n_win = window_words(si, np.fromiter(wins, np.int64))
-        return bound(
-            4 * n_words + 14 * n_win + 8 * cand.size + 8 * t_lo.size,
-            4 * cand.size * t_lo.shape[1],
+        read = (
+            4 * n_words + 14 * n_win + 4 * cand.size + 4 * int((cand < n).sum())
+            + 8 * t_lo.size
         )
+        ops = 4 * cand.size * t_lo.shape[1]
+        return {
+            **bound(read + 8 * cand.shape[0] * k, ops),
+            "scores_bound": bound(read + 4 * cand.size, ops),
+        }
 
+    stats[-1]["name"] = "stream_rescore"  # S5's entry: the kernel rescore_topk launches
     bound_of = {
         "stream_sparse_decode": decode_bound,
         # Doc and score read, one packed key written a lane.
@@ -2311,8 +2409,11 @@ def sparse_slice(args, label, build_times):
     }
     for c in stats:
         a = c["args"]
-        c["ms"] = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
-        c["plain_ms"] = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
+        if c["name"] == "stream_rescore":
+            c.update(s5_fields(a))
+        else:
+            c["ms"] = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
+            c["plain_ms"] = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
         c.update(bound_of[c["name"]](a))
         print(
             f"(i) {c['name']}: {c['checked']} dispatches equal to the plain "
@@ -2320,6 +2421,21 @@ def sparse_slice(args, label, build_times):
             f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']}) [{label}]"
         )
+        if c["name"] == "stream_rescore":
+            sb = c["scores_bound"]
+            print(
+                f"(i) S5 rescore_topk on its largest dispatch {c['shape']}, "
+                f"{len(scores_held)} scores-only calls == stream_rescore_plain too: "
+                f"{c['ms']:.4f} ms device ({c['launch_paced_ms']:.4f} back to back), "
+                f"bound {c['bound_ms']:.4f} ms ({c['bound_bytes']} B); the scores-only "
+                f"launch {c['scores_ms']:.4f} ms device ({c['scores_launch_paced_ms']:.4f} "
+                f"back to back), bound {sb['bound_ms']:.4f} ms ({sb['bound_bytes']} B); "
+                f"scores then lex_topk {c['pair_ms']:.4f} ms device "
+                f"({c['pair_launch_paced_ms']:.4f} back to back); torch.topk on the "
+                f"packed keys {c['library_ms']:.4f} ms device "
+                f"({c['library_launch_paced_ms']:.4f} back to back); plain "
+                f"{c['plain_ms']:.4f} ms [{label}]"
+            )
         c["args"] = None
 
     # The main path at scale: every count from 0, 5 batches of each mix.
@@ -2357,6 +2473,10 @@ def sparse_slice(args, label, build_times):
     if not heavy_stats or heavy_stats["routed_queries"] <= 0:
         raise AssertionError(f"auto routed no heavy query to MaxScore: {heavy_stats}")
     print(f"(i) launches over the timed batches: {launches}")
+    device_profile(
+        lambda: index.search_batch(batches["heavy"], K), "(i) heavy profile", label,
+        track=("stream_rescore", "sparse_combine", "TopK", "topk"),
+    )
 
     # (j) card == CPU-plain for each strategy, recall, memory
     t0 = time.perf_counter()
@@ -2445,7 +2565,8 @@ def sparse_slice(args, label, build_times):
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
             **{key: c[key] for key in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
-            "library_ms": None,
+            "library_ms": c.get("library_ms"),
+            **{key: c[key] for key in S5_EXTRA if key in c},
         }
         for c in stats
     ]
@@ -2652,8 +2773,8 @@ def shard_checks(engine, opts):
                 (stream_sparse, "COMBINE_LAUNCHES"), True,
             )
             specs["stream_rescore"] = (
-                (stream_rescore, "stream_rescore", stream_rescore.stream_rescore_plain,
-                 lambda a: a[6].numel(), _finite_err),
+                (shard, "rescore_topk", rescore_plain_held("(w)", []),
+                 lambda a: a[6].numel(), first_err),
                 (stream_rescore, "LAUNCHES"), True,
             )
     elif engine in ("exact", "hybrid") and opts.get("memory_mode") != "compact":
@@ -3229,7 +3350,10 @@ def sharded_large(args, seg, batches, single, keys, doc_ids, tfs, doc_start, lab
             if mix == "informative":
                 device_profile(
                     lambda: index.search(queries, K), f"(w) {what} profile", label,
-                    track=("dense_tiles_kernel", "FillFunctor", "dense_topk_select"),
+                    track=(
+                        "dense_tiles_kernel", "FillFunctor", "dense_topk_select",
+                        "stream_rescore", "TopK",
+                    ),
                 )
             print(
                 f"(w) {what}: held to phase (i)'s single index on {len(queries)} queries "

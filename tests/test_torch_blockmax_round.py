@@ -135,6 +135,22 @@ def test_range_bounds_equals_replaced_ops_and_reference(rng, t, tied):
     assert (got >= 0).all()
 
 
+@pytest.mark.parametrize("t", [4, 8])
+def test_range_bounds_at_16384_ranges_equals_reference(rng, t):
+    # Phase (s)'s row width (a 64 KB row a query on the card), terms with up
+    # to 1,500 groups each.
+    vocab, n_ranges, lmax = 12, 16384, 1500
+    tts, tr_range, _, tr_ub = make_csr(rng, vocab, n_ranges, lmax)
+    q_tid = make_q_tid(rng, 6, t, vocab)
+    got = br.range_bounds(tts, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax)
+    assert got.shape == (6, n_ranges)
+    assert torch.equal(got, old_bounds(tts, tr_range, tr_ub, q_tid, n_ranges, lmax))
+    np.testing.assert_array_equal(
+        got.numpy(), ref_bounds(tts, tr_range, tr_ub, q_tid, n_ranges, lmax)
+    )
+    assert (got[2:] > 0).any(axis=1).all()
+
+
 def select_case(rng, case, n_q=24, t=4, vocab=30, n_ranges=37, k=5):
     """Inputs of one B1-select call: bounds with ties, rows that are partly
     or wholly taken (-inf), thresholds above some rows' maxima."""

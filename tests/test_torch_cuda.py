@@ -558,22 +558,53 @@ def _rescore_case(gen, si, n_q=24, c=64, tmax=4):
     return [torch.from_numpy(x).cuda() for x in (cand, t_lo, t_hi)]
 
 
-def test_stream_rescore_matches_plain(card, gen):
+@pytest.mark.parametrize(
+    "case", ["sorted", "unsorted", "all_pad_rows", "neg_inf_rows", "c16384", "c_past_smem"]
+)
+def test_stream_rescore_matches_plain(card, gen, case):
+    # S5's two entries on one kernel: stream_rescore (the [Q, C] scores) and
+    # rescore_topk (scores and selection in one launch), each torch.equal to
+    # its plain version on the card and to the CPU, ids of the -inf slots and
+    # of the pads past C included.  16,384 candidates keep their keys in
+    # shared memory; 30,000 take the scratch row (stream_rescore.SMEM_KEYS).
     from vectorchord_bm25_tpu_torch.ops import stream_rescore
 
     si, tables, _, _, _, _ = _stream_case(gen, tf_hi=400)
-    cand, t_lo, t_hi = _rescore_case(gen, si)
+    c = {"c16384": 16384, "c_past_smem": 30000}.get(case, 64)
+    n_q = 24 if c == 64 else 4
+    cand, t_lo, t_hi = _rescore_case(gen, si, n_q=n_q, c=c)
+    if case == "unsorted":
+        cand = cand[:, torch.randperm(c, device=card)].contiguous()
+    elif case == "all_pad_rows":
+        cand[::3] = si.n_docs
+    elif case == "neg_inf_rows":
+        t_hi[::2] = t_lo[::2]  # no term has a window: every score is -inf
+    elif c > 64:
+        # Every doc a candidate somewhere: most score, many tie.
+        cand = torch.from_numpy(
+            np.sort(gen.integers(0, si.n_docs, size=(n_q, c)), axis=1).astype(np.int32)
+        ).to(card)
+    cpu_args = [t.cpu() for t in (*tables, cand, t_lo, t_hi)]
     before = stream_rescore.LAUNCHES
     got = stream_rescore.stream_rescore(*tables, cand, t_lo, t_hi, si.n_docs)
     torch.cuda.synchronize()
     assert stream_rescore.LAUNCHES == before + 1
     want = stream_rescore.stream_rescore_plain(*tables, cand, t_lo, t_hi, si.n_docs)
     assert torch.equal(got, want)
-    assert int(torch.isfinite(got).sum()) > 100
-    cpu = stream_rescore.stream_rescore(
-        *[t.cpu() for t in tables], cand.cpu(), t_lo.cpu(), t_hi.cpu(), si.n_docs
-    )
-    assert torch.equal(got.cpu(), cpu)
+    assert torch.equal(got.cpu(), stream_rescore.stream_rescore(*cpu_args, si.n_docs))
+    if case not in ("all_pad_rows", "neg_inf_rows"):
+        assert int(torch.isfinite(got).sum()) > 100
+    for k in (1, 10, 128, c + 5):
+        before = stream_rescore.LAUNCHES
+        s, i = stream_rescore.rescore_topk(*tables, cand, t_lo, t_hi, k, si.n_docs)
+        torch.cuda.synchronize()
+        assert stream_rescore.LAUNCHES == before + 1
+        w_s, w_i = stream_rescore.rescore_topk_plain(*tables, cand, t_lo, t_hi, k, si.n_docs)
+        assert torch.equal(s, w_s) and torch.equal(i, w_i), k
+        c_s, c_i = stream_rescore.rescore_topk(*cpu_args, k, si.n_docs)
+        assert torch.equal(s.cpu(), c_s) and torch.equal(i.cpu(), c_i), k
+        if case == "neg_inf_rows":
+            assert not torch.isfinite(s[::2]).any() and not i[::2].any()
 
 
 @pytest.mark.parametrize("strategy", ["sparse", "maxscore", "auto"])
@@ -1232,10 +1263,14 @@ def _round_q_tid(gen, n_q, t, vocab, card):
 
 @pytest.mark.parametrize(
     "n_ranges,max_groups,t",
-    [(37, 11, 4), (1024, 300, 4), (16384, 900, 8), (60000, 500, 4)],
+    [(37, 11, 4), (1024, 300, 4), (16384, 900, 8), (60000, 500, 4),
+     (1022, 300, 40), (2048, 600, 4), (2052, 600, 8)],
 )
 def test_range_bounds_matches_plain(card, gen, n_ranges, max_groups, t):
-    # 60,000 ranges: the row no longer fits shared memory.
+    # 1,022 ranges: rows not a multiple of 4 floats; 40 terms: ten groups
+    # of four, repeated terms adding to one range in order; 2,048 and
+    # 2,052: either side of the block size's step; 60,000 ranges: the row
+    # no longer fits shared memory.
     from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
 
     vocab, lmax = 24, 1024

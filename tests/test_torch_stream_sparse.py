@@ -234,6 +234,112 @@ def test_rescore_rejects_bad_inputs(rng):
         stream_rescore.stream_rescore(*args, c, lo[:1], hi[:1], si.n_docs)
 
 
+def rescore_variant(si, rng, cand, t_lo, t_hi, variant):
+    """A MaxScore phase 2 case bent to one edge: (cand, t_lo, t_hi, k)."""
+    cand, t_lo, t_hi = cand.copy(), t_lo.copy(), t_hi.copy()
+    k = 10
+    if variant == "k_above_c":
+        k = cand.shape[1] + 7
+    elif variant == "k_equals_c":
+        k = cand.shape[1]
+    elif variant == "all_pad_rows":
+        cand[::3] = si.n_docs
+    elif variant == "empty_spans":
+        t_hi[:, 0] = t_lo[:, 0]  # every query's first term has no window
+        t_hi[1] = t_lo[1]  # and one query none at all
+    elif variant == "unsorted":
+        for row in cand:
+            rng.shuffle(row)
+    return cand, t_lo, t_hi, k
+
+
+@pytest.mark.parametrize(
+    "variant", ["k_above_c", "k_equals_c", "all_pad_rows", "empty_spans", "unsorted"]
+)
+def test_rescore_topk_edges_equal_reference(rng, variant):
+    # rescore_topk (one S5 launch on the card: scores and selection) against
+    # the reference's _stream_rescore: ids equal, -inf slots with id 0 and
+    # the pads past C included; scores within rtol 2e-6.
+    si, terms, dead_frac = segment_case("mixed_widths", rng)
+    terms = [t for t in terms if t]
+    s1_eff, _ = s1_eff_of(si, rng, dead_frac)
+    cand, t_lo, t_hi, k = rescore_variant(si, rng, *rescore_case(si, rng, terms), variant)
+    bs_steps = int(np.max(t_hi - t_lo, initial=1)).bit_length() + 1
+    r_s, r_i = _stream_rescore(
+        *ref_tables(si, s1_eff), jnp.asarray(cand), jnp.asarray(t_lo),
+        jnp.asarray(t_hi), k=k, n_docs=si.n_docs, bs_steps=bs_steps,
+    )
+    s, i = stream_rescore.rescore_topk(
+        *port_tensors(si, s1_eff), torch.from_numpy(cand),
+        torch.from_numpy(t_lo), torch.from_numpy(t_hi), k, si.n_docs,
+    )
+    r_s, r_i = np.asarray(r_s), np.asarray(r_i)
+    assert s.shape == i.shape == (len(terms), k)
+    np.testing.assert_array_equal(i.numpy(), r_i)
+    np.testing.assert_array_equal(np.isfinite(s.numpy()), np.isfinite(r_s))
+    live = np.isfinite(r_s)
+    np.testing.assert_allclose(s.numpy()[live], r_s[live], rtol=2e-6)
+    assert (i.numpy()[~live] == 0).all()
+    if variant == "all_pad_rows":
+        assert not live[::3].any()
+    if variant == "empty_spans":
+        assert not live[1].any()
+    if variant in ("k_above_c", "k_equals_c", "unsorted"):
+        assert live.any(axis=1).all()
+
+
+def test_rescore_keys_leave_shared_memory_past_the_stated_limit(monkeypatch):
+    # The wrapper's choice: a query's keys and their sort room stay in the
+    # kernel's shared memory while select_room(C, k) <= SMEM_KEYS (208 KB at
+    # 8 B a key), else the launch gets a [Q, select_room] int64 scratch row.
+    # The launch itself is a stand-in that records what it was handed.
+    import contextlib
+    import types
+
+    from vectorchord_bm25_tpu_torch.ops import _build
+
+    assert stream_rescore.SMEM_KEYS == 26624
+    assert stream_rescore.select_room(512, 10) == 512 + 16
+    assert stream_rescore.select_room(16384, 10) == 16384 + 16
+    assert stream_rescore.select_room(16384, 16384) == 16384
+    assert stream_rescore.select_room(16384, 20000) == 16384
+    assert stream_rescore.select_room(100, 1) == 101
+    assert stream_rescore.select_room(0, 10) == 0
+    assert stream_rescore.select_room(26624 - 16, 16) == 26624
+    assert stream_rescore.select_room(26624 - 15, 16) == 26625
+
+    seen = []
+
+    def launch(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(
+        bm25_stream_rescore_topk=launch))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0)
+    )
+    tabs = [torch.zeros(2, dtype=torch.int32) for _ in range(6)]
+    t_lo = torch.zeros((3, 2), dtype=torch.int32)
+    for c, k, scratch in ((16384, 10, False), (16384, 16384, False),
+                          (26624 - 16, 16, False), (26624 - 15, 16, True),
+                          (40000, 10, True)):
+        cand = torch.zeros((3, c), dtype=torch.int32)
+        scores, out_s, out_i = stream_rescore._launch(*tabs, cand, t_lo, t_lo, k, 5)
+        args = seen.pop()
+        assert scores is None and out_s.shape == out_i.shape == (3, k)
+        assert (args[12] is not None) == scratch, (c, k)
+        assert args[13:18] == (3, c, 2, 5, k)
+    # The scores-only entry: [Q, C] scores, no selection and no scratch.
+    scores, out_s, out_i = stream_rescore._launch(
+        *tabs, torch.zeros((3, 40000), dtype=torch.int32), t_lo, t_lo, 0, 5
+    )
+    args = seen.pop()
+    assert scores.shape == (3, 40000) and out_s is None and out_i is None
+    assert args[9] is not None and args[10:13] == (None, None, None)
+
+
 # --- replays of tests/test_stream.py on the port
 
 

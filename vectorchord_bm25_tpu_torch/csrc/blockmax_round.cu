@@ -16,13 +16,22 @@
 // device memory instead (the bound row in place, the merge keys in a scratch
 // row the wrapper allocates): no size the reference serves is refused.
 //
-// range_bounds.  ub_work[q, r] = (sum_t tr_ub[g(t, r)]) * scale.  For each
-// term in ascending t the block's threads walk the term's CSR span of
-// (range, ub) groups and add into the row; a term has at most one group a
-// range, so no two threads of one term meet and no atomic is needed, and the
-// barrier between terms keeps each range's sum in ascending t: the order of
-// the reference's flat scatter.  Then one __fmul_rn by the f32 scale.  Bound
-// by bytes: the [Q, R] row written once dominates.
+// range_bounds.  ub_work[q, r] = (sum_t tr_ub[g(t, r)]) * scale.  One block
+// a query, sized to its groups rather than to R (128 threads up to 2,048
+// ranges: a first round's query at R = 1,024 has a few hundred groups), so
+// that more queries are in flight.  Four terms at a time: their ids and
+// CSR spans of (range, ub) groups are read in one step, then every thread
+// issues the (tr_range, tr_ub) loads of its groups in all four terms
+// (two a term, 256 groups a term at 128 threads) before its first add; a
+// longer term's rest follows in chunks before the next term's adds.  A
+// term has at most one group a range, so no two threads of one term meet
+// and no atomic is needed, and the barrier between terms keeps each
+// range's sum in ascending t: the order of the reference's flat scatter.
+// Then one __fmul_rn by the f32 scale, written with 16-B stores.  The row
+// lives in shared memory, or past kMaxDynamicSmem in device memory.  Bound
+// by bytes: the [Q, R] row written once dominates; what keeps a block from
+// it is its chain of dependent loads (term ids, spans, groups), which the
+// four terms share and enough blocks in flight hide.
 //
 // round_select.  thresh = max(topk_s[q, k-1], 0).  The C highest bounds of
 // the row, ties to the lower range (lax.top_k's rule), by a radix select
@@ -145,7 +154,16 @@ constexpr u64 kPadKey = (static_cast<u64>(kInfBits) << 32) | 0x7FFFFFFFull;
 constexpr long long kMaxDynamicSmem = 224 * 1024;
 constexpr int kMergeThreads = 256;
 
-__global__ void range_bounds_kernel(
+// range_bounds: the terms whose spans are read in one step and whose first
+// chunks load together, and each thread's groups of a term in one chunk.
+constexpr int kBoundTerms = 4;
+constexpr int kBoundPer = 2;
+
+__device__ __forceinline__ void add_bound(float* row, int r, float u, int n_ranges) {
+  if (r >= 0 && r < n_ranges) row[r] = __fadd_rn(row[r], u);
+}
+
+__global__ void __launch_bounds__(1024) range_bounds_kernel(
     const int32_t* __restrict__ token_tr_start,  // [V+2]
     const int32_t* __restrict__ tr_range,        // [M+1]
     const float* __restrict__ tr_ub,             // [M+1]
@@ -153,23 +171,82 @@ __global__ void range_bounds_kernel(
     float* ub_work,                              // [Q, R]
     int n_terms, int n_ranges, float scale, int use_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int q = blockIdx.x;
-  float* out = ub_work + static_cast<int64_t>(q) * n_ranges;
+  __shared__ int s_lo[kBoundTerms], s_cnt[kBoundTerms];
+  const int64_t q = blockIdx.x;
+  const int tt = threadIdx.x, nt = blockDim.x;
+  float* out = ub_work + q * n_ranges;
   float* row = use_smem ? reinterpret_cast<float*>(smem_raw) : out;
-  for (int r = threadIdx.x; r < n_ranges; r += blockDim.x) row[r] = 0.0f;
-  __syncthreads();
-  for (int t = 0; t < n_terms; ++t) {
-    const int term = q_tid[static_cast<int64_t>(q) * n_terms + t];
-    const int lo = token_tr_start[term];
-    const int hi = token_tr_start[term + 1];
-    for (int g = lo + threadIdx.x; g < hi; g += blockDim.x) {
-      const int r = tr_range[g];
-      if (r >= 0 && r < n_ranges) row[r] = __fadd_rn(row[r], tr_ub[g]);
+  const bool vec = (n_ranges & 3) == 0;  // rows 16-B aligned: 16-B stores
+  if (vec) {
+    for (int r = tt; r < n_ranges / 4; r += nt) {
+      reinterpret_cast<float4*>(row)[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    __syncthreads();
+  } else {
+    for (int r = tt; r < n_ranges; r += nt) row[r] = 0.0f;
   }
-  for (int r = threadIdx.x; r < n_ranges; r += blockDim.x) {
-    out[r] = __fmul_rn(row[r], scale);
+  const int chunk = kBoundPer * nt;  // a term's groups a pass
+  for (int t0 = 0; t0 < n_terms; t0 += kBoundTerms) {
+    const int n_here = min(kBoundTerms, n_terms - t0);
+    if (tt < n_here) {
+      const int term = q_tid[q * n_terms + t0 + tt];
+      const int a = token_tr_start[term];
+      s_lo[tt] = a;
+      s_cnt[tt] = token_tr_start[term + 1] - a;
+    }
+    __syncthreads();  // the spans, and the row zeroed, before any add
+    int r[kBoundTerms][kBoundPer];
+    float u[kBoundTerms][kBoundPer];
+#pragma unroll
+    for (int j = 0; j < kBoundTerms; ++j) {
+      const int lo = j < n_here ? s_lo[j] : 0;
+      const int cnt = j < n_here ? s_cnt[j] : 0;
+#pragma unroll
+      for (int i = 0; i < kBoundPer; ++i) {
+        const int idx = i * nt + tt;
+        r[j][i] = -1;
+        u[j][i] = 0.0f;
+        if (idx < cnt) {
+          r[j][i] = tr_range[lo + idx];
+          u[j][i] = tr_ub[lo + idx];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBoundTerms; ++j) {
+      if (j < n_here) {  // the same in every thread
+#pragma unroll
+        for (int i = 0; i < kBoundPer; ++i) add_bound(row, r[j][i], u[j][i], n_ranges);
+        // The rest of a term longer than a chunk, before the next term.
+        const int lo = s_lo[j], cnt = s_cnt[j];
+        for (int c0 = chunk; c0 < cnt; c0 += chunk) {
+          int rr[kBoundPer];
+          float uu[kBoundPer];
+#pragma unroll
+          for (int i = 0; i < kBoundPer; ++i) {
+            const int idx = c0 + i * nt + tt;
+            rr[i] = -1;
+            uu[i] = 0.0f;
+            if (idx < cnt) {
+              rr[i] = tr_range[lo + idx];
+              uu[i] = tr_ub[lo + idx];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kBoundPer; ++i) add_bound(row, rr[i], uu[i], n_ranges);
+        }
+        __syncthreads();  // this term's adds before the next term's
+      }
+    }
+  }
+  if (vec) {
+    for (int r = tt; r < n_ranges / 4; r += nt) {
+      const float4 v = reinterpret_cast<const float4*>(row)[r];
+      reinterpret_cast<float4*>(out)[r] = make_float4(
+          __fmul_rn(v.x, scale), __fmul_rn(v.y, scale), __fmul_rn(v.z, scale),
+          __fmul_rn(v.w, scale));
+    }
+  } else {
+    for (int r = tt; r < n_ranges; r += nt) out[r] = __fmul_rn(row[r], scale);
   }
 }
 
@@ -796,8 +873,12 @@ cudaError_t allow_smem(Kernel kernel, long long bytes) {
                               static_cast<int>(bytes));
 }
 
-// Threads of a block that walks an [R] row: range_bounds, round_select.
-int row_threads(int n_ranges) { return n_ranges <= 4096 ? 256 : 1024; }
+// range_bounds: a block a query, sized to its groups (a first round's query
+// at R = 1,024 has a few hundred) rather than to R, so that more queries
+// are in flight.
+int bound_threads(int n_ranges) {
+  return n_ranges <= 2048 ? 128 : n_ranges <= 4096 ? 256 : 1024;
+}
 int select_threads(int n_ranges) {
   return n_ranges <= 1024 ? 128 : n_ranges <= 8192 ? 256 : 512;
 }
@@ -808,14 +889,17 @@ extern "C" int bm25_range_bounds(
     const void* token_tr_start, const void* tr_range, const void* tr_ub,
     const void* q_tid, void* ub_work, int n_queries, int n_terms, int n_ranges,
     float scale, void* stream) {
+  if (n_queries < 0 || n_terms < 0 || n_ranges < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_queries == 0 || n_ranges == 0) return 0;
-  long long smem = 4LL * n_ranges;
+  long long smem = 4LL * ((n_ranges + 3LL) & ~3LL);
   const int use_smem = smem <= kMaxDynamicSmem;
   if (!use_smem) smem = 0;
   cudaError_t err = allow_smem(range_bounds_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   range_bounds_kernel<<<static_cast<unsigned int>(n_queries),
-                        row_threads(n_ranges), static_cast<size_t>(smem),
+                        bound_threads(n_ranges), static_cast<size_t>(smem),
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(token_tr_start),
       static_cast<const int32_t*>(tr_range), static_cast<const float*>(tr_ub),

@@ -55,7 +55,9 @@
 // selected keys go to a scratch row instead; sort_chunks sorts it in
 // 2,048-key chunks and rank_merge writes each key at its rank (its rank in
 // its chunk plus, by binary search, the keys below it in the other chunks).
-// No library selection runs on any path.
+// No library selection runs on any path.  The packing, the radix select,
+// the k-th key by counting and the sort live in key_select.cuh, which S5
+// (stream_rescore.cu) shares.
 //
 // Bound.  Pass 1 reads the accumulator's T * 1024 columns once; pass 2
 // reads the k chosen blocks and the tail (64 KB a row at k = 16) and writes
@@ -67,32 +69,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_select.cuh"
+
 namespace {
 
-using u64 = unsigned long long;
+using namespace bm25;  // pack_key, radix_select, sort_and_write, ...
 
-constexpr uint32_t kInfBits = 0x7F800000u;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kSelThreads = 256;
 constexpr int kSelWarps = kSelThreads / 32;
 constexpr int kCap = 2048;        // selected keys a block keeps in shared memory
 constexpr int kMaxChunks = 1024;  // chunk keys a block keeps in shared memory
-constexpr int kCountSort = 256;   // up to this many keys, rank by counting
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ u64 pack_key(float v, int doc) {
-  const uint32_t hi = v > 0.0f ? kInfBits - __float_as_uint(v) : kInfBits;
-  return (static_cast<u64>(hi) << 32) | static_cast<uint32_t>(doc);
-}
 
 __device__ __forceinline__ float masked(float v) {
   return v > 0.0f ? v : -__int_as_float(0x7F800000);
-}
-
-__device__ __forceinline__ void unpack_to(u64 key, float* s, int32_t* id) {
-  const uint32_t hi = static_cast<uint32_t>(key >> 32);
-  *s = hi == kInfBits ? -__int_as_float(0x7F800000) : __uint_as_float(kInfBits - hi);
-  *id = static_cast<int32_t>(static_cast<uint32_t>(key));
 }
 
 __global__ void block_max_keys_kernel(const float* __restrict__ acc,
@@ -152,86 +142,6 @@ struct Row {
   }
 };
 
-// Warp 0: the bin of the 256 in s.hist that holds the need-th key
-// (1-based), the keys in lower bins, and the bin's count.
-__device__ void find_bin(SelShared& s, unsigned need) {
-  const int lane = threadIdx.x & 31;
-  unsigned c[8];
-  unsigned sum = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c[j] = s.hist[lane * 8 + j];
-    sum += c[j];
-  }
-  unsigned incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned t = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += t;
-  }
-  unsigned below = incl - sum;
-  if (below < need && need <= incl) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (below + c[j] >= need) {
-        s.digit = lane * 8 + j;
-        s.below = below;
-        s.bin = c[j];
-        break;
-      }
-      below += c[j];
-    }
-  }
-}
-
-// Radix select over the valid keys get(i, &key), i < n: on return exactly
-// `need` of them satisfy (key & *mask) <= *prefix (need <= the valid
-// count).  8-bit digits from the top; it stops as soon as the chosen bin
-// holds exactly the keys still needed.  Every thread of the block calls it.
-template <typename Get>
-__device__ void radix_select(SelShared& s, int n, unsigned need, Get get,
-                             u64* prefix_out, u64* mask_out) {
-  u64 prefix = 0, mask = 0;
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) s.hist[i] = 0;
-    __syncthreads();
-    const int lane = threadIdx.x & 31;
-    for (int b = threadIdx.x - lane; b < n; b += blockDim.x) {
-      // Lanes with the same digit add once: the keys of a row crowd into
-      // few bins (equal scores), and same-address atomics serialise.
-      u64 key;
-      const bool hit = b + lane < n && get(b + lane, &key) && (key & mask) == prefix;
-      const unsigned bin = hit ? static_cast<unsigned>(key >> shift) & 255u : 256u + lane;
-      const unsigned peers = __match_any_sync(kFull, bin);
-      if (hit && lane == __ffs(peers) - 1) atomicAdd(&s.hist[bin], __popc(peers));
-    }
-    __syncthreads();
-    if (threadIdx.x < 32) find_bin(s, need);
-    __syncthreads();
-    prefix |= static_cast<u64>(s.digit) << shift;
-    mask |= static_cast<u64>(255) << shift;
-    need -= s.below;
-    const bool done = s.bin == need;
-    __syncthreads();  // s.digit is rewritten by the next pass
-    if (done) break;
-  }
-  *prefix_out = prefix;
-  *mask_out = mask;
-}
-
-// The k-th smallest of n <= kMaxChunks distinct keys in shared memory, by
-// counting: every key's rank is the number of keys below it (broadcast
-// reads), and the key of rank k - 1 is written to *kth.  One barrier.
-__device__ void kth_by_rank(SelShared& s, const u64* keys, int n, int k) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const u64 key = keys[i];
-    int r = 0;
-    for (int j = 0; j < n; ++j) r += keys[j] < key;
-    if (r == k - 1) s.kth = key;
-  }
-  __syncthreads();
-}
-
 // Ordered compaction: emit(rank, i) for the first `limit` i < n, in
 // ascending i, with pred(i) true.  Every thread of the block calls it.
 template <typename Pred, typename Emit>
@@ -256,44 +166,6 @@ __device__ void ordered_collect(SelShared& s, int n, unsigned limit, Pred pred,
     base += total;
     __syncthreads();
   }
-}
-
-// Sorts buf[0, n) ascending in shared memory (pow2(n) entries of room) and
-// writes its first m keys as (score, id).  n <= kCap.
-__device__ void sort_and_write(SelShared& s, u64* buf, int n, int m, float* out_s,
-                               int32_t* out_i) {
-  if (n <= kCountSort) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const u64 key = buf[i];
-      int r = 0;
-      for (int j = 0; j < n; ++j) r += buf[j] < key;
-      if (r < m) unpack_to(key, out_s + r, out_i + r);
-    }
-    __syncthreads();
-    return;
-  }
-  int np = 1;
-  while (np < n) np <<= 1;
-  for (int i = n + threadIdx.x; i < np; i += blockDim.x) buf[i] = ~0ull;
-  __syncthreads();
-  for (int size = 2; size <= np; size <<= 1) {
-    for (int half = size >> 1; half > 0; half >>= 1) {
-      for (int i = threadIdx.x; i < np / 2; i += blockDim.x) {
-        const int lo = 2 * i - (i & (half - 1));
-        const int hi = lo + half;
-        const u64 a = buf[lo], b = buf[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          buf[lo] = b;
-          buf[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    unpack_to(buf[i], out_s + i, out_i + i);
-  }
-  __syncthreads();
 }
 
 // Appends key to the row's selected keys: shared memory while they fit,
@@ -516,9 +388,9 @@ __global__ void __launch_bounds__(kSelThreads) dense_topk_select_kernel(
         if ((key & mask) <= prefix) s.ck[atomicAdd(&s.count, 1u)] = key;
       }
       __syncthreads();
-      sort_and_write(s, s.ck, static_cast<int>(n_sel), static_cast<int>(n_sel), os, oi);
+      sort_and_write(s.ck, static_cast<int>(n_sel), static_cast<int>(n_sel), os, oi);
     } else {
-      sort_and_write(s, s.buf, static_cast<int>(held), static_cast<int>(n_sel), os, oi);
+      sort_and_write(s.buf, static_cast<int>(held), static_cast<int>(n_sel), os, oi);
     }
   }
   if (n_pos < uk) {

@@ -76,9 +76,7 @@ def _declare(lib):
         "bm25_dense_topk": [*([vp] * 7), i, i, i, i, i, ll, i, vp],
         "bm25_stream_sparse_decode": [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, vp],
         "bm25_sparse_combine": [vp, vp, vp, ll, i, i, i, vp],
-        "bm25_stream_rescore": [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp,
-        ],
+        "bm25_stream_rescore_topk": [*([vp] * 13), i, i, i, i, i, vp],
         "bm25_exact_dense_accumulate": [*([vp] * 9), i, i, i, ll, i, i, i, i, vp],
         "bm25_exact_sparse_gather": [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp,
