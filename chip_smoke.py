@@ -129,29 +129,41 @@ not 0 and no result line is printed):
       ``Bm25Index(seg, seed, IndexOptions(), device="cuda")``.  One
       512-query batch of informative queries (``synth_queries_fast``) and
       one of heavy ones (``synth_queries_from_segment(mix="heavy")``), k=10:
-      on every dispatch the engine hands them, S3 (``stream_sparse_decode``),
-      S4 (``sparse_combine``) and S5 (``rescore_topk``: scores and the top-k
-      in one launch, ids included; its scores-only entry ``stream_rescore``
+      on every dispatch the engine hands them, SP-stream
+      (``stream_sparse_topk``: the whole sparse reduction in one launch,
+      pad ids included) and S5 (``rescore_topk``: scores and the top-k in
+      one launch, ids included; its scores-only entry ``stream_rescore``
       held on the same inputs) must equal their plain versions
-      (``torch.equal``); each and its plain version timed with CUDA events
-      on its largest dispatch, S5 on the card (launches queued behind a
-      sleeping kernel) and back to back, beside its scores-only launch, the
-      two-step scores-then-``lex_topk`` and ``torch.topk`` on the packed
-      keys.  Then 5 batches of each mix, QPS each and ``last_ms_stats``;
-      the three launch counts must grow from 0 and the heavy mix must route
-      queries to MaxScore; one heavy batch profiled, S5's, S4's and the
-      top-k kernels' launches named;
+      (``torch.equal``); SP-stream timed with CUDA events on its largest
+      dispatch and on its deepest pool's, on the card (launches queued
+      behind a sleeping kernel) and back to back, beside the parent's chain
+      on the same inputs (S3 ``stream_sparse_decode``, the stable sort, S4
+      ``sparse_combine``, ``select_keys``: equal to it, and S3 and S4 each
+      held to their plain versions and timed there); S5 beside its
+      scores-only launch, the two-step scores-then-``lex_topk`` and
+      ``torch.topk`` on the packed keys.  Then 5 batches of each mix, QPS
+      each and ``last_ms_stats``; SP-stream's and S5's launch counts must
+      grow from 0, S3's and S4's stay 0, and the heavy mix must route
+      queries to MaxScore; one heavy batch profiled, SP-stream's and S5's
+      launches named, and no radix sort or ``sbtopk``/``mbtopk`` row; one
+      more heavy batch with each SP-stream and S5 call timed again on its
+      inputs on the card;
   (j) 64 sampled queries (32 of each mix): the card equals the CPU-plain
       engine under ``auto``, ``sparse`` and ``maxscore``, also after
-      deleting 1% and under a prefilter; recall@10 = 1.0 against the
-      float64 oracle on 32 of them; ``memory_report()["total"]`` equals
-      the bytes of the stream's host arrays;
+      deleting 1% and under a prefilter, every SP-stream call held to its
+      plain version; recall@10 = 1.0 against the float64 oracle on 32 of
+      them; ``memory_report()["total"]`` equals the bytes of the stream's
+      host arrays;
   (r) ``ExactEngine(seg, device="cuda")`` on phase (i)'s corpus, where
-      ``strategy="auto"`` is the sparse sort path: 3 batches of 512 of each
-      mix; E2 (``exact_sparse_gather``) equals its plain version on every
-      dispatch, both timed on the largest; S4's launches grow; the card
-      equals the CPU-plain engine on 64 queries; recall@10 = 1.0 against
-      the float64 oracle on 256; the peak device memory;
+      ``strategy="auto"`` is the sparse path: SP-exact
+      (``exact_sparse_topk``, one launch a dispatch) equals its plain
+      version on every dispatch of a batch of each mix, timed on the
+      largest beside the parent's chain (E2 ``exact_sparse_gather``, the
+      sort, S4, ``select_keys``; E2 and S4 held there too); the peak device
+      memory of those batches; 3 batches of 512 of each mix with SP-exact's
+      launches growing and E2's and S4's at 0; the card equals the
+      CPU-plain engine on 64 queries; recall@10 = 1.0 against the float64
+      oracle on 256;
   (s) ``BlockMaxEngine`` on phase (i)'s corpus (16,384 ranges, chunk 256):
       B1 equal to its plain versions on every call of the 512-query
       informative batch and timed at that size; 3 batches, rounds and QPS
@@ -193,7 +205,9 @@ not 0 and no result line is printed):
   (w) (v)'s index serving both 512-query mixes, ``strategy="auto"`` (dense
       per shard: 262,144 docs a shard is below 2^21) and ``"maxscore"``:
       one batch with every kernel call held to its plain version (S1, S2,
-      SH-merge; S3-S5 under MaxScore), then 5 batches, QPS each; results held
+      SH-merge; SP-stream and S5 under MaxScore), then 5 batches, QPS each;
+      the informative batch profiled (SP-stream's, S5's, radix-sort and
+      torch top-k rows named); results held
       to phase (i)'s single index by the reference's rule (the same hit
       counts, a rank may differ only between scores within 1e-4, scores
       within rtol 2e-5); 32 queries equal the CPU-plain sharded index under
@@ -204,8 +218,10 @@ not 0 and no result line is printed):
 Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, (u)
 after (t), and (r), (s), (v) and (w) after (j).  Each path is driven with
 its launch counters at 0 and read just after.  The ``kernels`` line lists
-P1 (f32 and bf16), P1-tf, B1-bounds, B1-select, B1-merge, S1-S5, E1 (f32
-and bf16), E2, E3, SH-merge, SH-stats and D1-sort, each with its launches
+P1 (f32 and bf16), P1-tf, B1-bounds, B1-select, B1-merge, S1-S5,
+SP-stream, E1 (f32 and bf16), E2, E3, SP-exact, SH-merge, SH-stats and
+D1-sort (S3, S4 and E2 off the path: held and timed, 0 launches), each
+with its launches
 by phase and in all, its time and its plain version's from CUDA events, its bound
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its f32
 operations over 67 TFLOP/s, counted from this run's inputs) and the time
@@ -848,7 +864,7 @@ def b1_merge_fields(inputs):
     return fields
 
 
-def device_profile(fn, what, label, track=()):
+def device_profile(fn, what, label, track=(), expect=None, tries=3):
     """One call of ``fn`` under ``torch.profiler``: the card's busy time, its
     share of the call's wall time, and the kernels by device time; each
     kernel whose name holds a string of ``track`` is named on its own.
@@ -856,26 +872,58 @@ def device_profile(fn, what, label, track=()):
     operator row (``aten::copy_``, ``aten::zero_``) carries the device time
     of the kernels it launched, which its kernel rows count already.  The
     sum over every row, which counts those twice, is printed beside it.
-    Returns the wall and busy ms and each tracked string's device ms and
-    launches (None if the profiler saw no device time)."""
+    ``fn`` runs twice, once as the profiler's warm-up step, whose events
+    are dropped, then as the recorded step: the tracer drops kernels of a
+    call that begins as it starts.  ``expect`` maps tracked strings to
+    their wrappers' launch counters: a profile whose rows count fewer or
+    more launches than a counter grew by over the recorded call is
+    incomplete, is taken again, up to ``tries`` times, and raises after
+    that.  Returns the wall and busy ms and each tracked
+    string's device ms and launches (None if the profiler saw no device
+    time and nothing was expected)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    expect = expect or {}
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, every_ms = [], 0.0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        every_ms += us / 1e3
-        if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+        ) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = {name: count() for name, count in expect.items()}
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            made = {name: count() - before[name] for name, count in expect.items()}
+            prof.step()
+        rows, every_ms = [], 0.0
+        for e in prof.key_averages():
+            if e.key.startswith("ProfilerStep"):
+                continue  # the schedule's step annotation, not device work
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            every_ms += us / 1e3
+            if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
+                rows.append((us / 1e3, e.count, e.key))
+        rows.sort(reverse=True)
+        seen = {
+            name: sum(n for _, n, key in rows if name in key) for name in set(track) | set(expect)
+        }
+        missed = {name: (seen[name], n) for name, n in made.items() if seen[name] != n}
+        if not missed:
+            break
+        print(
+            f"{what}: profile {attempt} incomplete, (rows, launches) {missed}"
+            + ("; profiling again" if attempt < tries else "")
+        )
+    else:
+        raise AssertionError(f"{what}: {tries} profiles missed launches: {missed}")
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         print(f"{what}: the profiler saw no device time")
@@ -885,6 +933,7 @@ def device_profile(fn, what, label, track=()):
         f"ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle; {every_ms:.3f} ms with the "
         f"operator rows counted too); by kernel: "
         + "; ".join(f"{key[:48]} {ms:.3f} ms x{n}" for ms, n, key in rows[:8])
+        + (f"; every launch of {sorted(made)} in the rows ({made})" if made else "")
         + f" [{label}]"
     )
     tracked = {}
@@ -897,6 +946,51 @@ def device_profile(fn, what, label, track=()):
             + f" in the batch [{label}]"
         )
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "every_row_ms": every_ms, "tracked": tracked}
+
+
+@contextlib.contextmanager
+def host_timed(module, names):
+    """Times every call of ``module``'s functions ``names`` on the host
+    (perf_counter) while the block runs: yields {name: [seconds, calls]}."""
+    real = {name: getattr(module, name) for name in names}
+    spent = {name: [0.0, 0] for name in names}
+
+    def timed(name):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                spent[name][0] += time.perf_counter() - t0
+                spent[name][1] += 1
+
+        return call
+
+    for name in names:
+        setattr(module, name, timed(name))
+    try:
+        yield spent
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
+def planning_host_ms(fn, module, what, label):
+    """One call of ``fn`` with the sparse kernels' host planning timed:
+    ``doc_ordered`` (MaxScore's prefixes put in doc order) and
+    ``segment_offsets`` (each row's segments), beside the call's wall
+    time.  Returns {name: (ms, calls)} and the wall ms."""
+    with host_timed(module, ("doc_ordered", "segment_offsets")) as spent:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    got = {name: (sec * 1e3, n) for name, (sec, n) in spent.items()}
+    print(
+        f"{what}: host time of the sparse planning in one batch of {wall_ms:.3f} ms: "
+        + ", ".join(f"{name} {ms:.3f} ms in {n} calls" for name, (ms, n) in got.items())
+        + f" [{label}]"
+    )
+    return got, wall_ms
 
 
 def rounds_equal(gpu_engine, cpu_engine, sample, what):
@@ -2147,13 +2241,129 @@ def s5_fields(a):
     }
 
 
+def calls_device_ms(fn, module, names):
+    """Records the inputs of every call ``fn()`` makes to each
+    ``module.name`` of ``names``, then times each call again on those
+    inputs on the card (``device_ms``); returns {name: (device ms summed
+    over the calls, calls)}: the card time the batch spends in them."""
+    real = {name: getattr(module, name) for name in names}
+    seen = {name: [] for name in names}
+
+    def recorder(name):
+        def wrapper(*a, **kw):
+            seen[name].append((a, kw))
+            return real[name](*a, **kw)
+        return wrapper
+
+    for name in names:
+        setattr(module, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
+    return {
+        name: (
+            sum(device_ms(lambda: real[name](*a, **kw), iters=3, warmup=1) for a, kw in calls),
+            len(calls),
+        )
+        for name, calls in seen.items()
+    }
+
+
+def _deepest(module, name, pred, size):
+    """Wrap ``module.name`` (after ``_checked``) to keep the inputs of its
+    largest call, by ``size(args)``, for which ``pred(args, kw)`` holds."""
+    real = getattr(module, name)
+    kept = {"args": None, "kw": {}, "size": -1}
+
+    def wrapper(*a, **kw):
+        if pred(a, kw) and size(a) > kept["size"]:
+            kept.update(args=a, kw=kw, size=size(a))
+        return real(*a, **kw)
+
+    setattr(module, name, wrapper)
+    return (lambda: setattr(module, name, real)), kept
+
+
+def sparse_merge_timings(call, plain, chain, a, kw):
+    """SP-stream or SP-exact (``call``) on one dispatch's inputs: on the card
+    (launches queued behind a sleeping kernel) and back to back, its plain
+    version, and the parent's chain (``chain()``: S3 or E2, the stable
+    ``torch.sort`` and gather, S4, ``select_keys``), whose output must equal
+    the kernel's (``torch.equal``)."""
+    import torch
+
+    def f():
+        return call(*a, **kw)
+
+    got, want = f(), chain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("the parent's chain != the sparse merge kernel")
+    del got, want
+    peaks = []
+    for g in (f, chain):  # device memory one call takes beyond what is held
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - held)
+    return {
+        "peak_extra_bytes": peaks[0],
+        "parent_chain_peak_extra_bytes": peaks[1],
+        "ms": device_ms(f, iters=5, warmup=1),
+        "launch_paced_ms": cuda_ms(f, iters=5, warmup=1),
+        "plain_ms": cuda_ms(lambda: plain(*a, **kw), iters=2, warmup=1),
+        "parent_chain_ms": device_ms(chain, iters=3, warmup=1),
+        "parent_chain_launch_paced_ms": cuda_ms(chain, iters=3, warmup=1),
+    }
+
+
+def held_pair(kernel, plain, a, what):
+    """``kernel(*a)`` against ``plain(*a)`` (``torch.equal``), both timed:
+    (output, max abs err of the scores, kernel ms on the card, plain ms)."""
+    import torch
+
+    out, want = kernel(*a), plain(*a)
+    torch.cuda.synchronize()
+    pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+    if not all(torch.equal(x, y) for x, y in pairs):
+        raise AssertionError(f"{what} != its plain version")
+    err = _finite_err(out[1], want[1]) if isinstance(out, tuple) else 0.0
+    return (
+        out, err, device_ms(lambda: kernel(*a), iters=5, warmup=1),
+        cuda_ms(lambda: plain(*a), iters=2, warmup=1),
+    )
+
+
+def s4_fields(s4_a, phase):
+    """S4 held and timed on the parent chain's sorted lanes of a dispatch:
+    doc and score read, one packed key written a lane."""
+    from vectorchord_bm25_tpu_torch.ops import stream_sparse
+
+    _, _, ms, plain_ms = held_pair(
+        stream_sparse.sparse_combine, stream_sparse.sparse_combine_plain, s4_a, f"{phase} S4"
+    )
+    lanes = s4_a[0].numel()
+    return {
+        "ms": ms, "plain_ms": plain_ms, **bound(16 * lanes, lanes), "library_ms": None,
+        "max_abs_err": 0.0,
+    }
+
+
 def exact_sparse(args, seg, batches, label, build_times):
     """Phase (r): the exact engine where its ``auto`` strategy is the sparse
-    sort path, on phase (i)'s corpus and query mixes.  Returns the
-    kernels-line entry of E2 and S4's launches in this phase."""
+    path, on phase (i)'s corpus and query mixes: SP-exact
+    (``exact_sparse_topk``, one launch a dispatch) held to its plain version
+    on every call, timed on the largest beside the parent's chain (E2, the
+    sort, S4, ``select_keys``), E2 and S4 held there too.  Returns the
+    kernels-line entries of SP-exact and E2 and S4's fields on E2's lanes."""
     import torch
 
     from vectorchord_bm25_tpu_torch.ops import exact_kernel, stream_sparse
+    from vectorchord_bm25_tpu_torch.search import exact as exact_mod
     from vectorchord_bm25_tpu_torch.search.exact import ExactEngine
 
     t0 = time.perf_counter()
@@ -2164,8 +2374,8 @@ def exact_sparse(args, seg, batches, label, build_times):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     restore, c = _checked(
-        exact_kernel, "exact_sparse_gather", exact_kernel.exact_sparse_gather_plain,
-        lambda a: a[4].numel() * 128, lambda out, want: _finite_err(out[1], want[1]),
+        exact_mod, "exact_sparse_topk", exact_kernel.exact_sparse_topk_plain,
+        lambda a: a[4].numel() * 128, lambda out, want: _finite_err(out[0], want[0]),
     )
     try:
         for queries in batches.values():
@@ -2173,23 +2383,50 @@ def exact_sparse(args, seg, batches, label, build_times):
     finally:
         restore()
     if not c["checked"]:
-        raise AssertionError("E2 saw no dispatch")
-    a = c["args"]
-    ms = device_ms(lambda: c["real"](*a), iters=5, warmup=1)
-    paced_ms = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
-    plain_ms = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
-    kb = e2_bound(a)
+        raise AssertionError("SP-exact saw no dispatch")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    a, kw = c["args"], c["kw"]
+    n = kw["n_docs"]
+    e2_a = (*a[:7], n)
+
+    def chain():
+        doc, sc = exact_kernel.exact_sparse_gather(*e2_a)
+        return stream_sparse.sparse_lanes_topk(doc, sc, kw["k"], n, kw["seg_steps"])
+
+    m = sparse_merge_timings(exact_kernel.exact_sparse_topk, exact_kernel.exact_sparse_topk_plain,
+                      chain, a, kw)
+    (doc, sc), e2_err, e2_ms, e2_plain = held_pair(
+        exact_kernel.exact_sparse_gather, exact_kernel.exact_sparse_gather_plain, e2_a, "(r) E2"
+    )
+    df, perm = torch.sort(doc, dim=1, stable=True)
+    s4 = s4_fields((df, sc.gather(1, perm), n, kw["seg_steps"]), "(r)")
+    del doc, sc, df, perm
+    e2b = e2_bound(e2_a)
+    lanes = _live_lanes(a[5], a[6])
+    kb = bound(
+        lanes * (4 + a[1].element_size()) + 8 * min(lanes, n + 1) + 12 * a[4].numel()
+        + 4 * kw["seg_off"].numel() + 8 * a[4].shape[0] * kw["k"],
+        3 * lanes,
+    )
     print(
-        f"(r) exact_sparse_gather: {c['checked']} dispatches equal to the plain "
-        f"version (torch.equal); largest {tuple(a[4].shape)} windows "
-        f"({c['size']} lanes) {ms:.4f} ms on the card ({paced_ms:.4f} back to "
-        f"back) vs plain {plain_ms:.4f} ms, bound {kb['bound_ms']:.4f} ms "
-        f"({kb['bound_by']}) [{label}]"
+        f"(r) SP-exact exact_sparse_topk: {c['checked']} dispatches equal to the plain "
+        f"version (torch.equal, pad ids included); largest {tuple(a[4].shape)} windows "
+        f"({c['size']} lanes, k={kw['k']}, {kw['seg_off'].shape[1] - 1} segments) "
+        f"{m['ms']:.4f} ms on the card ({m['launch_paced_ms']:.4f} back to back), bound "
+        f"{kb['bound_ms']:.4f} ms ({kb['bound_bytes']} B); the parent's chain E2 -> sort "
+        f"-> S4 -> select_keys {m['parent_chain_ms']:.4f} ms on the card "
+        f"({m['parent_chain_launch_paced_ms']:.4f} back to back), E2 alone {e2_ms:.4f} ms "
+        f"(bound {e2b['bound_ms']:.4f}), S4 alone {s4['ms']:.4f} ms; plain "
+        f"{m['plain_ms']:.4f} ms [{label}]"
     )
     c["args"] = a = None
 
     # The main path: every count from 0, 3 batches of each mix.
-    exact_kernel.SPARSE_LAUNCHES = stream_sparse.COMBINE_LAUNCHES = 0
+    exact_kernel.MERGE_LAUNCHES = exact_kernel.SPARSE_LAUNCHES = 0
+    stream_sparse.COMBINE_LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for mix, queries in batches.items():
         qps = []
         for _ in range(3):
@@ -2204,10 +2441,12 @@ def exact_sparse(args, seg, batches, label, build_times):
             f"{seg.n_docs} docs, sparse strategy; QPS per batch "
             f"{[round(x, 1) for x in qps]} [{label}]"
         )
-    launches = exact_kernel.SPARSE_LAUNCHES
-    s4_launches = stream_sparse.COMBINE_LAUNCHES
-    if not launches or not s4_launches:
-        raise AssertionError(f"(r) launched E2 {launches} times, S4 {s4_launches}")
+    torch.cuda.synchronize()
+    path_peak = torch.cuda.max_memory_allocated()
+    launches = exact_kernel.MERGE_LAUNCHES
+    old = (exact_kernel.SPARSE_LAUNCHES, stream_sparse.COMBINE_LAUNCHES)
+    if not launches or any(old):
+        raise AssertionError(f"(r) launched SP-exact {launches} times, E2 and S4 {old}")
 
     # The card against the CPU-plain engine, and against the oracle.
     t0 = time.perf_counter()
@@ -2237,28 +2476,42 @@ def exact_sparse(args, seg, batches, label, build_times):
         raise AssertionError(f"(r) recall@{K} vs oracle {recall} != 1.0")
     torch.cuda.synchronize()
     print(
-        f"(r) E2 {launches} launches, S4 {s4_launches}; GPU == CPU-plain on "
+        f"(r) SP-exact {launches} launches, E2 and S4 none; GPU == CPU-plain on "
         f"{SPARSE_AUDIT} queries; recall@{K} vs the float64 oracle {recall} on "
         f"{len(sample)} queries ({total} hits, {ties} boundary ties excused); peak "
-        f"device memory {torch.cuda.max_memory_allocated()} B (index "
-        f"{engine.memory_report()['total']} B); audits took "
-        f"{time.perf_counter() - t0:.1f} s [{label}]"
+        f"device memory of the 6 timed batches {path_peak} B (with every call held to "
+        f"its plain version {peak} B; index {engine.memory_report()['total']} B); on the "
+        f"largest dispatch one SP-exact call takes {m['peak_extra_bytes']} B beyond what "
+        f"is held, the parent's chain {m['parent_chain_peak_extra_bytes']} B; audits "
+        f"took {time.perf_counter() - t0:.1f} s [{label}]"
     )
-    entry = {
-        "name": "exact_sparse_gather",
+    sp_entry = {
+        "name": "exact_sparse_topk",
         "route": "cuda",
-        "source": "vectorchord_bm25_tpu_torch/csrc/exact_sparse.cu",
+        "source": "vectorchord_bm25_tpu_torch/csrc/exact_merge.cu",
         "replaces": "vectorchord_bm25_tpu/search/exact.py:185",
         "launches": launches,
         "launches_by_phase": {"(r)": launches},
         "max_abs_err": c["err"],
-        "ms": ms,
-        "launch_paced_ms": paced_ms,
-        "plain_ms": plain_ms,
+        **m,
         **kb,
         "library_ms": None,
+        "path_peak_bytes": path_peak,
     }
-    return entry, s4_launches
+    e2_entry = {
+        "name": "exact_sparse_gather",
+        "route": "cuda",
+        "source": "vectorchord_bm25_tpu_torch/csrc/exact_sparse.cu",
+        "replaces": "vectorchord_bm25_tpu/search/exact.py:217",
+        "launches": 0,
+        "launches_by_phase": {"(r)": 0},
+        "max_abs_err": e2_err,
+        "ms": e2_ms,
+        "plain_ms": e2_plain,
+        **e2b,
+        "library_ms": None,
+    }
+    return [sp_entry, e2_entry], s4
 
 
 # The fields of S5's kernels-line entry besides the common ones.
@@ -2327,19 +2580,14 @@ def sparse_slice(args, label, build_times):
         f"index); device index {engine.memory_report()['total']} B"
     )
 
-    # Every dispatch the engine hands S3, S4 and S5 against the plain versions
-    # (S5: its scores and ids, and its scores-only entry on the same inputs).
+    # Every dispatch the engine hands SP-stream and S5 against the plain
+    # versions (S5: its scores and ids, and its scores-only entry on the
+    # same inputs); the deepest pool's dispatch kept for timing too.
     scores_held = []
     checks = [
         _checked(
-            stream_sparse, "stream_sparse_decode",
-            stream_sparse.stream_sparse_decode_plain, lambda a: a[6].numel() * 128,
-            lambda out, want: _finite_err(out[1], want[1]),
-        ),
-        _checked(
-            stream_sparse, "sparse_combine", stream_sparse.sparse_combine_plain,
-            lambda a: a[0].numel(),
-            lambda out, want: _finite_err(topk._unpack(out)[0], topk._unpack(want)[0]),
+            stream_mod, "stream_sparse_topk", stream_sparse.stream_sparse_topk_plain,
+            lambda a: a[6].numel() * 128, lambda out, want: _finite_err(out[0], want[0]),
         ),
         _checked(
             stream_mod, "rescore_topk", rescore_plain_held("(i)", scores_held),
@@ -2347,6 +2595,9 @@ def sparse_slice(args, label, build_times):
             lambda out, want: _finite_err(out[0], want[0]),
         ),
     ]
+    undeep, deep = _deepest(
+        stream_mod, "stream_sparse_topk", lambda a, kw: a[7] >= 512, lambda a: a[6].numel()
+    )
     try:
         for mix, queries in batches.items():
             index.search_batch(queries, K)
@@ -2358,10 +2609,11 @@ def sparse_slice(args, label, build_times):
                 + f", stream_rescore (scores only) {len(scores_held)} (torch.equal)"
             )
     finally:
+        undeep()
         for restore, _ in checks:
             restore()
     stats = [c for _, c in checks]
-    if not all(c["checked"] for c in stats):
+    if not all(c["checked"] for c in stats) or deep["args"] is None:
         raise AssertionError(f"a kernel saw no dispatch: {[c['checked'] for c in stats]}")
     n = seg.n_docs
 
@@ -2372,6 +2624,17 @@ def sparse_slice(args, label, build_times):
         return bound(
             4 * n_words + 14 * n_win + 4 * wsrc.size + 4 * min(lanes, n + 1)
             + 8 * 128 * wsrc.size,
+            3 * lanes,
+        )
+
+    def merge_bound(a):
+        # SP-stream: each window's words and meta and each live lane's
+        # s1_eff read once, the segments read, [Q, k] scores and ids written.
+        wsrc = a[6].cpu().numpy().ravel()
+        n_words, lanes, n_win = window_words(si, wsrc)
+        return bound(
+            4 * n_words + 14 * n_win + 4 * wsrc.size + 4 * min(lanes, n + 1)
+            + 4 * a[10].numel() + 8 * a[6].shape[0] * a[7],
             3 * lanes,
         )
 
@@ -2400,47 +2663,77 @@ def sparse_slice(args, label, build_times):
             "scores_bound": bound(read + 4 * cand.size, ops),
         }
 
-    stats[-1]["name"] = "stream_rescore"  # S5's entry: the kernel rescore_topk launches
-    bound_of = {
-        "stream_sparse_decode": decode_bound,
-        # Doc and score read, one packed key written a lane.
-        "sparse_combine": lambda a: bound(16 * a[0].numel(), a[0].numel()),
-        "stream_rescore": rescore_bound,
+    # SP-stream on its largest dispatch and its deepest pool's, beside the
+    # parent's chain on the same inputs; S3 and S4 held and timed there.
+    sp, s5 = stats
+    a = sp["args"]
+
+    def chain_of(a):
+        def chain():
+            doc, sc = stream_sparse.stream_sparse_decode(*a[:7], a[8])
+            return stream_sparse.sparse_lanes_topk(doc, sc, a[7], a[8], a[9])
+        return chain
+
+    sp.update(sparse_merge_timings(stream_sparse.stream_sparse_topk,
+                            stream_sparse.stream_sparse_topk_plain, chain_of(a), a, {}))
+    sp.update(merge_bound(a))
+    d = deep["args"]
+    sp["deepest_pool"] = {
+        "shape": list(d[6].shape), "k": d[7],
+        **sparse_merge_timings(stream_sparse.stream_sparse_topk,
+                        stream_sparse.stream_sparse_topk_plain, chain_of(d), d, {}),
+        "bound_ms": merge_bound(d)["bound_ms"],
     }
-    for c in stats:
-        a = c["args"]
-        if c["name"] == "stream_rescore":
-            c.update(s5_fields(a))
-        else:
-            c["ms"] = cuda_ms(lambda: c["real"](*a), iters=5, warmup=1)
-            c["plain_ms"] = cuda_ms(lambda: c["plain"](*a), iters=2, warmup=1)
-        c.update(bound_of[c["name"]](a))
-        print(
-            f"(i) {c['name']}: {c['checked']} dispatches equal to the plain "
-            f"version; largest ({c['size']} lanes) {c['ms']:.4f} ms vs plain "
-            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-            f"({c['bound_by']}) [{label}]"
-        )
-        if c["name"] == "stream_rescore":
-            sb = c["scores_bound"]
-            print(
-                f"(i) S5 rescore_topk on its largest dispatch {c['shape']}, "
-                f"{len(scores_held)} scores-only calls == stream_rescore_plain too: "
-                f"{c['ms']:.4f} ms device ({c['launch_paced_ms']:.4f} back to back), "
-                f"bound {c['bound_ms']:.4f} ms ({c['bound_bytes']} B); the scores-only "
-                f"launch {c['scores_ms']:.4f} ms device ({c['scores_launch_paced_ms']:.4f} "
-                f"back to back), bound {sb['bound_ms']:.4f} ms ({sb['bound_bytes']} B); "
-                f"scores then lex_topk {c['pair_ms']:.4f} ms device "
-                f"({c['pair_launch_paced_ms']:.4f} back to back); torch.topk on the "
-                f"packed keys {c['library_ms']:.4f} ms device "
-                f"({c['library_launch_paced_ms']:.4f} back to back); plain "
-                f"{c['plain_ms']:.4f} ms [{label}]"
-            )
-        c["args"] = None
+    (doc, sc), s3_err, s3_ms, s3_plain = held_pair(
+        stream_sparse.stream_sparse_decode, stream_sparse.stream_sparse_decode_plain,
+        (*a[:7], a[8]), "(i) S3",
+    )
+    df, perm = torch.sort(doc, dim=1, stable=True)
+    s4 = s4_fields((df, sc.gather(1, perm), n, a[9]), "(i)")
+    del doc, sc, df, perm
+    s3 = {"ms": s3_ms, "plain_ms": s3_plain, **decode_bound(a), "library_ms": None,
+          "max_abs_err": s3_err}
+    dp = sp["deepest_pool"]
+    print(
+        f"(i) SP-stream stream_sparse_topk: {sp['checked']} dispatches equal to the plain "
+        f"version (torch.equal, pad ids included); largest {tuple(a[6].shape)} windows "
+        f"({sp['size']} lanes, k={a[7]}, {a[10].shape[1] - 1} segments) {sp['ms']:.4f} ms "
+        f"on the card ({sp['launch_paced_ms']:.4f} back to back), bound "
+        f"{sp['bound_ms']:.4f} ms ({sp['bound_bytes']} B); the parent's chain S3 -> sort "
+        f"-> S4 -> select_keys {sp['parent_chain_ms']:.4f} ms on the card "
+        f"({sp['parent_chain_launch_paced_ms']:.4f} back to back; device memory a call "
+        f"takes: SP-stream {sp['peak_extra_bytes']} B, the chain "
+        f"{sp['parent_chain_peak_extra_bytes']} B): S3 alone {s3_ms:.4f} "
+        f"(bound {s3['bound_ms']:.4f}), S4 alone {s4['ms']:.4f} (bound {s4['bound_ms']:.4f}); "
+        f"plain {sp['plain_ms']:.4f} ms [{label}]"
+    )
+    print(
+        f"(i) SP-stream on the deepest pool's dispatch {tuple(dp['shape'])}, k={dp['k']}: "
+        f"{dp['ms']:.4f} ms on the card ({dp['launch_paced_ms']:.4f} back to back), bound "
+        f"{dp['bound_ms']:.4f}; the parent's chain {dp['parent_chain_ms']:.4f} ms "
+        f"({dp['parent_chain_launch_paced_ms']:.4f} back to back) [{label}]"
+    )
+    s5.update(s5_fields(s5["args"]))
+    s5.update(rescore_bound(s5["args"]))
+    sb = s5["scores_bound"]
+    print(
+        f"(i) S5 rescore_topk on its largest dispatch {s5['shape']}, "
+        f"{len(scores_held)} scores-only calls == stream_rescore_plain too: "
+        f"{s5['ms']:.4f} ms device ({s5['launch_paced_ms']:.4f} back to back), "
+        f"bound {s5['bound_ms']:.4f} ms ({s5['bound_bytes']} B); the scores-only "
+        f"launch {s5['scores_ms']:.4f} ms device ({s5['scores_launch_paced_ms']:.4f} "
+        f"back to back), bound {sb['bound_ms']:.4f} ms ({sb['bound_bytes']} B); "
+        f"scores then lex_topk {s5['pair_ms']:.4f} ms device "
+        f"({s5['pair_launch_paced_ms']:.4f} back to back); torch.topk on the "
+        f"packed keys {s5['library_ms']:.4f} ms device "
+        f"({s5['library_launch_paced_ms']:.4f} back to back); plain "
+        f"{s5['plain_ms']:.4f} ms [{label}]"
+    )
+    sp["args"] = s5["args"] = a = d = deep["args"] = None
 
     # The main path at scale: every count from 0, 5 batches of each mix.
     stream_sparse.DECODE_LAUNCHES = stream_sparse.COMBINE_LAUNCHES = 0
-    stream_rescore.LAUNCHES = 0
+    stream_sparse.MERGE_LAUNCHES = stream_rescore.LAUNCHES = 0
     heavy_stats = None
     single = {}  # each mix's last results, which phase (w) is held to
     for mix, queries in batches.items():
@@ -2464,18 +2757,38 @@ def sparse_slice(args, label, build_times):
         )
         print(f"(i) {mix} last_ms_stats: {json.dumps(st)}")
     launches = {
-        "stream_sparse_decode": stream_sparse.DECODE_LAUNCHES,
-        "sparse_combine": stream_sparse.COMBINE_LAUNCHES,
+        "stream_sparse_topk": stream_sparse.MERGE_LAUNCHES,
         "stream_rescore": stream_rescore.LAUNCHES,
     }
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    old = (stream_sparse.DECODE_LAUNCHES, stream_sparse.COMBINE_LAUNCHES)
+    if not all(launches.values()) or any(old):
+        raise AssertionError(f"launches on the path: {launches}; S3 and S4 {old}")
     if not heavy_stats or heavy_stats["routed_queries"] <= 0:
         raise AssertionError(f"auto routed no heavy query to MaxScore: {heavy_stats}")
-    print(f"(i) launches over the timed batches: {launches}")
-    device_profile(
+    print(f"(i) launches over the timed batches: {launches}; S3 and S4 none")
+    for mix, queries in batches.items():
+        planning_host_ms(
+            lambda: index.search_batch(queries, K), stream_mod, f"(i) {mix}", label
+        )
+    prof = device_profile(
         lambda: index.search_batch(batches["heavy"], K), "(i) heavy profile", label,
-        track=("stream_rescore", "sparse_combine", "TopK", "topk"),
+        track=("sparse_merge", "stream_rescore", "adix", "sbtopk", "mbtopk"),
+        expect={
+            "sparse_merge": lambda: stream_sparse.MERGE_LAUNCHES,
+            "stream_rescore": lambda: stream_rescore.LAUNCHES,
+        },
+    )
+    if not prof or any(prof["tracked"][x]["launches"] for x in ("adix", "sbtopk", "mbtopk")):
+        raise AssertionError(f"(i) a sort or top-k of torch in the heavy batch: {prof['tracked']}")
+    heavy = calls_device_ms(
+        lambda: index.search_batch(batches["heavy"], K), stream_mod,
+        ("stream_sparse_topk", "rescore_topk"),
+    )
+    sp["heavy_batch_ms"], sp["heavy_batch_calls"] = heavy["stream_sparse_topk"]
+    print(
+        f"(i) heavy batch, each call timed again on its inputs on the card: SP-stream "
+        f"{sp['heavy_batch_ms']:.4f} ms in {sp['heavy_batch_calls']} calls, S5 "
+        f"{heavy['rescore_topk'][0]:.4f} ms in {heavy['rescore_topk'][1]} calls [{label}]"
     )
 
     # (j) card == CPU-plain for each strategy, recall, memory
@@ -2500,7 +2813,14 @@ def sparse_slice(args, label, build_times):
                 gpu.set_deleted(deleted)
                 cpu.set_deleted(deleted)
             kw = {"filter_mask": fmask} if "prefilter" in step else {}
-            got = gpu.search(sample, K, **kw)
+            restore, held = _checked(
+                stream_mod, "stream_sparse_topk", stream_sparse.stream_sparse_topk_plain,
+                lambda a: a[6].numel(), lambda out, want: 0.0,
+            )
+            try:
+                got = gpu.search(sample, K, **kw)
+            finally:
+                restore()
             want = cpu.search(sample, K, **kw)
             if not all(np.array_equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"{strategy}, {step}: GPU != CPU-plain")
@@ -2528,7 +2848,8 @@ def sparse_slice(args, label, build_times):
             print(
                 f"(j) {strategy}, {step}: GPU == CPU-plain on {len(sample)} "
                 f"queries ({sum(map(len, hits))} hits; routed "
-                f"{st and st['routed_queries']}, fallback {st and st['fallback_queries']})"
+                f"{st and st['routed_queries']}, fallback {st and st['fallback_queries']}); "
+                f"{held['checked']} SP-stream calls == plain"
             )
         if strategy != "auto":
             del gpu, cpu
@@ -2542,38 +2863,48 @@ def sparse_slice(args, label, build_times):
         f"total {got_bytes} B == stream host arrays; (j) took "
         f"{time.perf_counter() - t0:.1f} s"
     )
-    replaces = {
-        "stream_sparse_decode": ("stream_sparse.cu", ":327"),
-        "sparse_combine": ("stream_sparse.cu", ":337"),
-        "stream_rescore": ("stream_rescore.cu", ":366"),
-    }
     del index, engine
-    e2_entry, s4_exact = exact_sparse(args, seg, batches, label, build_times)
+    exact_entries, s4_exact = exact_sparse(args, seg, batches, label, build_times)
     b1_large = blockmax_large(args, seg, batches["informative"], label, build_times)
     sharded = sharded_large(
         args, seg, batches, single, keys, doc_ids, tfs, doc_start, label, build_times
     )
     del keys, doc_ids, tfs, doc_start
-    entries = [
-        {
-            "name": c["name"],
+
+    def entry(name, source, replaces, fields, by_phase, **extra):
+        return {
+            "name": name,
             "route": "cuda",
-            "source": f"vectorchord_bm25_tpu_torch/csrc/{replaces[c['name']][0]}",
-            "replaces": f"vectorchord_bm25_tpu/search/stream.py{replaces[c['name']][1]}",
-            "launches": launches[c["name"]],
-            "max_abs_err": c["err"],
-            "ms": c["ms"],
-            "plain_ms": c["plain_ms"],
-            **{key: c[key] for key in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
-            "library_ms": c.get("library_ms"),
-            **{key: c[key] for key in S5_EXTRA if key in c},
+            "source": f"vectorchord_bm25_tpu_torch/csrc/{source}",
+            "replaces": f"vectorchord_bm25_tpu/search/{replaces}",
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": fields.get("max_abs_err", 0.0),
+            **{key: fields[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "bound_bytes", "bound_ops")},
+            "library_ms": fields.get("library_ms"),
+            **extra,
         }
-        for c in stats
+
+    entries = [
+        entry(
+            "stream_sparse_topk", "sparse_merge.cu", "stream.py:309", {**sp, "max_abs_err": sp["err"]},
+            {"(i)": launches["stream_sparse_topk"]},
+            **{key: sp[key] for key in ("launch_paced_ms", "parent_chain_ms",
+                                        "parent_chain_launch_paced_ms", "peak_extra_bytes",
+                                        "parent_chain_peak_extra_bytes", "deepest_pool",
+                                        "heavy_batch_ms", "heavy_batch_calls")},
+        ),
+        entry("stream_sparse_decode", "stream_sparse.cu", "stream.py:327", s3, {"(i)": 0}),
+        entry("sparse_combine", "stream_sparse.cu", "stream.py:337", s4,
+              {"(i)": 0, "(r)": 0}, on_exact_lanes=s4_exact),
+        entry(
+            "stream_rescore", "stream_rescore.cu", "stream.py:366",
+            {**s5, "max_abs_err": s5["err"]}, {"(i)": launches["stream_rescore"]},
+            **{key: s5[key] for key in S5_EXTRA if key in s5},
+        ),
     ]
-    s4_entry = next(e for e in entries if e["name"] == "sparse_combine")
-    s4_entry["launches_by_phase"] = {"(i)": s4_entry["launches"], "(r)": s4_exact}
-    s4_entry["launches"] += s4_exact
-    return entries + [e2_entry], b1_large, sharded
+    return entries + exact_entries, b1_large, sharded
 
 
 def blockmax_large(args, seg, queries, label, build_times):
@@ -2680,8 +3011,6 @@ SHARD_REPLACES = {
 # Entries of kernels measured before (u) whose launches had no phase split.
 FIRST_PHASE = {
     "stream_dense_accumulate": "(f)",
-    "stream_sparse_decode": "(i)",
-    "stream_rescore": "(i)",
     "fused_range_scores_bf16": "(l)",
     "tf_range_scores": "(m)",
 }
@@ -2730,8 +3059,8 @@ def shard_checks(engine, opts):
     """The kernels a sharded body launches, as ``_checked`` specs (module,
     name, plain, size, errs), their launch counters (module, counter) and
     whether the path must call them, by kernel name.  B1 is held by
-    ``b1_check``.  Under ``strategy="maxscore"`` S3-S5 must run; S1, S2 and
-    SH-merge run only for a query some shard fails to certify."""
+    ``b1_check``.  Under ``strategy="maxscore"`` SP-stream and S5 must run;
+    S1, S2 and SH-merge run only for a query some shard fails to certify."""
     from vectorchord_bm25_tpu_torch.ops import (
         exact_kernel, score_kernel, shard_kernels, stream_kernel, stream_rescore,
         stream_sparse, topk,
@@ -2762,15 +3091,10 @@ def shard_checks(engine, opts):
             (stream_kernel, "LAUNCHES"), not ms,
         )
         if ms:
-            specs["stream_sparse_decode"] = (
-                (stream_sparse, "stream_sparse_decode", stream_sparse.stream_sparse_decode_plain,
-                 lambda a: a[6].numel(), lambda o, w: _finite_err(o[1], w[1])),
-                (stream_sparse, "DECODE_LAUNCHES"), True,
-            )
-            specs["sparse_combine"] = (
-                (stream_sparse, "sparse_combine", stream_sparse.sparse_combine_plain,
-                 lambda a: a[0].numel(), lambda o, w: 0.0),
-                (stream_sparse, "COMBINE_LAUNCHES"), True,
+            specs["stream_sparse_topk"] = (
+                (shard, "stream_sparse_topk", stream_sparse.stream_sparse_topk_plain,
+                 lambda a: a[6].numel(), first_err),
+                (stream_sparse, "MERGE_LAUNCHES"), True,
             )
             specs["stream_rescore"] = (
                 (shard, "rescore_topk", rescore_plain_held("(w)", []),
@@ -3316,6 +3640,9 @@ def sharded_large(args, seg, batches, single, keys, doc_ids, tfs, doc_start, lab
     by kernel name and phase)."""
     import torch
 
+    from vectorchord_bm25_tpu_torch.ops import stream_rescore, stream_sparse
+    from vectorchord_bm25_tpu_torch.parallel import shard
+
     # (v) the device build at scale
     index, secs, build_launches, sort, stats_st = sharded_build(
         keys, doc_ids, tfs, doc_start, "(v)", label, timed=True
@@ -3347,13 +3674,19 @@ def sharded_large(args, seg, batches, single, keys, doc_ids, tfs, doc_start, lab
             if st["checked"] and (merge_st is None or st["size"] > merge_st["size"]):
                 merge_st = st
             swaps = held_to_single(results, single[mix], f"(w) {what}")
+            if strategy == "maxscore":
+                planning_host_ms(lambda: index.search(queries, K), shard, f"(w) {what}", label)
             if mix == "informative":
                 device_profile(
                     lambda: index.search(queries, K), f"(w) {what} profile", label,
                     track=(
                         "dense_tiles_kernel", "FillFunctor", "dense_topk_select",
-                        "stream_rescore", "TopK",
+                        "sparse_merge", "stream_rescore", "adix", "sbtopk", "mbtopk",
                     ),
+                    expect={
+                        "sparse_merge": lambda: stream_sparse.MERGE_LAUNCHES,
+                        "stream_rescore": lambda: stream_rescore.LAUNCHES,
+                    },
                 )
             print(
                 f"(w) {what}: held to phase (i)'s single index on {len(queries)} queries "

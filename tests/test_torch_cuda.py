@@ -524,20 +524,109 @@ def test_sparse_combine_matches_plain(card, gen, seg_steps):
     assert torch.equal(keys.cpu(), cpu)
 
 
+def _segmented(si, query_terms, prefix=None):
+    """The sparse path's [Q, P] window matrix and its segments (host int32
+    [Q, S+1]): each query's term spans in term order, a span's windows in
+    id order (``prefix(t)``: a subset of a term's windows), padded with W."""
+    tws = si.token_w_start
+    rows, cnts = [], []
+    for terms in query_terms:
+        spans = [np.sort(prefix(t)) if prefix else np.arange(tws[t], tws[t + 1]) for t in terms]
+        rows.append(np.concatenate(spans) if spans else np.zeros(0, np.int64))
+        cnts.append([s.size for s in spans])
+    mat = np.full((len(rows), max(8, max(r.size for r in rows))), si.n_windows, np.int32)
+    for i, r in enumerate(rows):
+        mat[i, : r.size] = r
+    seg_off = np.zeros((len(rows), max(1, max(map(len, cnts))) + 1), np.int32)
+    for i, c in enumerate(cnts):
+        off = np.cumsum([0] + c)
+        seg_off[i, : off.size] = off
+        seg_off[i, off.size:] = off[-1]
+    return mat, torch.from_numpy(seg_off)
+
+
 @pytest.mark.parametrize("k", [16, 5000])
 def test_sparse_topk_on_index_windows_matches_cpu(card, gen, k):
+    # SP-stream on the case's query spans (segments from the planning) ==
+    # the CPU path, pad ids included; one launch a call.
     from vectorchord_bm25_tpu_torch.ops import stream_sparse
 
-    si, tables, wsrc, _, _, _ = _stream_case(gen, tf_hi=15)
-    mat = _window_matrix(gen, si, wsrc, n_q=8)
+    si, tables, _, _, _, _ = _stream_case(gen, tf_hi=15)
+    terms = [gen.integers(0, si.n_tokens, size=int(gen.integers(1, 6))).tolist() for _ in range(8)]
+    mat, seg_off = _segmented(si, terms + [[3, 3, 7], []])
+    mt = max(len(x) for x in terms + [[3, 3, 7]])
+    before = stream_sparse.MERGE_LAUNCHES
     got = stream_sparse.stream_sparse_topk(
-        *tables, torch.from_numpy(mat).cuda(), k, si.n_docs, 3
+        *tables, torch.from_numpy(mat).cuda(), k, si.n_docs, int(mt - 1).bit_length(), seg_off
     )
+    torch.cuda.synchronize()
+    assert stream_sparse.MERGE_LAUNCHES == before + 1
     want = stream_sparse.stream_sparse_topk(
-        *[t.cpu() for t in tables], torch.from_numpy(mat), k, si.n_docs, 3
+        *[t.cpu() for t in tables], torch.from_numpy(mat), k, si.n_docs,
+        int(mt - 1).bit_length(), seg_off,
     )
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["many_segments", "long_row", "deepest_pool", "all_deleted", "maxscore_prefix",
+     "over_lanes"],
+)
+def test_sparse_merge_design_cases_equal_plain(card, gen, case):
+    # SP-stream's paths past the main one: segment cursors in device memory
+    # (S > 256), a row's window bases read from device memory (> 8,192
+    # windows), k = 16,384 (the pool cap) with pads, rows with no
+    # candidate, impact-ordered prefixes put in doc order, rows of more
+    # segments than a tile has lanes (one-doc tiles summed in chunks).
+    from vectorchord_bm25_tpu_torch.ops import stream_sparse
+
+    si, tables, _, _, _, _ = _stream_case(gen, tf_hi=15)
+    prefix, k = None, 64
+    terms = [gen.integers(0, si.n_tokens, size=int(gen.integers(1, 6))).tolist() for _ in range(6)]
+    if case == "many_segments":
+        terms += [gen.integers(0, si.n_tokens, size=300).tolist()]
+    elif case == "long_row":
+        terms += [[0] * 60]  # term 0 holds every doc: 60 x 157 windows
+    elif case == "deepest_pool":
+        k = 16384
+    elif case == "over_lanes":
+        one = np.flatnonzero(np.diff(si.token_w_start) == 1)[:2].tolist()
+        terms += [[0] * 2049, one * 1100, [one[0]] * 4097 + [0]]
+        k = 2048
+    elif case == "all_deleted":
+        tables = list(tables)
+        tables[1] = torch.full_like(tables[1], float("inf"))
+    else:
+        imp = np.lexsort((-si.w_maximp, si.w_token))
+        tws = si.token_w_start
+
+        def prefix(t):
+            span = imp[tws[t]:tws[t + 1]]
+            return span[: max(1, span.size // 3)]
+
+    mat, seg_off = _segmented(si, terms, prefix)
+    seg_steps = int(max(len(x) for x in terms) - 1).bit_length()
+    if case == "many_segments":
+        assert seg_off.shape[1] - 1 > 256
+    if case == "long_row":
+        assert int(seg_off[:, -1].max()) > 8192
+    if case == "over_lanes":
+        assert seg_off.shape[1] - 1 == 4098
+    args = (*tables, torch.from_numpy(mat).cuda(), k, si.n_docs, seg_steps, seg_off)
+    before = stream_sparse.MERGE_LAUNCHES
+    got = stream_sparse.stream_sparse_topk(*args)
+    want = stream_sparse.stream_sparse_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert stream_sparse.MERGE_LAUNCHES == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "all_deleted":
+        assert not torch.isfinite(got[0]).any()
+    with pytest.raises(TypeError, match="seg_off"):
+        stream_sparse.stream_sparse_topk(*args[:10])
+    with pytest.raises(ValueError, match="CPU"):
+        stream_sparse.stream_sparse_topk(*args[:10], seg_off.cuda())
 
 
 def _rescore_case(gen, si, n_q=24, c=64, tmax=4):
@@ -607,6 +696,40 @@ def test_stream_rescore_matches_plain(card, gen, case):
             assert not torch.isfinite(s[::2]).any() and not i[::2].any()
 
 
+def test_rescore_keys_beside_static_shared_memory_launch(card):
+    # S5's first launch in a process with keys that fit 48 KB of shared
+    # memory only without the kernel's static part (C = 4,096, k = 1,000:
+    # 40,960 B) must raise the dynamic limit itself; a fresh process, since
+    # an earlier launch with more keys leaves the limit raised.
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import numpy as np, torch
+from vectorchord_bm25_tpu_torch import build_sealed_segment_from_postings
+from vectorchord_bm25_tpu_torch.data.synth import synth_corpus_postings
+from vectorchord_bm25_tpu_torch.ops import stream_rescore as sr
+from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
+n = 20000
+keys, docs, tfs, _ = synth_corpus_postings(n, 500, 20, seed=1)
+eng = StreamEngine(build_sealed_segment_from_postings(keys, docs, tfs, n, doc_grouped=True),
+                   device="cuda")
+tabs = (eng.dev_words, eng._s1_eff(None), *eng._window_tables())
+tws = eng.stream.token_w_start
+rng = np.random.default_rng(0)
+cand = torch.from_numpy(np.sort(rng.integers(0, n + 1, (4, 4096)), axis=1).astype(np.int32)).cuda()
+t = rng.integers(0, len(tws) - 1, (4, 2))
+lo, hi = (torch.from_numpy(tws[x].astype(np.int32)).cuda() for x in (t, t + 1))
+got = sr.rescore_topk(*tabs, cand, lo, hi, 1000, n)
+want = sr.rescore_topk_plain(*tabs, cand, lo, hi, 1000, n)
+assert sr.select_room(4096, 1000) * 8 <= 48 * 1024
+assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=repo, check=True, timeout=600)
+
+
 @pytest.mark.parametrize("strategy", ["sparse", "maxscore", "auto"])
 def test_stream_strategies_on_card_equal_cpu(card, gen, strategy, monkeypatch):
     from vectorchord_bm25_tpu.index.sealed import build_sealed_segment
@@ -632,10 +755,11 @@ def test_stream_strategies_on_card_equal_cpu(card, gen, strategy, monkeypatch):
     ]
     for kw in ({}, {"filter_mask": fmask}):
         s3, s4 = stream_sparse.DECODE_LAUNCHES, stream_sparse.COMBINE_LAUNCHES
-        s5 = stream_rescore.LAUNCHES
+        sp, s5 = stream_sparse.MERGE_LAUNCHES, stream_rescore.LAUNCHES
         got = on_card.search(queries, 10, **kw)
-        assert stream_sparse.DECODE_LAUNCHES > s3
-        assert stream_sparse.COMBINE_LAUNCHES > s4
+        # SP-stream, not the parent's S3 and S4.
+        assert stream_sparse.MERGE_LAUNCHES > sp
+        assert (stream_sparse.DECODE_LAUNCHES, stream_sparse.COMBINE_LAUNCHES) == (s3, s4)
         if strategy != "auto":
             assert (stream_rescore.LAUNCHES > s5) == (strategy == "maxscore")
         want = on_cpu.search(queries, 10, **kw)
@@ -1031,15 +1155,15 @@ def test_exact_kernels_equal_plain_on_index_windows(card, gen, monkeypatch, mode
     seg = segment_from_reference(build_sealed_segment(make_docs(gen, n_docs, vocab=vocab)))
     name, counter, opts = {
         "dense": ("exact_dense_accumulate", "DENSE_LAUNCHES", {"strategy": "dense"}),
-        "sparse": ("exact_sparse_gather", "SPARSE_LAUNCHES", {"strategy": "sparse"}),
+        "sparse": ("exact_sparse_topk", "MERGE_LAUNCHES", {"strategy": "sparse"}),
         "compact": ("exact_compact_accumulate", "COMPACT_LAUNCHES", {"compact": True}),
     }[mode]
     if mode == "dense" and impact_dtype == "bfloat16":
         counter = "DENSE_BF16_LAUNCHES"
-    # The wrapper itself, taken before the recorder goes in (E2 is called
-    # from inside its own module, so the recorder replaces it there).
+    # The wrapper itself, taken before the recorder goes in where the
+    # engine calls it (the sparse strategy makes one SP-exact launch).
     kernel = getattr(exact_kernel, name)
-    home = exact_kernel if mode == "sparse" else exact
+    home = exact
     calls = _exact_recorded(monkeypatch, home, name)
     opts = {**opts, "impact_dtype": impact_dtype}
     on_card = exact.ExactEngine(seg, device=card, **opts)
@@ -1068,6 +1192,83 @@ def test_exact_kernels_equal_plain_on_index_windows(card, gen, monkeypatch, mode
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w)
     assert on_card.memory_report() == on_cpu.memory_report()
+
+
+@pytest.mark.parametrize("impact_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [10, 2048])
+def test_exact_merge_equals_plain(card, gen, impact_dtype, k):
+    # SP-exact on the engine's own windows and segments, with deletes, a
+    # filter, a repeated and an absent term: kernel == plain, pads included.
+    from vectorchord_bm25_tpu_torch.index.sealed import segment_from_reference
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel
+    from vectorchord_bm25_tpu_torch.ops.stream_sparse import ordinal_offsets
+    from vectorchord_bm25_tpu_torch.search import exact
+
+    n_docs, vocab = 3000, 40
+    seg = segment_from_reference(build_sealed_segment(make_docs(gen, n_docs, vocab=vocab)))
+    eng = exact.ExactEngine(seg, device=card, strategy="sparse", impact_dtype=impact_dtype)
+    eng.set_deleted(gen.random(n_docs) < 0.1)
+    queries = _exact_queries(gen, vocab)
+    wr, wl, wh, wo, mt = eng._prepare(queries, with_terms=True)
+    fm = torch.ones(n_docs + 1, device=card)
+    fm[:n_docs] = torch.from_numpy((gen.random(n_docs) < 0.7).astype(np.float32)).cuda()
+    dev = eng.dev
+    args = (
+        dev.post_docid, dev.post_impact, dev.doc_live, fm,
+        *(torch.from_numpy(x).cuda() for x in (wr, wl, wh)),
+        k, n_docs, int(mt - 1).bit_length(), torch.from_numpy(ordinal_offsets(wo)),
+    )
+    before = exact_kernel.MERGE_LAUNCHES
+    got = exact_kernel.exact_sparse_topk(*args)
+    want = exact_kernel.exact_sparse_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert exact_kernel.MERGE_LAUNCHES == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(got[0]).any()
+    with pytest.raises(TypeError, match="seg_off"):
+        exact_kernel.exact_sparse_topk(*args[:10])
+
+
+def test_exact_merge_past_a_tile_of_segments_equals_plain(card, gen):
+    # SP-exact on rows of 2,049 and 4,098 term occurrences, more than a
+    # tile has lanes (one-doc tiles summed in chunks of segments), with
+    # deletes and a filter: kernel == plain, pads included.
+    from types import SimpleNamespace
+
+    from vectorchord_bm25_tpu_torch.index.sealed import segment_from_reference
+    from vectorchord_bm25_tpu_torch.ops import exact_kernel
+    from vectorchord_bm25_tpu_torch.ops.stream_sparse import ordinal_offsets
+    from vectorchord_bm25_tpu_torch.search import exact
+    from vectorchord_bm25_tpu_torch.text.intern import Query as PortQuery
+
+    n_docs, vocab = 3000, 40
+    seg = segment_from_reference(build_sealed_segment(make_docs(gen, n_docs, vocab=vocab)))
+    eng = exact.ExactEngine(seg, device=card, strategy="sparse")
+    eng.set_deleted(gen.random(n_docs) < 0.1)
+    keys = lambda ids, n: np.concatenate([PortQuery.from_int_ids(ids).keys] * n)  # noqa: E731
+    queries = [
+        SimpleNamespace(keys=keys([3], 2049)),
+        SimpleNamespace(keys=keys([5, 7], 2049)),
+        PortQuery.from_int_ids([3, 9]),
+    ]
+    wr, wl, wh, wo, mt = eng._prepare(queries, with_terms=True)
+    seg_off = ordinal_offsets(wo)
+    assert seg_off.shape[1] - 1 == mt == 4098
+    fm = torch.ones(n_docs + 1, device=card)
+    fm[:n_docs] = torch.from_numpy((gen.random(n_docs) < 0.7).astype(np.float32)).cuda()
+    dev = eng.dev
+    args = (
+        dev.post_docid, dev.post_impact, dev.doc_live, fm,
+        *(torch.from_numpy(x).cuda() for x in (wr, wl, wh)),
+        2048, n_docs, int(mt - 1).bit_length(), torch.from_numpy(seg_off),
+    )
+    before = exact_kernel.MERGE_LAUNCHES
+    got = exact_kernel.exact_sparse_topk(*args)
+    want = exact_kernel.exact_sparse_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert exact_kernel.MERGE_LAUNCHES == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(got[0]).any()
 
 
 def test_exact_kernels_reject_bad_inputs(card):

@@ -41,7 +41,10 @@ from vectorchord_bm25_tpu.utils.options import IndexOptions, SearchOptions  # no
 from vectorchord_bm25_tpu_torch import Bm25Index  # noqa: E402
 from vectorchord_bm25_tpu_torch.index.sealed import segment_from_reference  # noqa: E402
 from vectorchord_bm25_tpu_torch.ops import exact_kernel, topk  # noqa: E402
-from vectorchord_bm25_tpu_torch.ops.stream_sparse import sparse_lanes_topk  # noqa: E402
+from vectorchord_bm25_tpu_torch.ops.stream_sparse import (  # noqa: E402
+    ordinal_offsets,
+    sparse_lanes_topk,
+)
 from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.exact import ExactEngine, oracle_topk  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.hybrid import HybridEngine  # noqa: E402
@@ -182,6 +185,105 @@ def test_lockstep_sparse(lockstep_case, impact_dtype, filtered, k):
     live = np.isfinite(np.asarray(want_s))
     assert live.any()
     np.testing.assert_array_equal(got_i.numpy()[live], np.asarray(want_i)[live])
+
+
+EXACT_SEG_CASES = ["as_built", "deleted_filtered", "all_filtered", "bf16"]
+
+
+@pytest.mark.parametrize("case", EXACT_SEG_CASES)
+@pytest.mark.parametrize("k", [10, 512, 2048])
+def test_sparse_topk_segments_equal_reference(lockstep_case, case, k):
+    # exact_sparse_topk's CPU path given each row's segments (the planning's
+    # term ordinals), and the numpy model of SP-exact's decomposition,
+    # against _score_and_topk_sparse: scores bit-equal and every id equal,
+    # the -inf pads' too.
+    from test_torch_stream_sparse import sparse_merge_model
+
+    seg, queries, deleted, fm = lockstep_case
+    dtype = "bfloat16" if case == "bf16" else "float32"
+    ref, port = both(seg, impact_dtype=dtype, strategy="sparse")
+    if case != "as_built":
+        ref.set_deleted(deleted)
+        port.set_deleted(deleted)
+    fm = {
+        "as_built": np.ones_like(fm),
+        "deleted_filtered": fm,
+        "all_filtered": np.append(np.zeros(seg.n_docs, np.float32), 1.0).astype(np.float32),
+        "bf16": fm,
+    }[case]
+    wr, wl, wh, wo, mt = port._prepare(queries, with_terms=True)
+    seg_steps = int(mt - 1).bit_length()
+    want_s, want_i = (
+        np.asarray(x)
+        for x in ref_exact._jitted_score_and_topk_sparse()(
+            ref.dev.post_docid, ref.dev.post_impact, ref.dev.doc_live,
+            jnp.asarray(wr), jnp.asarray(wl), jnp.asarray(wh), jnp.asarray(fm),
+            k=k, n_docs=seg.n_docs, seg_steps=seg_steps,
+        )
+    )
+    dev = port.dev
+    seg_off = ordinal_offsets(wo)
+    wins = [torch.from_numpy(x) for x in (wr, wl, wh)]
+    got_s, got_i = exact_kernel.exact_sparse_topk(
+        dev.post_docid, dev.post_impact, dev.doc_live, torch.from_numpy(fm), *wins,
+        k, seg.n_docs, seg_steps, torch.from_numpy(seg_off),
+    )
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    doc, sc = exact_kernel.exact_sparse_gather_plain(
+        dev.post_docid, dev.post_impact, dev.doc_live, torch.from_numpy(fm), *wins, seg.n_docs
+    )
+    q, p = wr.shape
+    flat = dev.post_docid.numpy().reshape(-1)
+    base = np.where(wl < wh, flat[np.minimum(wr.astype(np.int64) * 128 + wl, flat.size - 1)],
+                    0x7FFFFFFF)
+    m_s, m_i, st = sparse_merge_model(
+        doc.numpy().reshape(q, p, 128), sc.numpy().reshape(q, p, 128), base, seg_off, k,
+        seg.n_docs, seg_steps,
+    )
+    np.testing.assert_array_equal(m_s, want_s)
+    np.testing.assert_array_equal(m_i, want_i)
+    if case == "all_filtered":
+        assert not np.isfinite(want_s).any() and st["pad_rows"] == q
+    assert (want_i[~np.isfinite(want_s)] > 0).any()  # pads with doc ids in every case
+
+
+@pytest.mark.parametrize("k", [10, 2048])
+def test_sparse_topk_past_a_tile_of_segments(lockstep_case, k):
+    # exact_sparse_topk's CPU path on rows of more term occurrences than
+    # SP-exact's tile has lanes (2,049 and 2,100 ordinals, with deletes and
+    # a filter) against _score_and_topk_sparse: scores and every id equal.
+    seg, _, deleted, fm = lockstep_case
+    ref, port = both(seg, strategy="sparse")
+    ref.set_deleted(deleted)
+    port.set_deleted(deleted)
+    keys = lambda ids, n: np.concatenate([Query.from_int_ids(ids).keys] * n)  # noqa: E731
+    queries = [
+        types.SimpleNamespace(keys=keys([3], 2049)),
+        types.SimpleNamespace(keys=keys([5, 7], 1050)),
+        Query.from_int_ids([3, 9]),
+    ]
+    wr, wl, wh, wo, mt = port._prepare(queries, with_terms=True)
+    seg_off = ordinal_offsets(wo)
+    assert seg_off.shape[1] - 1 == mt == 2100
+    seg_steps = int(mt - 1).bit_length()
+    want_s, want_i = (
+        np.asarray(x)
+        for x in ref_exact._jitted_score_and_topk_sparse()(
+            ref.dev.post_docid, ref.dev.post_impact, ref.dev.doc_live,
+            jnp.asarray(wr), jnp.asarray(wl), jnp.asarray(wh), jnp.asarray(fm),
+            k=k, n_docs=seg.n_docs, seg_steps=seg_steps,
+        )
+    )
+    assert np.isfinite(want_s).any()
+    dev = port.dev
+    got_s, got_i = exact_kernel.exact_sparse_topk(
+        dev.post_docid, dev.post_impact, dev.doc_live, torch.from_numpy(fm),
+        *(torch.from_numpy(x) for x in (wr, wl, wh)), k, seg.n_docs, seg_steps,
+        torch.from_numpy(seg_off),
+    )
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
 
 
 @pytest.mark.parametrize("filtered", [False, True])

@@ -125,8 +125,10 @@ def test_sparse_topk_equals_reference(rng, case, k_case):
         *ref_tables(si, s1_eff), jnp.asarray(mat), k=k, n_docs=si.n_docs,
         seg_steps=seg_steps, dwidths=dw, twidths=tw,
     )
+    _, seg_off, _ = segmented_matrix(si, terms)
     s, i = stream_sparse.stream_sparse_topk(
-        *port_tensors(si, s1_eff), torch.from_numpy(mat), k, si.n_docs, seg_steps
+        *port_tensors(si, s1_eff), torch.from_numpy(mat), k, si.n_docs, seg_steps,
+        torch.from_numpy(seg_off),
     )
     assert s.shape == i.shape == (mat.shape[0], k) and i.dtype == torch.int32
     assert np.array_equal(s.numpy(), np.asarray(r_s))
@@ -174,6 +176,431 @@ def test_sparse_kernels_reject_bad_inputs(rng):
         stream_sparse.sparse_combine(df, torch.zeros((2, 8)), 5, 31)
     with pytest.raises(ValueError, match="must match"):
         stream_sparse.sparse_combine(df, torch.zeros((2, 4)), 5, 1)
+
+
+# --- SP-stream (csrc/sparse_merge.cu) and its decomposition, on the CPU
+
+K_LANES = 2048  # csrc/sparse_merge.cuh kLanes
+INF_BITS = 0x7F800000
+
+
+def _pack_key(score, doc):
+    """ops/topk.py's packed key of a candidate, as a Python int."""
+    bits = int(np.float32(score).view(np.uint32))
+    return ((INF_BITS - bits) << 32) | int(doc)
+
+
+def _tree_sum(xs):
+    """The reference scan's value at a run's last lane: S4's binary-counter
+    stack over the run's postings, its last segment's first."""
+    val, lev = [], []
+    for x in xs:
+        v, lv = np.float32(x), 0
+        while lev and lev[-1] == lv:
+            v = np.float32(val.pop() + v)
+            lev.pop()
+            lv += 1
+        val.append(v)
+        lev.append(lv)
+    s = val.pop()
+    while val:
+        s = np.float32(val.pop() + s)
+    return s
+
+
+def sparse_merge_model(doc, sc, base, seg_off, k, n_docs, seg_steps,
+                       lanes=K_LANES, least=8192, n_sm=132):
+    """The sparse kernels' decomposition in numpy (csrc/sparse_merge.cuh):
+    the block plan, each part's lane-balanced doc range, the tiles sized
+    from the window bases (cut again where they overflow ``lanes``), each
+    doc's run summed in segment order with the scan's tree, a part's kk best
+    keys and its capped pad docs, and the row's merge; a one-doc tile past
+    ``lanes`` (more segments than lanes hold the doc) sums its run in chunks
+    of ``lanes`` segments, the last first.  doc, sc [Q, P, 128]
+    a window's lanes (dead lanes doc n_docs), base [Q, P] a window's first
+    doc, seg_off [Q, S+1].  Returns (scores, ids, stats)."""
+    q_n, p, _ = doc.shape
+    kk = min(k, p * 128)
+    target = lanes * 3 // 4
+    out_s = np.full((q_n, k), -np.inf, np.float32)
+    out_i = np.zeros((q_n, k), np.int32)
+    n_win = np.clip(seg_off[:, -1], 0, p)
+    plan = stream_sparse.merge_plan(n_win, kk, n_sm, least)
+    parts_of = np.bincount(plan >> 12, minlength=q_n)
+    stats = {"blocks": int(plan.size), "tiles": 0, "overflows": 0, "one_doc": 0, "pad_rows": 0}
+    reach = 1 << seg_steps
+    for q in range(q_n):
+        bq = base[q]
+        segs = [
+            (min(max(int(seg_off[q, j]), 0), n_win[q]), 0) for j in range(seg_off.shape[1] - 1)
+        ]
+        segs = [
+            (w0, min(max(int(seg_off[q, j + 1]), w0), n_win[q])) for j, (w0, _) in enumerate(segs)
+        ]
+        n_all = sum(w1 - w0 for w0, w1 in segs)
+        parts = int(parts_of[q])
+
+        def count(d):
+            return sum(int(np.searchsorted(bq[w0:w1], d, "left")) for w0, w1 in segs)
+
+        def split(i):
+            if i == 0:
+                return 0
+            if i == parts:
+                return n_docs
+            lo, hi = 0, n_docs
+            while lo < hi:
+                m = (lo + hi) // 2
+                if count(m) * parts >= i * n_all:
+                    hi = m
+                else:
+                    lo = m + 1
+            return lo
+
+        def in_range(w, a, b, w_end):
+            lo = int(bq[w])
+            if w + 1 < w_end:
+                hi = int(bq[w + 1])
+            else:
+                hi = lo + max(1, lo - int(bq[w - 1])) if w > 0 else lo + 1
+            hi = max(hi, lo + 1)
+            inside = min(hi, b) - max(lo, a)
+            return 0 if inside <= 0 else (128 * inside + (hi - lo) - 1) // (hi - lo)
+
+        blocks = []
+        for part in range(parts):
+            lo_b = split(part)
+            hi_b = max(lo_b, split(part + 1))
+            cur, end = [], []
+            for w0, w1 in segs:
+                e = w0 + int(np.searchsorted(bq[w0:w1], hi_b, "left"))
+                c = w0 + int(np.searchsorted(bq[w0:e], lo_b, "right")) - 1
+                cur.append(max(c, w0))
+                end.append(e)
+            total = sum(e - c for c, e in zip(cur, end))
+            width = hi_b - lo_b
+            D = width if total * 128 <= lanes else max(1, width * target // (total * 128))
+            c_b = nc_b = 0
+            keys, pads = [], []
+            a = lo_b
+            while a < hi_b:
+                b = min(hi_b, a + D)
+                while True:
+                    tot = est = 0
+                    cnt = []
+                    for j, (w0, w1) in enumerate(segs):
+                        c0, e = cur[j], end[j]
+                        c = max(c0, c0 + int(np.searchsorted(bq[c0:e], a, "right")) - 1)
+                        n = int(np.searchsorted(bq[c:e], b, "left"))
+                        cur[j] = c
+                        cnt.append(n)
+                        if n:
+                            tot += n
+                            est += 128 * (n - 2) + in_range(c, a, b, w1) + (
+                                in_range(c + n - 1, a, b, w1) if n > 1 else 128
+                            )
+                    if est <= lanes - lanes // 8 or b - a <= 1 or tot == 0:
+                        break
+                    b = a + max(1, (b - a) * target // est)
+                if tot == 0:
+                    nxt = [int(bq[cur[j]]) for j in range(len(segs)) if cur[j] < end[j]]
+                    a = max(b, min(nxt, default=hi_b))
+                    continue
+                nxt = [hi_b]
+                run = {}
+                for j in range(len(segs)):
+                    if cur[j] + cnt[j] < end[j]:
+                        nxt.append(int(bq[cur[j] + cnt[j]]))
+                    for w in range(cur[j], cur[j] + cnt[j]):
+                        d, v = doc[q, w], sc[q, w]
+                        live = d < n_docs
+                        nxt.extend(int(x) for x in d[live & (d >= b)])
+                        for x, y in zip(d[live & (d >= a) & (d < b)], v[live & (d >= a) & (d < b)]):
+                            run.setdefault(int(x), []).append((j, y))
+                n_lanes = sum(len(r) for r in run.values())
+                if n_lanes > lanes and b - a > 1:
+                    stats["overflows"] += 1
+                    D = max(1, (b - a) // 2)
+                    continue
+                stats["tiles"] += 1
+                non = []
+                for d, r in run.items():
+                    if n_lanes > lanes:  # one doc: its lanes by chunk of segments
+                        stats["one_doc"] += 1
+                        by_seg, xs = dict(r), []
+                        for j1 in range(len(segs), 0, -lanes):
+                            xs += [by_seg[j] for j in range(j1 - 1, max(0, j1 - lanes) - 1, -1)
+                                   if j in by_seg]
+                            if len(xs) >= reach:
+                                break
+                        xs = xs[:reach]
+                    else:
+                        xs = [y for _, y in sorted(r, key=lambda e: -e[0])][:reach]
+                    s = _tree_sum(xs)
+                    cand = s > 0
+                    if cand:
+                        keys.append(_pack_key(s, d))
+                    non.extend([d] * (len(r) - int(cand)))
+                c_b += n_lanes - len(non)
+                nc_b += len(non)
+                cap = kk - c_b - len(pads)
+                if cap > 0 and non:
+                    pads.extend(sorted(non)[:cap])
+                D = max(1, (b - a) * target // max(est, target // 8))
+                a = max(b, min(nxt))
+            blocks.append((c_b, nc_b, sorted(keys)[:kk], pads))
+        c = sum(x[0] for x in blocks)
+        row = sorted(key for x in blocks for key in x[2])[:kk]
+        if c < kk:
+            stats["pad_rows"] += 1
+            left, got = kk - c, []
+            for c_x, nc_x, _, pads in blocks:
+                if left <= 0:
+                    break
+                got.extend(pads)
+                left -= min(nc_x, left)
+            got = sorted(got)[: kk - c - left]
+            row += [(INF_BITS << 32) | d for d in got] + [(INF_BITS << 32) | n_docs] * left
+        for i, key in enumerate(row):
+            hi = key >> 32
+            out_s[q, i] = -np.inf if hi == INF_BITS else np.uint32(INF_BITS - hi).view(np.float32)
+            out_i[q, i] = key & 0xFFFFFFFF
+    return out_s, out_i, stats
+
+
+def stream_model(si, s1_eff, mat, seg_off, k, seg_steps, **kw):
+    """``sparse_merge_model`` on a stream window matrix (the plain decode's
+    lanes, the windows' w_base)."""
+    q, p = mat.shape
+    doc, sc = stream_sparse.stream_sparse_decode_plain(
+        *port_tensors(si, s1_eff), torch.from_numpy(mat), si.n_docs
+    )
+    base = tables(si)[1][mat]
+    return sparse_merge_model(
+        doc.numpy().reshape(q, p, 128), sc.numpy().reshape(q, p, 128), base,
+        np.asarray(seg_off), k, si.n_docs, seg_steps, **kw,
+    )
+
+
+def segmented_matrix(si, query_terms, prefix=None, rng=None):
+    """The sparse path's [Q, P] matrix with its segments: each query's term
+    spans in term order (``prefix(t)``: a term's windows as MaxScore's
+    phase 1 lists them, else all, in id order), padded with W to at least 8
+    columns.  Returns (matrix, seg_off [Q, S+1] int32, most terms)."""
+    tws = si.token_w_start
+    rows, cnts = [], []
+    for terms in query_terms:
+        spans = [prefix(t) if prefix else np.arange(tws[t], tws[t + 1]) for t in terms]
+        rows.append(np.concatenate(spans) if spans else np.zeros(0, np.int64))
+        cnts.append([s.size for s in spans])
+    mat = np.full((len(rows), max(8, max(r.size for r in rows))), si.n_windows, np.int32)
+    for i, r in enumerate(rows):
+        mat[i, : r.size] = r
+    n_s = max(1, max(len(c) for c in cnts))
+    seg_off = np.zeros((len(rows), n_s + 1), np.int32)
+    for i, c in enumerate(cnts):
+        off = np.cumsum([0] + c)
+        seg_off[i, : off.size] = off
+        seg_off[i, off.size:] = off[-1]
+    return mat, seg_off, max(1, max(len(t) for t in query_terms))
+
+
+SEG_CASES = ["repeated_terms", "permuted_windows", "maxscore_prefix", "all_deleted",
+             "deepest_scan", "k_above_lanes"]
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+@pytest.mark.parametrize("k", [10, 512, 2048])
+def test_sparse_topk_segments_equal_reference(rng, case, k):
+    # The wrapper's CPU path given each row's segments, and the numpy model
+    # of SP-stream's decomposition, against _stream_sparse: scores bit-equal
+    # and ids equal, the -inf pads' too.
+    si = build_stream_index(width_segment(rng, 15, n_docs=20_000))
+    s1_eff, _ = s1_eff_of(si, rng, 1.0 if case == "all_deleted" else 0.1)
+    terms = [[1, 1, 2], [0, 3, 3, 3, 5], [7], []] + [
+        rng.integers(0, si.n_tokens, size=int(rng.integers(1, 5))).tolist() for _ in range(4)
+    ]
+    prefix = None
+    if case == "deepest_scan":
+        terms = [[4] * 33, [5, 6] * 20]  # runs of 33 and 20 lanes
+    elif case == "maxscore_prefix":
+        tws = si.token_w_start
+        imp = np.lexsort((-si.w_maximp, si.w_token))
+
+        def prefix(t):  # a term's highest-impact windows, impact order
+            span = imp[tws[t]:tws[t + 1]]
+            return span[: max(1, (span.size + 1) // 2)]
+
+    mat, seg_off, mt = segmented_matrix(si, terms, prefix)
+    seg_steps = int(mt - 1).bit_length()
+    if case == "deepest_scan":
+        seg_steps = int(mat.shape[1] * 128 - 1).bit_length()  # the widest scan the row takes
+    if case == "k_above_lanes":
+        k = mat.shape[1] * 128 + k
+    ordered = mat.copy()
+    for i in range(mat.shape[0]):  # each segment's windows in doc order
+        for j in range(seg_off.shape[1] - 1):
+            a, b = seg_off[i, j], seg_off[i, j + 1]
+            ordered[i, a:b] = np.sort(mat[i, a:b])
+    shown = mat
+    if case == "permuted_windows":
+        shown = ordered.copy()
+        for i in range(mat.shape[0]):
+            for j in range(seg_off.shape[1] - 1):
+                a, b = seg_off[i, j], seg_off[i, j + 1]
+                shown[i, a:b] = rng.permutation(shown[i, a:b])
+    dw, tw = _active_widths(si.w_meta[mat[mat < si.n_windows]])
+    ref = lambda m: _stream_sparse(  # noqa: E731
+        *ref_tables(si, s1_eff), jnp.asarray(m), k=k, n_docs=si.n_docs,
+        seg_steps=seg_steps, dwidths=dw, twidths=tw,
+    )
+    r_s, r_i = (np.asarray(x) for x in ref(shown))
+    if case in ("permuted_windows", "maxscore_prefix"):
+        # Where a window sits inside its segment changes nothing.
+        o_s, o_i = (np.asarray(x) for x in ref(ordered))
+        assert np.array_equal(o_s, r_s) and np.array_equal(o_i, r_i)
+    s, i = stream_sparse.stream_sparse_topk(
+        *port_tensors(si, s1_eff), torch.from_numpy(shown), k, si.n_docs, seg_steps,
+        torch.from_numpy(seg_off),
+    )
+    assert np.array_equal(s.numpy(), r_s)
+    np.testing.assert_array_equal(i.numpy(), r_i)
+    m_s, m_i, st = stream_model(si, s1_eff, ordered, seg_off, k, seg_steps)
+    assert np.array_equal(m_s, r_s)
+    np.testing.assert_array_equal(m_i, r_i)
+    if case == "all_deleted":
+        assert not np.isfinite(r_s).any() and st["pad_rows"] == mat.shape[0]
+    elif k >= 512:
+        assert st["pad_rows"] > 0  # pools deeper than a row's candidates
+
+
+@pytest.mark.parametrize("lanes,least", [(300, 256), (24, 128), (512, 1024)])
+@pytest.mark.parametrize("k", [10, 700])
+def test_merge_model_decomposition(rng, lanes, least, k):
+    # The decomposition at tiles and parts far smaller than the kernel's:
+    # many parts a row, many tiles a part, tiles cut again after an
+    # overflow, pads gathered across parts; still the reference.
+    si = build_stream_index(width_segment(rng, 15, n_docs=20_000))
+    s1_eff, _ = s1_eff_of(si, rng, 0.3)
+    terms = [[0, 1, 1], [3, 3, 2], [1]] + [
+        rng.integers(0, si.n_tokens, size=int(rng.integers(1, 6))).tolist() for _ in range(5)
+    ]
+    mat, seg_off, mt = segmented_matrix(si, terms)
+    seg_steps = int(mt - 1).bit_length()
+    dw, tw = _active_widths(si.w_meta[mat[mat < si.n_windows]])
+    r_s, r_i = (
+        np.asarray(x)
+        for x in _stream_sparse(
+            *ref_tables(si, s1_eff), jnp.asarray(mat), k=k, n_docs=si.n_docs,
+            seg_steps=seg_steps, dwidths=dw, twidths=tw,
+        )
+    )
+    m_s, m_i, st = stream_model(si, s1_eff, mat, seg_off, k, seg_steps, lanes=lanes, least=least)
+    assert np.array_equal(m_s, r_s)
+    np.testing.assert_array_equal(m_i, r_i)
+    assert st["blocks"] > mat.shape[0] and st["tiles"] > st["blocks"]
+    if lanes < 64:
+        assert st["overflows"] > 0
+
+
+def one_window_terms(si, n):
+    """The first n terms whose postings fit one window."""
+    span = np.diff(si.token_w_start)
+    return np.flatnonzero(span == 1)[:n].tolist()
+
+
+@pytest.mark.parametrize("k", [10, 2048])
+def test_sparse_topk_past_a_tile_of_segments(rng, k):
+    # Rows of more term occurrences than a tile has lanes (2,049 and 2,100
+    # segments of one-window terms, each doc in all of them): the CPU
+    # wrapper against _stream_sparse, scores bit-equal and every id equal.
+    si = build_stream_index(width_segment(rng, 15, n_docs=20_000))
+    s1_eff, _ = s1_eff_of(si, rng, 0.1)
+    t0, t1, t2 = one_window_terms(si, 3)
+    terms = [[t0] * (K_LANES + 1), [t1, t2] * 1050, [t0, t2]]
+    mat, seg_off, mt = segmented_matrix(si, terms)
+    assert seg_off.shape[1] - 1 == 2100 > K_LANES
+    seg_steps = int(mt - 1).bit_length()
+    dw, tw = _active_widths(si.w_meta[mat[mat < si.n_windows]])
+    r_s, r_i = (
+        np.asarray(x)
+        for x in _stream_sparse(
+            *ref_tables(si, s1_eff), jnp.asarray(mat), k=k, n_docs=si.n_docs,
+            seg_steps=seg_steps, dwidths=dw, twidths=tw,
+        )
+    )
+    assert np.isfinite(r_s).any()
+    s, i = stream_sparse.stream_sparse_topk(
+        *port_tensors(si, s1_eff), torch.from_numpy(mat), k, si.n_docs, seg_steps,
+        torch.from_numpy(seg_off),
+    )
+    assert np.array_equal(s.numpy(), r_s)
+    np.testing.assert_array_equal(i.numpy(), r_i)
+
+
+@pytest.mark.parametrize("seg_steps", [None, 3])
+@pytest.mark.parametrize("k", [10, 700])
+def test_merge_model_one_doc_tiles(rng, seg_steps, k):
+    # The decomposition with tiles of 24 lanes and rows of up to 60
+    # segments: one-doc tiles past the tile's lanes sum their runs in
+    # chunks of 24 segments (also where 2^seg_steps stops the scan inside
+    # the first chunk); still the reference.
+    si = build_stream_index(width_segment(rng, 15, n_docs=20_000))
+    s1_eff, _ = s1_eff_of(si, rng, 0.2)
+    t0, t1, t2 = one_window_terms(si, 3)
+    terms = [[t0] * 60, [t1, t2] * 20, [t0, t1, 3], [t2]]
+    mat, seg_off, mt = segmented_matrix(si, terms)
+    steps = int(mt - 1).bit_length() if seg_steps is None else seg_steps
+    dw, tw = _active_widths(si.w_meta[mat[mat < si.n_windows]])
+    r_s, r_i = (
+        np.asarray(x)
+        for x in _stream_sparse(
+            *ref_tables(si, s1_eff), jnp.asarray(mat), k=k, n_docs=si.n_docs,
+            seg_steps=steps, dwidths=dw, twidths=tw,
+        )
+    )
+    m_s, m_i, st = stream_model(si, s1_eff, mat, seg_off, k, steps, lanes=24, least=128)
+    assert np.array_equal(m_s, r_s)
+    np.testing.assert_array_equal(m_i, r_i)
+    assert st["one_doc"] > 0
+
+
+def test_segment_planning_helpers():
+    cnt = np.array([3, 0, 2, 5, 1])
+    qidx = np.array([0, 0, 2, 2, 3])
+    off = stream_sparse.segment_offsets(cnt, qidx, np.array([2, 0, 1, 3]), 4)
+    np.testing.assert_array_equal(off, [[0, 2, 7], [0, 3, 3], [0, 0, 0], [0, 1, 1]])
+    assert off.dtype == np.int32
+    win_ord = np.array([[0, 0, 1, 1, 1, -1], [0, 2, 2, -1, -1, -1], [-1] * 6])
+    np.testing.assert_array_equal(
+        stream_sparse.ordinal_offsets(win_ord), [[0, 2, 5, 5], [0, 1, 1, 3], [0, 0, 0, 0]]
+    )
+    got = stream_sparse.doc_ordered(np.array([9, 4, 7, 3, 2, 8]), [3, 0, 2, 1])
+    np.testing.assert_array_equal(got, [4, 7, 9, 2, 3, 8])
+    plan = stream_sparse.merge_plan(np.array([200, 1, 0]), 10, 132)
+    rows, parts = plan >> 12, (plan >> 6) & 63
+    n_parts = (plan & 63) + 1
+    np.testing.assert_array_equal(rows, [0, 0, 0, 0, 1, 2])
+    np.testing.assert_array_equal(parts, [0, 1, 2, 3, 0, 0])
+    np.testing.assert_array_equal(n_parts, [4, 4, 4, 4, 1, 1])
+    assert stream_sparse.merge_plan(np.array([10**6]), 16, 132).size == stream_sparse.MAX_BLOCKS
+
+
+def test_sparse_topk_rejects_bad_segments(rng):
+    si = build_stream_index(width_segment(rng, 15, n_docs=2_000))
+    s1_eff, _ = s1_eff_of(si, rng)
+    mat, seg_off, _ = segmented_matrix(si, [[1, 2], [3]])
+    args = (*port_tensors(si, s1_eff), torch.from_numpy(mat), 10, si.n_docs, 1)
+    with pytest.raises(TypeError, match="seg_off"):
+        stream_sparse.stream_sparse_topk(*args, torch.from_numpy(seg_off).long())
+    with pytest.raises(ValueError, match="seg_off"):
+        stream_sparse.stream_sparse_topk(*args, torch.from_numpy(seg_off[:1]))
+    with pytest.raises(TypeError, match="seg_off"):
+        stream_sparse.stream_sparse_topk(*args)
+    with pytest.raises(ValueError, match="k must"):
+        stream_sparse.stream_sparse_topk(*args[:7], 0, *args[8:], torch.from_numpy(seg_off))
+    with pytest.raises(ValueError, match="seg_steps"):
+        stream_sparse.stream_sparse_topk(*args[:9], 31, torch.from_numpy(seg_off))
 
 
 def rescore_case(si, rng, query_terms, c=40):

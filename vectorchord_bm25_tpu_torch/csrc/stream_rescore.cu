@@ -416,7 +416,9 @@ extern "C" int bm25_stream_rescore_topk(
   const long long room = select_room(n_c, k);
   const long long smem = scratch == nullptr ? 8 * room : 0;
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
+  // The default limit (48 KB) holds the static Shared too: past it with
+  // both, the launch needs the larger dynamic limit.
+  if (smem > 0 && smem + static_cast<long long>(sizeof(Shared)) > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         stream_rescore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMaxDynamicSmem));

@@ -1,5 +1,6 @@
 // Window decode and posting score shared by the stream kernels (sm_90a):
-// S1 stream_dense.cu, S3 stream_sparse.cu and S5 stream_rescore.cu.
+// S1 stream_dense.cu, S3 stream_sparse.cu, S5 stream_rescore.cu and
+// SP-stream sparse_merge.cu.
 //
 // The device half of the reference's M1
 // vectorchord_bm25_tpu/search/stream.py::_unpack_and_score (:171-266).  A

@@ -91,11 +91,15 @@ def _declare(lib):
         "bm25_shard_stats": [vp, vp, vp, vp, vp, vp, i, ll, vp, vp],
         "bm25_posting_sort_census": [*([vp] * 6), i, ll, vp, vp],
         "bm25_posting_sort_passes": [*([vp] * 10), i, i, ll, vp],
+        "bm25_stream_sparse_merge": [*([vp] * 12), *([i] * 8), vp],
+        "bm25_exact_sparse_merge": [*([vp] * 12), *([i] * 10), vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i
+    lib.bm25_sparse_merge_scratch.argtypes = [i, i, i, i]
+    lib.bm25_sparse_merge_scratch.restype = ll
 
 
 def _compile(sources, workdir):

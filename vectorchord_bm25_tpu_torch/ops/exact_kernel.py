@@ -13,7 +13,11 @@ posting lane; the top-k that follows is ``ops/topk.py`` (dense, compact) or
 - ``exact_sparse_gather`` (E2, ``csrc/exact_sparse.cu``): the same gather
   into ``[q, P*128]`` (doc, score) lanes, times live and filter per lane,
   dead lanes ``(n_docs, 0.0)`` (``_score_and_topk_sparse``, ``:217-225``);
-  ``exact_sparse_topk`` adds the stable sort, S4 and the selection;
+  ``exact_sparse_topk``'s plain version adds the stable sort, S4 and the
+  selection, while on a CUDA tensor it is one launch of SP-exact
+  (``csrc/exact_merge.cu`` on ``csrc/sparse_merge.cuh``), which gathers,
+  merges each row's segments and selects without writing a lane; the engine
+  no longer launches E2;
 - ``exact_compact_accumulate`` (E3, ``csrc/exact_compact.cu``): the range
   index's 5 B/posting streams read as (term, range) groups and
   scatter-added into ``[q, N+1]`` (``_score_and_topk_compact``, ``:95-145``).
@@ -43,7 +47,13 @@ import torch
 from . import dense_tiles
 from .dense_tiles import PAD, lists_in_layout
 from .stream_kernel import check_tensors
-from .stream_sparse import sparse_lanes_topk
+from .stream_sparse import (
+    MAX_SEG_STEPS,
+    _lanes_topk,
+    check_segments,
+    merge_launch,
+    sparse_combine_plain,
+)
 from .topk import new_accumulator
 
 __all__ = [
@@ -57,15 +67,17 @@ __all__ = [
     "exact_sparse_gather",
     "exact_sparse_gather_plain",
     "exact_sparse_topk",
+    "exact_sparse_topk_plain",
 ]
 
-# CUDA kernel launches: E1 on f32 and on bf16 rows, E2 and E3 (one a
-# dispatch each).  chip_smoke.py reads them to show the main path went
+# CUDA kernel launches: E1 on f32 and on bf16 rows, E2, E3 and SP-exact (one
+# a dispatch each).  chip_smoke.py reads them to show the main path went
 # through the kernels.
 DENSE_LAUNCHES = 0
 DENSE_BF16_LAUNCHES = 0
 SPARSE_LAUNCHES = 0
 COMPACT_LAUNCHES = 0
+MERGE_LAUNCHES = 0
 
 ROW = 128  # lanes per posting row (index/sealed.py BLOCK)
 _IMPACT = (torch.float32, torch.bfloat16)
@@ -282,16 +294,59 @@ def exact_sparse_gather(
     return doc, sc
 
 
-def exact_sparse_topk(
+def exact_sparse_topk_plain(
     post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi,
-    k: int, n_docs: int, seg_steps: int,
+    k: int, n_docs: int, seg_steps: int, seg_off=None,
 ):
-    """The reference's ``_score_and_topk_sparse``: E2's lanes through the
-    stable sort, S4 and the selection of ``sparse_lanes_topk``."""
-    doc, sc = exact_sparse_gather(
+    """Plain PyTorch version of ``exact_sparse_topk``: E2's plain version,
+    the stable sort, S4's plain version and the selection (the reference's
+    statements, ``search/exact.py:217-254``); seg_off is not needed."""
+    doc, sc = exact_sparse_gather_plain(
         post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi, n_docs
     )
-    return sparse_lanes_topk(doc, sc, k, n_docs, seg_steps)
+    return _lanes_topk(doc, sc, k, n_docs, seg_steps, sparse_combine_plain)
+
+
+def exact_sparse_topk(
+    post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi,
+    k: int, n_docs: int, seg_steps: int, seg_off,
+):
+    """The reference's ``_score_and_topk_sparse``: (scores [q, k] f32 desc,
+    ids [q, k] int32), ties to the lower doc, pads as ``sparse_lanes_topk``
+    documents them.  Inputs as ``exact_sparse_gather`` takes them; seg_off
+    [q, S+1] int32 on the host, each row's segments (``stream_sparse.segment_offsets``:
+    a term's windows, doc-ascending, in term order; windows past the last
+    offset are pads).  A CUDA tensor makes one launch of SP-exact or raises;
+    a CPU tensor runs the plain version, ``exact_sparse_topk_plain``."""
+    global MERGE_LAUNCHES
+
+    wins = (("win_row", win_row), ("win_lo", win_lo), ("win_hi", win_hi))
+    _check_rows(post_docid, post_impact, doc_live, n_docs, wins)
+    _check_filter(post_docid, filter_mask, n_docs)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if not 0 <= seg_steps <= MAX_SEG_STEPS:
+        raise ValueError(f"seg_steps must be in [0, {MAX_SEG_STEPS}], got {seg_steps}")
+    q, p = win_row.shape
+    check_segments(seg_off, q, p)
+    if post_docid.device.type == "cpu":
+        return exact_sparse_topk_plain(
+            post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi,
+            k, n_docs, seg_steps,
+        )
+    if post_docid.device.type != "cuda":
+        raise ValueError(f"unsupported device {post_docid.device}")
+
+    from ._build import library
+
+    out = merge_launch(
+        library().bm25_exact_sparse_merge,
+        (post_docid, post_impact, doc_live, filter_mask, win_row, win_lo, win_hi),
+        seg_off, q, p, k, n_docs, seg_steps,
+        extra=(post_docid.shape[0], int(post_impact.dtype == torch.bfloat16)),
+    )
+    MERGE_LAUNCHES += 1
+    return out
 
 
 def _check_compact(post_impact, post_local, tr_range, tr_start, grp_ids, rs):

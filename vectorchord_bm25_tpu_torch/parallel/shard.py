@@ -52,7 +52,7 @@ from ..ops.exact_kernel import exact_compact_accumulate, exact_dense_accumulate
 from ..ops.shard_kernels import shard_merge, shard_stats
 from ..ops.stream_kernel import stream_dense_accumulate
 from ..ops.stream_rescore import rescore_topk
-from ..ops.stream_sparse import stream_sparse_topk
+from ..ops.stream_sparse import doc_ordered, segment_offsets, stream_sparse_topk
 from ..ops.topk import dense_topk
 from ..search.blockmax import _blockmax_kernel
 from ..search.stream import StreamEngine, _ms_certify, _ms_prefix_prep, window_ordinals
@@ -1019,9 +1019,9 @@ class ShardedIndex:
                     order, bounds, tws, lids_a, qidx_a, a,
                     tau_frac, 0.0,
                 )
-                wsrc = order[
-                    np.repeat(lo, cut) + group_positions(cut)
-                ].astype(np.int64)
+                wsrc = doc_ordered(
+                    order[np.repeat(lo, cut) + group_positions(cut)], cut
+                )
                 q_of = np.repeat(qidx_a, cut)
                 sizes = np.bincount(q_of, minlength=a).astype(np.int64)
                 nt = np.bincount(qidx_a, minlength=a).astype(np.int64)
@@ -1029,6 +1029,7 @@ class ShardedIndex:
                     dict(
                         qidx=qidx_a, lo=lo, hi=hi, s_rem=s_rem,
                         wsrc=wsrc, q_of=q_of, sizes=sizes, n_terms=nt,
+                        cut=cut,
                     )
                 )
                 p_needed = max(p_needed, int(sizes.max(initial=1)))
@@ -1050,11 +1051,15 @@ class ShardedIndex:
             for a0 in range(0, a, a_cap):
                 a1 = min(a, a0 + a_cap)
                 for si in range(d):
+                    pr = preps[si]
+                    seg_off = segment_offsets(
+                        pr["cut"], pr["qidx"], np.arange(a0, a1), a
+                    )
                     s_d, i_d = stream_sparse_topk(
                         self.dev_st_words[si], s1_eff[si],
                         *self._stream_tables(si)[1:],
                         self._put(wmat[si, a0:a1]),
-                        c_pool, nmax, seg_steps,
+                        c_pool, nmax, seg_steps, torch.from_numpy(seg_off),
                     )
                     s = s_d.cpu().numpy()
                     i = i_d.cpu().numpy().astype(np.int64)

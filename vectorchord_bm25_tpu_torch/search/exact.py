@@ -49,6 +49,7 @@ from ..ops.exact_kernel import (
     exact_dense_accumulate,
     exact_sparse_topk,
 )
+from ..ops.stream_sparse import ordinal_offsets
 from ..ops.topk import dense_topk
 from ..text.intern import Query
 from ..utils.batchkeys import batch_lookup, group_positions
@@ -483,7 +484,7 @@ class ExactEngine:
                         range_size=self._ranges.range_size,
                     )
                 elif use_sparse:
-                    wr, wl, wh, _ = self._assemble_windows(lists, sub)
+                    wr, wl, wh, wo = self._assemble_windows(lists, sub)
                     mt = int(max(1, n_terms[sub].max(initial=1)))
                     out = exact_sparse_topk(
                         dev.post_docid,
@@ -496,6 +497,7 @@ class ExactEngine:
                         k=kk,
                         n_docs=dev.n_docs,
                         seg_steps=int(mt - 1).bit_length(),
+                        seg_off=torch.from_numpy(ordinal_offsets(wo)),
                     )
                 else:
                     wr, wl, wh, wo = self._assemble_windows(lists, sub)

@@ -42,7 +42,7 @@ from ..index.sealed import SealedSegment
 from ..index.stream import _DELETED_BIT, StreamIndex, build_stream_index
 from ..ops.stream_kernel import stream_dense_accumulate
 from ..ops.stream_rescore import rescore_topk
-from ..ops.stream_sparse import stream_sparse_topk
+from ..ops.stream_sparse import doc_ordered, segment_offsets, stream_sparse_topk
 from ..ops.topk import dense_topk
 from ..text.intern import Query
 from ..utils.batchkeys import batch_lookup, group_positions
@@ -274,6 +274,13 @@ class StreamEngine:
     def _win_lists(self, queries: Sequence[Query]):
         """Vectorized per-query window-id lists (CSR slices of the
         stream's window table) + per-query matched-term counts."""
+        lists, n_terms, _ = self._term_windows(queries)
+        return lists, n_terms
+
+    def _term_windows(self, queries: Sequence[Query]):
+        """``_win_lists``' output and the sparse kernels' segments: (lists,
+        n_terms, (cnt, qidx)), each (query, term occurrence)'s window count
+        and query, in the lists' order."""
         si = self.stream
         seg = self.segment
         tws = si.token_w_start
@@ -282,21 +289,20 @@ class StreamEngine:
         ids, qidx = batch_lookup(seg.lookup_tokens, queries)
         if ids.size == 0:
             sizes = np.zeros(qn, dtype=np.int64)
-            return (empty, np.zeros(qn + 1, dtype=np.int64), sizes), np.zeros(
-                qn, dtype=np.int64
-            )
+            lists = (empty, np.zeros(qn + 1, dtype=np.int64), sizes)
+            return lists, np.zeros(qn, dtype=np.int64), (empty, empty)
         n_terms = np.bincount(qidx, minlength=qn).astype(np.int64)
         los = tws[ids]
         cnt = tws[ids + 1] - los
         total = int(cnt.sum())
         if total == 0:
             sizes = np.zeros(qn, dtype=np.int64)
-            return (empty, np.zeros(qn + 1, dtype=np.int64), sizes), n_terms
+            return (empty, np.zeros(qn + 1, dtype=np.int64), sizes), n_terms, (cnt, qidx)
         wsrc = np.repeat(los, cnt) + group_positions(cnt)
         q_of = np.repeat(qidx, cnt)
         sizes = np.bincount(q_of, minlength=qn).astype(np.int64)
         starts = np.concatenate(([0], np.cumsum(sizes)))
-        return (wsrc, starts, sizes), n_terms
+        return (wsrc, starts, sizes), n_terms, (cnt, qidx)
 
     def _assemble(self, lists, sub: np.ndarray):
         """Pad the subset's window-id lists to a bucketed [q, P] matrix
@@ -456,14 +462,18 @@ class StreamEngine:
     def _window_tables(self):
         return (self.dev_w_off, self.dev_w_base, self.dev_w_meta, self.dev_w_s0)
 
-    def _sparse_topk(self, s1_eff, mat: np.ndarray, k: int, max_terms: int):
+    def _sparse_topk(self, s1_eff, lists, segs, sub, k: int, max_terms: int):
         """One sparse dispatch (the reference's ``_stream_sparse`` call) over
-        a ``[q, P]`` window matrix whose queries match at most ``max_terms``
-        terms, repeats counted."""
+        the queries ``sub`` of ``lists``, which match at most ``max_terms``
+        terms, repeats counted: their ``[q, P]`` window matrix and their
+        segments, from ``segs`` (each term occurrence's window count and
+        query)."""
+        mat, _ = self._assemble(lists, sub)
+        seg_off = segment_offsets(*segs, sub, lists[2].size)
         return stream_sparse_topk(
             self.dev_words, s1_eff, *self._window_tables(),
             torch.from_numpy(mat).to(self.device), k, self.n_docs,
-            int(max_terms - 1).bit_length(),
+            int(max_terms - 1).bit_length(), torch.from_numpy(seg_off),
         )
 
     def _dispatches(self, lists):
@@ -533,8 +543,10 @@ class StreamEngine:
         }
 
         # Phase 1: the prefix windows through the sparse reduction with a
-        # C-wide result pool.
-        wsrc = order[np.repeat(lo, cut) + group_positions(cut)]
+        # C-wide result pool.  A term's prefix lists its windows by impact;
+        # the sparse kernels take each segment's in doc order, which the
+        # reduction does not depend on.
+        wsrc = doc_ordered(order[np.repeat(lo, cut) + group_positions(cut)], cut)
         q_of = np.repeat(qidx, cut)
         sizes = np.bincount(q_of, minlength=qn).astype(np.int64)
         starts = np.concatenate(([0], np.cumsum(sizes)))
@@ -545,9 +557,8 @@ class StreamEngine:
         lane_cap = max(1, _LANE_CAP // (p_bucket * 128))
         for i0 in range(0, qn, lane_cap):
             sub = np.arange(i0, min(qn, i0 + lane_cap))
-            mat, _ = self._assemble(lists, sub)
             mt = int(max(1, n_terms[sub].max(initial=1)))
-            p1.append((sub, self._sparse_topk(s1_eff, mat, c_pool, mt)))
+            p1.append((sub, self._sparse_topk(s1_eff, lists, (cut, qidx), sub, c_pool, mt)))
         sp = np.full((qn, c_pool), -np.inf, dtype=np.float32)
         ip = np.full((qn, c_pool), n_docs, dtype=np.int64)
         for sub, (s_d, i_d) in p1:
@@ -681,7 +692,7 @@ class StreamEngine:
 
         s1_eff = self._s1_eff(filter_mask)
         kk = min(_bucket(k, 1), max(n_docs, 1))
-        lists, n_terms = self._win_lists(queries)
+        lists, n_terms, segs = self._term_windows(queries)
         sizes = lists[2]
 
         pending = []
@@ -747,9 +758,8 @@ class StreamEngine:
                 lane_cap = max(1, _LANE_CAP // (p_bucket * 128))
                 for i0 in range(0, bidx.size, lane_cap):
                     sub = bidx[i0 : i0 + lane_cap]
-                    mat, _ = self._assemble(lists, sub)
                     mt = int(max(1, n_terms[sub].max(initial=1)))
-                    pending.append((sub, self._sparse_topk(s1_eff, mat, kk, mt)))
+                    pending.append((sub, self._sparse_topk(s1_eff, lists, segs, sub, kk, mt)))
 
         payload_arr = np.asarray(self.segment.doc_payload)
 
