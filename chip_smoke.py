@@ -188,7 +188,11 @@ not 0 and no result line is printed):
       ``torch.equal`` to its plain version, then 3 batches with the counters
       from 0 (each must grow), QPS each; S2 timed on one shard's
       accumulator (its flat branch, below 2^17 docs) beside its plain
-      version and ``torch.topk``; 256 queries equal the same sharded
+      version and ``torch.topk``; SH-merge timed on each body's largest
+      call (on the card, back to back, plain, ``torch.topk`` on the packed
+      rebased keys, bound) and one batch profiled for its dispatch census
+      (SH-merge launches, torch's kernels, fills and copies a dispatch);
+      256 queries equal the same sharded
       index on the CPU (plain kernels); recall@10 = 1.0 against the float64
       oracle.  Then the stream index restarts: save, open with the WAL,
       1,024 inserts and 1% deleted through it, a prefilter, maintain, reopen
@@ -212,7 +216,7 @@ not 0 and no result line is printed):
       counts, a rank may differ only between scores within 1e-4, scores
       within rtol 2e-5); 32 queries equal the CPU-plain sharded index under
       both strategies; recall@10 = 1.0 on them; SH-merge timed on its largest
-      call beside ``torch.topk`` on the packed keys;
+      call (``[8, 512, 16]``) as in (u);
   (k) the host build time of each phase.
 
 Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, (u)
@@ -3004,7 +3008,7 @@ SHARD_MODES = (
 # Where the port's new kernels replace the reference: the collective merge
 # of the sharded bodies, the global statistics step, the device build's sort.
 SHARD_REPLACES = {
-    "shard_merge": "vectorchord_bm25_tpu/parallel/shard.py:826",
+    "shard_merge": "vectorchord_bm25_tpu/parallel/shard.py:820",
     "shard_stats": "vectorchord_bm25_tpu/parallel/shard.py:2285",
     "posting_sort": "vectorchord_bm25_tpu/parallel/devbuild.py:244",
 }
@@ -3071,17 +3075,23 @@ def shard_checks(engine, opts):
     def first_err(out, want):
         return _finite_err(out[0], want[0])
 
+    def merged_err(out, want):
+        return _finite_err(*(shard_kernels.merged_pair(x)[0] for x in (out, want)))
+
     ms = opts.get("strategy") == "maxscore"
     specs = {
         "shard_merge": (
             (shard, "shard_merge", shard_kernels.shard_merge_plain,
-             lambda a: a[0].numel(), first_err),
+             lambda a: a[0].numel(), merged_err),
             (shard_kernels, "MERGE_LAUNCHES"), not ms,
         ),
     }
     if engine in ("exact", "hybrid", "stream"):
+        def s2_plain(*a, out=None, **kw):
+            return topk.dense_topk_plain(*a, **kw)  # the kernel wrote into out
+
         specs["dense_topk"] = (
-            (shard, "dense_topk", topk.dense_topk_plain, lambda a: a[0].numel(), first_err),
+            (shard, "dense_topk", s2_plain, lambda a: a[0].numel(), first_err),
             (topk, "LAUNCHES"), not ms,
         )
     if engine == "stream":
@@ -3384,8 +3394,9 @@ def sharded_restart(index, queries, new_docs, label):
 
 def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, build_times):
     """Phase (u): the sharded index on the 131,072-doc corpus (phase (d)'s
-    postings, 8 shards).  Returns launches by kernel name and phase, and
-    S2 timed on one shard's accumulator (its flat branch)."""
+    postings, 8 shards).  Returns launches by kernel name and phase, S2
+    timed on one shard's accumulator (its flat branch), and SH-merge timed
+    on each body's largest call with its dispatch census."""
     import torch
 
     from vectorchord_bm25_tpu_torch import Document, IndexOptions, ShardedIndex
@@ -3399,6 +3410,7 @@ def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, buil
     rng = np.random.default_rng(args.seed + 10)
     sample = [queries[i] for i in np.sort(rng.choice(len(queries), AUDIT, replace=False))]
     stream_index = None
+    merge_u = {}
     for engine, opts in SHARD_MODES:
         what = mode_name(engine, opts)
         if engine == "stream":
@@ -3406,6 +3418,10 @@ def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, buil
         else:
             index = ShardedIndex(shards, IndexOptions(), device="cuda", engine=engine, **opts)
         got, stats, _, _ = serve_sharded(index, opts, queries, "(u)", what, label)
+        merge_u[what] = {
+            **merge_timings(stats["shard_merge"], label, f"(u) {what}"),
+            "census": merge_census(index, queries, what, label),
+        }
         if engine == "stream":
             # S2's flat branch: one shard's accumulator, below 2^17 docs.
             acc, kk, n_docs = stats["dense_topk"]["args"]
@@ -3449,7 +3465,7 @@ def sharded_slice(args, seg, queries, keys, doc_ids, tfs, doc_start, label, buil
     build_times["(u) all of it"] = time.perf_counter() - t0
     del stream_index, built
     torch.cuda.empty_cache()
-    return launches, s2_flat
+    return launches, s2_flat, merge_u
 
 
 def sort_timings(sort, label):
@@ -3580,36 +3596,89 @@ def stats_timings(index, st, label):
     return out
 
 
-def merge_timings(st, label):
-    """SH-merge on its largest call of phase (w): kernel, plain,
-    ``torch.topk`` on the packed keys."""
+def merge_keys_of(a):
+    """The packed keys SH-merge ranks, from one call's inputs (scores, ids,
+    widths, offsets, kk): each shard's run rebased as the reference's
+    ``g_ids``, ``[Q, sum of the widths]`` int64."""
+    import torch
+
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels
+
+    scores, ids, widths, offsets, _ = a
+    cols = []
+    for d, w in enumerate(widths):
+        s, i = scores[d, :, :w], ids[d, :, :w]
+        g = torch.where(torch.isfinite(s), (i.long() + offsets[d]).int(), 2**31 - 1)
+        cols.append(shard_kernels.merge_keys(s, g))
+    return torch.cat(cols, dim=1)
+
+
+def merge_timings(st, label, phase="(w)"):
+    """SH-merge on one call's inputs, as a body handed them over (its
+    largest call of ``phase``): kernel on the card and back to back, plain,
+    ``torch.topk`` on the packed rebased keys, bound."""
     import torch
 
     from vectorchord_bm25_tpu_torch.ops import shard_kernels
 
     a = st["args"]
     d, q, w = a[0].shape
-    kk = a[2]
-    keys = shard_kernels.merge_keys(a[0], a[1]).permute(1, 0, 2).reshape(q, d * w)
+    widths, kk = a[2], a[4]
+    keys = merge_keys_of(a)
+    kept = sum(min(x, kk) for x in widths)  # the entries a rank can keep
     out = {
         "ms": device_ms(lambda: shard_kernels.shard_merge(*a)),
         "plain_ms": device_ms(lambda: shard_kernels.shard_merge_plain(*a)),
-        "library_ms": device_ms(lambda: torch.topk(keys, kk, dim=1, largest=False)),
+        "library_ms": device_ms(
+            lambda: torch.topk(keys, min(kk, keys.shape[1]), dim=1, largest=False)
+        ),
         "launch_paced_ms": cuda_ms(lambda: shard_kernels.shard_merge(*a)),
+        "library_launch_paced_ms": cuda_ms(
+            lambda: torch.topk(keys, min(kk, keys.shape[1]), dim=1, largest=False)
+        ),
         "max_abs_err": st["err"],
-        # The [D, Q, kk] candidates read once, the [Q, kk] pair written once;
-        # a comparison a candidate.
-        **bound(8 * d * q * w + 8 * q * kk, d * q * w),
+        # Each kept run entry (score and id) read once, the offsets, the
+        # [2, Q, kk] output written once; a key a kept entry.
+        **bound(8 * q * kept + 8 * d + 8 * q * kk, q * kept),
         "shape": [d, q, w],
+        "widths": list(widths),
+        "kk": kk,
     }
     print(
-        f"(w) SH-merge on [{d}, {q}, {w}] -> [{q}, {kk}], device time: kernel "
-        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, torch.topk on the "
-        f"packed keys {out['library_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms "
-        f"({out['bound_by']}); launched back to back by the host "
-        f"{out['launch_paced_ms']:.4f} ms a call: launch-bound at this size [{label}]"
+        f"{phase} SH-merge on [{d}, {q}, {w}] (widths {list(widths)}) -> [{q}, {kk}]: "
+        f"kernel {out['ms']:.4f} ms on the card, {out['launch_paced_ms']:.4f} ms a call "
+        f"launched back to back by the host; plain {out['plain_ms']:.4f} ms; torch.topk "
+        f"on the packed keys {out['library_ms']:.4f} ms on the card, "
+        f"{out['library_launch_paced_ms']:.4f} ms back to back; bound {out['bound_ms']:.5f} ms "
+        f"({out['bound_by']}) [{label}]"
     )
     return out
+
+
+def merge_census(index, queries, what, label):
+    """One batch of ``index`` under ``torch.profiler``: its dispatches (the
+    SH-merge launches, every one in the rows) and, a dispatch, torch's own
+    kernels, fills and copies beside the port's, so that the merge's own
+    launches show (one SH-merge launch and one copy to the host)."""
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels
+
+    track = ("shard_merge_kernel", "at::native", "Memset", "Memcpy DtoH", "Memcpy HtoD")
+    prof = device_profile(
+        lambda: index.search(queries, K), f"(u) {what} dispatch census", label,
+        track=track, expect={"shard_merge_kernel": lambda: shard_kernels.MERGE_LAUNCHES},
+    )
+    if prof is None:
+        return None
+    n = prof["tracked"]["shard_merge_kernel"]["launches"]
+    if not n:
+        raise AssertionError(f"(u) {what}: no SH-merge launch in the profiled batch")
+    census = {name: prof["tracked"][name]["launches"] / n for name in track}
+    print(
+        f"(u) {what}: {n} dispatches a batch; a dispatch launches "
+        + ", ".join(f"{name} x{x:g}" for name, x in census.items())
+        + f" [{label}]"
+    )
+    return {"dispatches": n, "a_dispatch": census}
 
 
 def held_to_single(got, single, what):
@@ -3972,7 +4041,7 @@ def main() -> int:
     build_times["(t) Block-Max"] = time.perf_counter() - t0
     del new_docs
     # (u) the sharded index on phase (d)'s postings
-    shard_launches, s2_flat = sharded_slice(
+    shard_launches, s2_flat, merge_u = sharded_slice(
         args, seg, queries, keys, doc_ids, tfs, doc_start, label, build_times
     )
     # P1 and S2 entries count every main-path run that launched them.
@@ -3996,6 +4065,7 @@ def main() -> int:
     sparse, b1_large, (shard_entries, large_launches) = sparse_slice(args, label, build_times)
     for name, by in large_launches.items():
         shard_launches.setdefault(name, {}).update(by)
+    next(e for e in shard_entries if e["name"] == "shard_merge")["bodies_u"] = merge_u
     b1_by_phase["(s)"] = b1_large["launches"]
     p1_hybrid["(s)"] = b1_large["p1_launches"]
     b1_entries = [

@@ -730,6 +730,118 @@ assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     subprocess.run([sys.executable, "-c", code], cwd=repo, check=True, timeout=600)
 
 
+def _in_fresh_process(code):
+    """Runs ``code`` in a new Python process from the repo's root: a launch
+    there is the first of its kernel, with the dynamic shared-memory limit
+    at its default (an earlier launch that needed more leaves it raised)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=repo, check=True, timeout=600)
+
+
+# The (term, range) group CSR of ``_round_csr`` for a fresh process, on the
+# card: tts, tr_range, tr_start, tr_ub and q_tid over R ranges.
+_FRESH_ROUND_CSR = """
+import numpy as np, torch
+from vectorchord_bm25_tpu_torch.ops import blockmax_round as br
+gen = np.random.default_rng(7)
+vocab, lmax, n_q, t = 24, 2048, 33, 4
+counts = gen.integers(0, 600, size=vocab)
+tts = np.zeros(vocab + 2, np.int32)
+tts[1 : vocab + 1] = np.cumsum(counts)
+tts[vocab + 1] = tts[vocab]
+m = int(tts[vocab])
+tr_range = np.full(m + 1, 2**31 - 1, np.int32)
+for v in range(vocab):
+    tr_range[tts[v] : tts[v + 1]] = np.sort(gen.choice(R, size=counts[v], replace=False))
+tr_start = np.zeros(m + 2, np.int32)
+tr_start[1 : m + 1] = np.cumsum(gen.integers(1, 9, size=m))
+tr_start[m + 1] = tr_start[m]
+tr_ub = np.append(gen.choice(np.float32([0.5, 1.25, 3.0]), size=m), np.float32(0)).astype(np.float32)
+q_tid = gen.integers(0, vocab, size=(n_q, t)).astype(np.int32)
+q_tid[0] = vocab
+tts, tr_range, tr_start, tr_ub, q_tid = (
+    torch.from_numpy(x).cuda() for x in (tts, tr_range, tr_start, tr_ub, q_tid)
+)
+"""
+
+
+def test_round_select_beside_static_shared_memory_launch(card):
+    # B1-select's first launch at R = 11,600 with its default chunk: the row
+    # and the keys (47,848 B) fit 48 KB only without the kernel's 2,448 B of
+    # static shared memory (ptxas), so the launch must raise the dynamic limit.
+    _in_fresh_process("R = 11600\n" + _FRESH_ROUND_CSR + """
+C = min(256, max(32, R // 64))  # the engine's default chunk
+assert 4 * R + 8 * C <= 49152 < 4 * R + 8 * C + 2448  # 2,448 B static
+ub = br.range_bounds_plain(tts, tr_range, tr_ub, q_tid, n_ranges=R, lmax=lmax)
+ub_plain = ub.clone()
+topk_s = torch.full((n_q, 16), float("-inf"), device="cuda")
+topk_s[1::2, -1] = 2.0
+before = br.SELECT_LAUNCHES
+got = br.round_select(ub, topk_s, tr_range, tr_start, tts, q_tid, chunk=C, lmax=lmax)
+want = br.round_select_plain(ub_plain, topk_s, tr_range, tr_start, tts, q_tid, chunk=C, lmax=lmax)
+torch.cuda.synchronize()
+assert br.SELECT_LAUNCHES == before + 1
+assert all(torch.equal(g, w) for g, w in zip(got, want)) and torch.equal(ub, ub_plain)
+assert int(got[3]) == 1 and (got[2] > 0).any()
+""")
+
+
+def test_range_bounds_beside_static_shared_memory_launch(card):
+    # B1-bounds' first launch at R = 12,288: its row (49,152 B) fits 48 KB
+    # only without the kernel's 32 B of static shared memory.
+    _in_fresh_process("R = 12288\n" + _FRESH_ROUND_CSR + """
+assert 4 * R <= 49152 < 4 * R + 32  # 32 B static
+before = br.BOUNDS_LAUNCHES
+got = br.range_bounds(tts, tr_range, tr_ub, q_tid, n_ranges=R, lmax=lmax)
+want = br.range_bounds_plain(tts, tr_range, tr_ub, q_tid, n_ranges=R, lmax=lmax)
+torch.cuda.synchronize()
+assert br.BOUNDS_LAUNCHES == before + 1
+assert torch.equal(got, want) and (got > 0).any()
+""")
+
+
+def test_dense_tiles_beside_static_shared_memory_launch(card):
+    # S1's first launch with TILE raised to 12,288 cells on rows of 12,000:
+    # one tile of 48,000 B fits 48 KB only without the walk's 6,176 B of
+    # static Scratch (csrc/dense_tiles.cuh).
+    _in_fresh_process("""
+import numpy as np, torch
+from vectorchord_bm25_tpu_torch import build_sealed_segment_from_postings
+from vectorchord_bm25_tpu_torch.data.synth import synth_corpus_postings
+from vectorchord_bm25_tpu_torch.ops import dense_tiles, stream_kernel
+from vectorchord_bm25_tpu_torch.search.stream import StreamEngine
+n = 11999
+dense_tiles.TILE = 12288
+width, n_tiles = dense_tiles.tile_split((n + 1 + 3) & ~3, dense_tiles.TILE)
+assert n_tiles == 1 and 4 * width <= 49152 < 4 * width + 6176  # 6,176 B static
+keys, docs, tfs, _ = synth_corpus_postings(n, 500, 20, seed=1)
+eng = StreamEngine(build_sealed_segment_from_postings(keys, docs, tfs, n, doc_grouped=True),
+                   device="cuda")
+tabs = (eng.dev_words, eng._s1_eff(None), *eng._window_tables())
+tws = eng.stream.token_w_start
+rng = np.random.default_rng(0)
+wsrc, q_start, w_ord = [], [0], []
+for q in range(16):
+    for o, t in enumerate(rng.integers(0, len(tws) - 1, size=3)):
+        span = np.arange(tws[t], tws[t + 1])
+        wsrc.append(span)
+        w_ord.append(np.full(span.size, o))
+    q_start.append(sum(x.size for x in wsrc))
+lists = [torch.from_numpy(np.asarray(x, dtype=np.int32)).cuda()
+         for x in (np.concatenate(wsrc), q_start, np.concatenate(w_ord))]
+before = stream_kernel.LAUNCHES
+got = stream_kernel.stream_dense_accumulate(*tabs, *lists, 16, n)
+want = stream_kernel.stream_dense_accumulate_plain(*tabs, *lists, 16, n)
+torch.cuda.synchronize()
+assert stream_kernel.LAUNCHES == before + 1
+assert torch.equal(got, want) and int((got > 0).sum()) > 1000
+""")
+
+
 @pytest.mark.parametrize("strategy", ["sparse", "maxscore", "auto"])
 def test_stream_strategies_on_card_equal_cpu(card, gen, strategy, monkeypatch):
     from vectorchord_bm25_tpu.index.sealed import build_sealed_segment
@@ -1698,23 +1810,58 @@ def test_blockmax_rounds_on_card_equal_cpu(card, gen, mode):
 
 @pytest.mark.parametrize(
     "d,q,w,kk",
-    [(1, 3, 8, 8), (2, 64, 16, 16), (8, 512, 16, 16), (8, 9, 16, 5), (8, 3, 4096, 1024), (3, 2, 7, 21)],
+    [(1, 3, 8, 8), (2, 64, 16, 16), (8, 512, 16, 16), (8, 9, 16, 5), (8, 3, 4096, 1024),
+     (3, 2, 7, 21), (8, 3, 4096, 4096), (1, 512, 16, 16), (8, 512, 16, 128)],
 )
 def test_shard_merge_matches_plain(card, gen, d, q, w, kk):
+    # (8, 512, 16, 16): the served size, a block of 128 threads a query;
+    # (1, 3, 8, 8) and (1, 512, 16, 16): D = 1, four queries a block of 32
+    # threads each; (3, 2, 7, 21) and (8, 512, 16, 128): kk = D * w;
+    # (8, 3, 4096, 1024): runs cut to kk, 8,192 keys a query in shared
+    # memory; (8, 3, 4096, 4096): 32,768 keys a query, past shared memory
+    # (the runs read in device memory).
     from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
 
     from test_torch_shard_kernels import merge_inputs
 
-    scores, ids = merge_inputs(gen, d, q, w)
-    s, i = torch.from_numpy(scores).to(card), torch.from_numpy(ids).to(card)
+    scores, ids, offsets = merge_inputs(gen, d, q, w)
+    args = (
+        torch.from_numpy(scores).to(card), torch.from_numpy(ids).to(card), [w] * d,
+        torch.from_numpy(offsets).to(card), kk,
+    )
     before = sk.MERGE_LAUNCHES
-    got_s, got_i = sk.shard_merge(s, i, kk)
+    got = sk.shard_merge(*args)
     torch.cuda.synchronize()
     assert sk.MERGE_LAUNCHES == before + 1
-    want_s, want_i = sk.shard_merge_plain(s, i, kk)
-    # (8, 3, 4096): 32,768 keys a query, past shared memory (scratch row).
-    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
-    assert torch.equal(got_i, want_i)
+    assert torch.equal(got, sk.shard_merge_plain(*args))
+    cpu = sk.shard_merge(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize(
+    "widths,q,w,kk",
+    [((16, 0, 9, 16, 1, 0, 16, 4), 512, 16, 16), ((16, 0, 9, 16, 1, 0, 16, 4), 9, 16, 5),
+     ((2, 2), 5, 2, 16), ((0, 0, 0), 4, 4, 4), ((4096, 0, 4096, 4096, 4096, 4096, 4096, 4096, 4096), 2, 4096, 4096)],
+)
+def test_shard_merge_widths_match_plain(card, gen, widths, q, w, kk):
+    # Widths below W and 0, rows that end in pads (kk > the candidates), and
+    # 32,768 keys past shared memory beside a width-0 shard; the slots past
+    # a width hold garbage the kernel must not read.
+    from vectorchord_bm25_tpu_torch.ops import shard_kernels as sk
+
+    from test_torch_shard_kernels import merge_inputs
+
+    scores, ids, offsets = merge_inputs(gen, len(widths), q, w)
+    for d, wd in enumerate(widths):
+        scores[d, :, wd:] = 9.0
+        ids[d, :, wd:] = 3
+    args = (
+        torch.from_numpy(scores).to(card), torch.from_numpy(ids).to(card), list(widths),
+        torch.from_numpy(offsets).to(card), kk,
+    )
+    got = sk.shard_merge(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sk.shard_merge_plain(*args))
 
 
 @pytest.mark.parametrize(
@@ -1822,8 +1969,16 @@ def test_shard_kernels_reject_bad_inputs(card):
     with pytest.raises(ValueError):
         sk.posting_sort(cols)  # not a power of two
     s = torch.zeros((2, 3, 4), device=card)
-    with pytest.raises(ValueError):
-        sk.shard_merge(s, torch.zeros((2, 3, 4), dtype=torch.int32), 4)  # mixed devices
+    off = torch.zeros(2, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError):  # mixed devices
+        sk.shard_merge(s, torch.zeros((2, 3, 4), dtype=torch.int32), [4, 4], off, 4)
+    many = sk.MAX_MERGE_SHARDS + 1
+    with pytest.raises(ValueError):  # more shards than the launch's run table
+        sk.shard_merge(
+            torch.zeros((many, 1, 1), device=card),
+            torch.zeros((many, 1, 1), dtype=torch.int32, device=card),
+            [1] * many, torch.zeros(many, dtype=torch.int64, device=card), 1,
+        )
 
 
 @pytest.mark.parametrize(

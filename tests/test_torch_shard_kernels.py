@@ -2,11 +2,13 @@
 plain versions on the CPU, against the reference's jax code on the same
 numpy-made inputs.
 
-- SH-merge (``shard_merge``) against the reference's ``all_gather`` merge:
-  ``lax.sort((-s, id), num_keys=2)`` over each query's ``D * kk``
-  candidates (``parallel/shard.py:826-832``), with ties across shards,
-  ``-inf`` pads carrying ``INT_MAX`` ids, candidates in no order, and
-  D in {1, 2, 8}.
+- SH-merge (``shard_merge``) against the reference's rebase and
+  ``all_gather`` merge: ``g_ids`` (id + offset where the score is finite,
+  ``INT_MAX`` elsewhere), then ``lax.sort((-s, id), num_keys=2)`` over each
+  query's ``D * kk`` candidates (``parallel/shard.py:820-832``), on runs in
+  merge order as the bodies hand them over, with ties across shards,
+  ``-inf`` pads, widths below ``kk`` and 0, and D in {1, 2, 8}; a run out
+  of merge order raises.
 - D1-sort (``posting_sort``) against ``lax.sort(..., num_keys=5)``
   (``parallel/devbuild.py:244-258``) on keys that share prefixes, so that
   every one of the five key columns decides some pair, on shuffled rows and
@@ -33,35 +35,71 @@ _INT_MAX = np.iinfo(np.int32).max
 
 
 def merge_inputs(gen, d, q, w, n_fin=None):
-    """[D, Q, W] scores and global ids as the sharded bodies hand them
-    over: a few distinct score values (ties within and across shards),
-    zeros, ``-inf`` pads with ``INT_MAX`` ids, each row shuffled."""
+    """[D, Q, W] scores and local ids, and the [D] int64 doc offsets, as the
+    sharded bodies hand them over: a few distinct score values (ties within
+    and across shards), zeros, ``-inf`` pads carrying arbitrary local ids,
+    each row sorted into merge order (score descending, then the rebased id
+    ascending: a run as S2 or Block-Max leaves it)."""
     values = np.array([0.0, 0.5, 1.25, 1.25, 3.0, 7.5, 7.5], dtype=np.float32)
     scores = gen.choice(values, size=(d, q, w)).astype(np.float32)
     ids = np.zeros((d, q, w), dtype=np.int32)
-    span = max(1000, 2 * w)  # shard s holds ids [s * span, (s + 1) * span)
+    span = max(1000, 2 * w)  # shard s holds global ids [s * span, (s + 1) * span)
+    offsets = np.arange(d, dtype=np.int64) * span
     for s in range(d):
         for qi in range(q):
-            ids[s, qi] = gen.choice(span, size=w, replace=False) + span * s
+            ids[s, qi] = gen.choice(span, size=w, replace=False)
     fin = gen.integers(0, w + 1, size=(d, q)) if n_fin is None else np.full((d, q), n_fin)
     pad = np.arange(w)[None, None, :] >= fin[:, :, None]
     scores[pad] = -np.inf
-    ids[pad] = _INT_MAX
-    perm = np.argsort(gen.random((d, q, w)), axis=2)
-    return np.take_along_axis(scores, perm, 2), np.take_along_axis(ids, perm, 2)
+    gids = np.where(np.isfinite(scores), ids.astype(np.int64) + offsets[:, None, None], _INT_MAX)
+    order = np.lexsort((gids, -scores.astype(np.float64)), axis=2)
+    return (
+        np.take_along_axis(scores, order, 2),
+        np.take_along_axis(ids, order, 2),
+        offsets,
+    )
 
 
-def reference_merge(scores, ids, kk):
-    """The reference's merge, verbatim (``parallel/shard.py:826-832``)."""
+def reference_merge(scores, ids, offsets, kk, widths=None):
+    """The reference's rebase and merge, verbatim (``parallel/shard.py:820-832``)
+    on each shard's padded top-k: shard ``d``'s slots past ``widths[d]``
+    (and past ``W``, up to ``kk``) are ``-inf`` pads."""
     import jax
     import jax.numpy as jnp
 
-    a_scores, a_ids = jnp.asarray(scores), jnp.asarray(ids)
-    dd, _, w = a_scores.shape
-    c_scores = jnp.moveaxis(a_scores, 0, 1).reshape(-1, dd * w)
-    c_ids = jnp.moveaxis(a_ids, 0, 1).reshape(-1, dd * w)
+    dd, q, w = scores.shape
+    widths = [w] * dd if widths is None else widths
+    k = max(w, kk)
+    l_scores = np.full((dd, q, k), -np.inf, dtype=np.float32)
+    l_ids = np.zeros((dd, q, k), dtype=np.int32)
+    for d, wd in enumerate(widths):
+        l_scores[d, :, :wd] = scores[d, :, :wd]
+        l_ids[d, :, :wd] = ids[d, :, :wd]
+    doc_offset = jnp.asarray(offsets.astype(np.int32))[:, None, None]
+    a_scores = jnp.asarray(l_scores)
+    a_ids = jnp.where(
+        jnp.isfinite(a_scores), jnp.asarray(l_ids).astype(jnp.int32) + doc_offset, _INT_MAX
+    )
+    c_scores = jnp.moveaxis(a_scores, 0, 1).reshape(-1, dd * k)
+    c_ids = jnp.moveaxis(a_ids, 0, 1).reshape(-1, dd * k)
     neg, gid_s = jax.lax.sort((-c_scores, c_ids), num_keys=2)
     return np.asarray(-neg[:, :kk]), np.asarray(gid_s[:, :kk])
+
+
+def port_merge(scores, ids, offsets, kk, widths=None):
+    """``shard_merge`` on CPU tensors, as numpy (scores, ids)."""
+    widths = [scores.shape[2]] * scores.shape[0] if widths is None else widths
+    out = sk.shard_merge(
+        torch.from_numpy(scores), torch.from_numpy(ids), widths, torch.from_numpy(offsets), kk
+    )
+    assert out.dtype == torch.int32 and tuple(out.shape) == (2, scores.shape[1], kk)
+    got_s, got_i = sk.merged_pair(out)
+    return got_s.numpy(), got_i.numpy()
+
+
+def assert_same_merge(got, want):
+    np.testing.assert_array_equal(got[0].view(np.int32), want[0].view(np.int32))
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 def _table16():
@@ -176,37 +214,83 @@ def gen():
 
 @pytest.mark.parametrize("d,q,w,kk", [(1, 3, 8, 8), (2, 5, 16, 16), (8, 7, 16, 16), (8, 4, 16, 5), (2, 6, 3, 6)])
 def test_shard_merge_plain_matches_reference(gen, d, q, w, kk):
-    scores, ids = merge_inputs(gen, d, q, w)
-    want_s, want_i = reference_merge(scores, ids, kk)
-    got_s, got_i = sk.shard_merge(torch.from_numpy(scores), torch.from_numpy(ids), kk)
-    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int32
-    np.testing.assert_array_equal(got_s.numpy().view(np.int32), want_s.view(np.int32))
-    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    scores, ids, offsets = merge_inputs(gen, d, q, w)
+    assert_same_merge(port_merge(scores, ids, offsets, kk), reference_merge(scores, ids, offsets, kk))
+
+
+@pytest.mark.parametrize(
+    "widths,q,w,kk",
+    [
+        ((5,), 4, 8, 8),  # D = 1, a width below kk
+        ((0, 3), 5, 4, 4),  # a width-0 shard
+        ((16, 0, 9, 16, 1, 0, 16, 4), 6, 16, 16),  # D = 8, mixed widths
+        ((16, 0, 9, 16, 1, 0, 16, 4), 6, 16, 7),  # kk < D * w
+        ((2, 2), 3, 2, 16),  # kk > D * w: the merged rows end in pads
+        ((0, 0, 0), 2, 4, 4),  # no shard offered anything
+    ],
+)
+def test_shard_merge_widths_match_reference(gen, widths, q, w, kk):
+    # Slots past a shard's width hold garbage the merge must not read.
+    scores, ids, offsets = merge_inputs(gen, len(widths), q, w)
+    for d, wd in enumerate(widths):
+        scores[d, :, wd:] = 9.0
+        ids[d, :, wd:] = 3
+    got = port_merge(scores, ids, offsets, kk, list(widths))
+    assert_same_merge(got, reference_merge(scores, ids, offsets, kk, widths))
 
 
 def test_shard_merge_ties_across_shards_go_to_the_lower_id(gen):
     scores = np.full((8, 1, 2), -np.inf, dtype=np.float32)
-    ids = np.full((8, 1, 2), _INT_MAX, dtype=np.int32)
+    ids = np.zeros((8, 1, 2), dtype=np.int32)
+    offsets = np.zeros(8, dtype=np.int64)
     for s in range(8):
         scores[s, 0, 0] = 2.0
         ids[s, 0, 0] = 7 - s  # the shard order is the reverse of the id order
-    got_s, got_i = sk.shard_merge(torch.from_numpy(scores), torch.from_numpy(ids), 4)
-    assert got_i[0].tolist() == [0, 1, 2, 3] and (got_s == 2.0).all()
-    want_s, want_i = reference_merge(scores, ids, 4)
-    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    got = port_merge(scores, ids, offsets, 4)
+    assert got[1][0].tolist() == [0, 1, 2, 3] and (got[0] == 2.0).all()
+    assert_same_merge(got, reference_merge(scores, ids, offsets, 4))
+
+
+def test_shard_merge_rebases_finite_scores_only(gen):
+    # The reference's g_ids: id + offset where the score is finite; +inf,
+    # -inf and their local ids become INT_MAX.
+    scores = np.array([[[np.inf, 4.0, 1.0, -np.inf]], [[4.0, 2.0, -np.inf, -np.inf]]], np.float32)
+    ids = np.array([[[5, 7, 2, 1]], [[0, 9, 3, 8]]], dtype=np.int32)
+    offsets = np.array([0, 100], dtype=np.int64)
+    got = port_merge(scores, ids, offsets, 8)
+    assert got[1][0].tolist() == [_INT_MAX, 7, 100, 109, 2] + [_INT_MAX] * 3
+    assert_same_merge(got, reference_merge(scores, ids, offsets, 8))
 
 
 def test_shard_merge_all_pads(gen):
     scores = np.full((2, 3, 4), -np.inf, dtype=np.float32)
-    ids = np.full((2, 3, 4), _INT_MAX, dtype=np.int32)
-    got_s, got_i = sk.shard_merge(torch.from_numpy(scores), torch.from_numpy(ids))
-    want_s, want_i = reference_merge(scores, ids, 4)
-    np.testing.assert_array_equal(got_s.numpy(), want_s)
-    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    ids = np.arange(24, dtype=np.int32).reshape(2, 3, 4)
+    offsets = np.array([0, 50], dtype=np.int64)
+    got = port_merge(scores, ids, offsets, 4)
+    assert_same_merge(got, reference_merge(scores, ids, offsets, 4))
+    assert (got[1] == _INT_MAX).all()
+
+
+@pytest.mark.parametrize("fault", ["swapped", "tie_ids_down", "finite_after_pad"])
+def test_shard_merge_rejects_runs_out_of_merge_order(gen, fault):
+    scores, ids, offsets = merge_inputs(gen, 3, 4, 8, n_fin=6)
+    if fault == "swapped":
+        scores[1, 2, [0, 5]] = scores[1, 2, [5, 0]] + np.float32([0.0, 1.0])
+    elif fault == "tie_ids_down":
+        # In order by score; the tie of the first two goes to the higher id.
+        scores[2, 1] = [3.0, 3.0, 1.0, 0.5, 0.5, 0.0, -np.inf, -np.inf]
+        ids[2, 1] = [8, 4, 1, 2, 3, 5, 0, 0]
+    else:
+        scores[0, 3, 7] = 0.25  # a finite score after the -inf pads
+    args = (torch.from_numpy(scores), torch.from_numpy(ids), [8] * 3, torch.from_numpy(offsets), 8)
+    with pytest.raises(ValueError, match="merge order"):
+        sk.shard_merge_plain(*args)
+    with pytest.raises(ValueError, match="merge order"):
+        sk.shard_merge(*args)
 
 
 def test_merge_keys_round_trip(gen):
-    scores, ids = merge_inputs(gen, 2, 3, 8)
+    scores, ids, _ = merge_inputs(gen, 2, 3, 8)
     s, i = torch.from_numpy(scores), torch.from_numpy(ids)
     back_s, back_i = sk._unmerge_keys(sk.merge_keys(s, i))
     assert torch.equal(back_s.view(torch.int32), s.view(torch.int32))
@@ -216,12 +300,19 @@ def test_merge_keys_round_trip(gen):
 def test_shard_merge_rejects_bad_inputs():
     s = torch.zeros((2, 3, 4))
     i = torch.zeros((2, 3, 4), dtype=torch.int32)
+    off = torch.zeros(2, dtype=torch.int64)
     with pytest.raises(TypeError):
-        sk.shard_merge(s.double(), i)
+        sk.shard_merge(s.double(), i, [4, 4], off, 4)
     with pytest.raises(ValueError):
-        sk.shard_merge(s, i[:, :, :3])
+        sk.shard_merge(s, i[:, :, :3], [3, 3], off, 4)
     with pytest.raises(ValueError):
-        sk.shard_merge(s, i, 9)
+        sk.shard_merge(s, i, [4, 5], off, 4)  # a width past W
+    with pytest.raises(ValueError):
+        sk.shard_merge(s, i, [4], off, 4)  # a width a shard
+    with pytest.raises(TypeError):
+        sk.shard_merge(s, i, [4, 4], off.int(), 4)
+    with pytest.raises(ValueError):
+        sk.shard_merge(s, i, [4, 4], off, 0)
 
 
 @pytest.mark.parametrize(

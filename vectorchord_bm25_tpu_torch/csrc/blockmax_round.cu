@@ -140,6 +140,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_smem.cuh"
+
 namespace {
 
 typedef unsigned long long u64;
@@ -866,13 +868,6 @@ __global__ void __launch_bounds__(kMergeThreads) round_merge_kernel(
   for (int i = tid; i < k; i += nt) store_entry(my_s, my_d, i, buf[i]);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, long long bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // range_bounds: a block a query, sized to its groups (a first round's query
 // at R = 1,024 has a few hundred) rather than to R, so that more queries
 // are in flight.
@@ -896,7 +891,7 @@ extern "C" int bm25_range_bounds(
   long long smem = 4LL * ((n_ranges + 3LL) & ~3LL);
   const int use_smem = smem <= kMaxDynamicSmem;
   if (!use_smem) smem = 0;
-  cudaError_t err = allow_smem(range_bounds_kernel, smem);
+  cudaError_t err = bm25::allow_dynamic_smem(range_bounds_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   range_bounds_kernel<<<static_cast<unsigned int>(n_queries),
                         bound_threads(n_ranges), static_cast<size_t>(smem),
@@ -924,7 +919,7 @@ extern "C" int bm25_round_select(
   const long long row_smem = use_smem ? 4LL * n_ranges : 0;
   const int keys_smem = row_smem + 8LL * chunk <= kMaxDynamicSmem;
   const long long smem = row_smem + (keys_smem ? 8LL * chunk : 0);
-  cudaError_t err = allow_smem(round_select_kernel, smem);
+  cudaError_t err = bm25::allow_dynamic_smem(round_select_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   round_select_kernel<<<static_cast<unsigned int>(n_queries),
                         select_threads(n_ranges), static_cast<size_t>(smem),
@@ -969,7 +964,7 @@ extern "C" int bm25_round_merge(
   }
   long long smem = scratch ? 0 : 8LL * buf_keys;
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(round_merge_kernel, smem);
+  cudaError_t err = bm25::allow_dynamic_smem(round_merge_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   round_merge_kernel<<<static_cast<unsigned int>(n_queries), kMergeThreads,
                        static_cast<size_t>(smem), st>>>(

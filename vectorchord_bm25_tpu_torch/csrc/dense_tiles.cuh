@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_smem.cuh"
+
 namespace bm25 {
 namespace tiles {
 
@@ -269,11 +271,10 @@ cudaError_t launch_tiles(const Src& src, float* acc, int64_t stride, int n_docs,
   const int64_t blocks = static_cast<int64_t>(n_q) * n_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const int bytes = static_cast<int>(tile_w * sizeof(float));
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dense_tiles_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-  }
+  // Beside the static Scratch: past 48 KB with it, the launch needs the
+  // larger dynamic limit.
+  const cudaError_t err = allow_dynamic_smem(dense_tiles_kernel<Src>, bytes);
+  if (err != cudaSuccess) return err;
   dense_tiles_kernel<Src><<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
       src, acc, stride, n_docs, static_cast<int>(tile_w), static_cast<int>(n_tiles),
       filter);

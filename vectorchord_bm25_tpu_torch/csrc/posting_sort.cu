@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_smem.cuh"
+
 namespace {
 
 constexpr int kCols = 6;    // k0, k1, k2, k3, doc, tf
@@ -348,8 +350,7 @@ extern "C" int bm25_posting_sort_passes(
   }
   if (n_passes == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScatterSmem);
+  cudaError_t err = bm25::allow_dynamic_smem(scatter_kernel, kScatterSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Cols caller = cols_of(k0, k1, k2, k3, doc, tf);
   Cols other;

@@ -79,6 +79,7 @@
 #include <stdint.h>
 
 #include "key_select.cuh"
+#include "launch_smem.cuh"
 
 namespace bm25 {
 namespace merge {
@@ -879,9 +880,7 @@ int launch(const Src& src, const Args& args, cudaStream_t stream) {
   const Layout lay(args.n_q, args.n_blocks, args.S, args.kk);
   cudaError_t err = cudaMemsetAsync(args.scratch + lay.counter, 0, 4LL * args.n_q, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(sparse_merge_kernel<Src>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sizeof(Shared)));
+  err = allow_dynamic_smem(sparse_merge_kernel<Src>, static_cast<long long>(sizeof(Shared)));
   if (err != cudaSuccess) return static_cast<int>(err);
   // All of the SM's unified memory as shared memory: two blocks an SM.
   err = cudaFuncSetAttribute(sparse_merge_kernel<Src>,

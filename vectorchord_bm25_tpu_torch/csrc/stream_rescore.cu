@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "key_select.cuh"
+#include "launch_smem.cuh"
 #include "window_decode.cuh"
 
 namespace {
@@ -418,12 +419,8 @@ extern "C" int bm25_stream_rescore_topk(
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
   // The default limit (48 KB) holds the static Shared too: past it with
   // both, the launch needs the larger dynamic limit.
-  if (smem > 0 && smem + static_cast<long long>(sizeof(Shared)) > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stream_rescore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxDynamicSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t smem_err = bm25::allow_dynamic_smem(stream_rescore_kernel, smem);
+  if (smem_err != cudaSuccess) return static_cast<int>(smem_err);
   // A query's candidates over a cluster of up to 8 blocks on as many SMs,
   // about 128 a block, and a thread a (candidate, term) item: a query with
   // many live candidates does not hold one SM for the whole launch, and

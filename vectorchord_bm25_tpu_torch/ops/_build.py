@@ -87,7 +87,7 @@ def _declare(lib):
         "bm25_range_bounds": [vp, vp, vp, vp, vp, i, i, i, f, vp],
         "bm25_round_select": [*([vp] * 11), i, i, i, i, i, vp],
         "bm25_round_merge": [*([vp] * 7), i, i, i, i, i, i, vp],
-        "bm25_shard_merge": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],
+        "bm25_shard_merge": [vp, vp, vp, vp, vp, i, i, i, i, vp],
         "bm25_shard_stats": [vp, vp, vp, vp, vp, vp, i, ll, vp, vp],
         "bm25_posting_sort_census": [*([vp] * 6), i, ll, vp, vp],
         "bm25_posting_sort_passes": [*([vp] * 10), i, i, ll, vp],

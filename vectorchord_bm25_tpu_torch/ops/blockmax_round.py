@@ -121,9 +121,13 @@ def _device_kind(device) -> str:
 
 def _launch(fn, name, device, *args):
     """Call one C entry point on ``device``'s current stream; raises on a
-    refused launch."""
-    with torch.cuda.device(device):
+    refused launch.  Switches the current device only where ``device`` is
+    another one."""
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 

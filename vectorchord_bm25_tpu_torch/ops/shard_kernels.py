@@ -10,10 +10,13 @@ that dimension.  Each function here is a CUDA kernel on a CUDA tensor and
 its plain PyTorch version on a CPU tensor; on a CUDA tensor it launches the
 kernel or raises, never falls back:
 
-- ``shard_merge`` (``csrc/shard_merge.cu``): ``[D, Q, kk]`` scores and
-  global ids to the ``kk`` best of each query by (score desc, id asc), the
-  reference's ``lax.sort((-s, id), num_keys=2)[:, :kk]`` after its
-  ``all_gather`` (``shard.py:826-832, 1686-1692, 1840-1846, 1997-2003``);
+- ``shard_merge`` (``csrc/shard_merge.cu``): the shards' local top-ks, a
+  ``[D, Q, W]`` pair of sorted runs with local ids, their widths and the
+  shards' doc offsets, to the ``kk`` best of each query by (score desc, id
+  asc) in global ids: the reference's rebase (``g_ids``), ``all_gather``
+  and ``lax.sort((-s, id), num_keys=2)[:, :kk]`` (``shard.py:820-832,
+  1686-1692, 1840-1846, 1997-2003``), as one launch that merges the runs
+  without a sort;
 - ``shard_stats`` (``csrc/shard_stats.cu``): each shard's f64 sum of
   ``FIELDNORM_TO_LENGTH[doc_fn] * doc_live`` and the exclusive scan of the
   shard doc counts with their total (``global_stats_step``,
@@ -41,6 +44,7 @@ __all__ = [
     "posting_sort",
     "posting_sort_plain",
     "sort_passes",
+    "merged_pair",
     "shard_merge",
     "shard_merge_plain",
     "shard_stats",
@@ -60,12 +64,13 @@ STATS_GRID = None
 # columns once); chip_smoke.py reports it.
 SORT_PASSES = None
 
-# shard_merge's key buffer lives in shared memory up to this many u64 keys
-# (kMaxDynamicSmem of csrc/shard_merge.cu), else in a device scratch row.
-_MERGE_SMEM_KEYS = 224 * 1024 // 8
+# shard_merge takes at most this many shards (kMaxShards of
+# csrc/shard_merge.cu: its run table travels by value with the launch).
+MAX_MERGE_SHARDS = 512
 
 _INT32_MIN = -(1 << 31)
 _LOW32 = 0xFFFFFFFF
+_INT_MAX = (1 << 31) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -92,57 +97,96 @@ def _unmerge_keys(keys):
     return scores, ((keys & _LOW32) + _INT32_MIN).int()
 
 
-def shard_merge_plain(scores, ids, kk: int):
-    """Plain PyTorch version of ``shard_merge``: every query's ``D * kk``
-    candidates sorted by their packed keys, the first ``kk`` kept."""
-    d, q, w = scores.shape
-    keys = merge_keys(scores, ids).permute(1, 0, 2).reshape(q, d * w)
-    return _unmerge_keys(keys.sort(dim=1).values[:, :kk])
+def merged_pair(out):
+    """``shard_merge``'s ``[2, Q, kk]`` int32 result as (scores [Q, kk] f32,
+    ids [Q, kk] int32), views of it."""
+    return out[0].view(torch.float32), out[1]
 
 
-def shard_merge(scores, ids, kk: int | None = None):
-    """The ``kk`` best of each query's candidates over every shard.
-
-    scores [D, Q, W] f32 and ids [D, Q, W] int32: shard ``d``'s candidates
-    for query ``q`` (global ids, INT_MAX where the score is not finite, in
-    any order).  Returns (scores [Q, kk] f32, ids [Q, kk] int32) in the
-    order of the reference's ``lax.sort((-s, id), num_keys=2)``: score
-    descending in IEEE total order, then id ascending; ``kk`` defaults to
-    W.  A CUDA tensor launches the kernel or raises; a CPU tensor runs the
-    plain version."""
-    global MERGE_LAUNCHES
-
+def _check_merge(scores, ids, widths, offsets, kk):
     dev = scores.device
     _check(
-        ((scores, torch.float32, 3, "scores"), (ids, torch.int32, 3, "ids")), dev
+        (
+            (scores, torch.float32, 3, "scores"),
+            (ids, torch.int32, 3, "ids"),
+            (offsets, torch.int64, 1, "offsets"),
+        ),
+        dev,
     )
     if scores.shape != ids.shape:
         raise ValueError("scores and ids must share one [D, Q, W] shape")
-    d, q, w = scores.shape
-    kk = w if kk is None else kk
-    if not 1 <= kk <= d * w:
-        raise ValueError(f"kk must be in [1, {d * w}], got {kk}")
+    d, _, w = scores.shape
+    if offsets.numel() != d or len(widths) != d:
+        raise ValueError(f"widths and offsets must hold one entry a shard ({d})")
+    if d and (min(widths) < 0 or max(widths) > w):
+        raise ValueError(f"widths must lie in [0, {w}], got {list(widths)}")
+    if kk < 1:
+        raise ValueError(f"kk must be >= 1, got {kk}")
+
+
+def shard_merge_plain(scores, ids, widths, offsets, kk: int):
+    """Plain PyTorch version of ``shard_merge``: the rebase, then every
+    query's candidates sorted by their packed keys, padded with the pad key
+    to ``kk`` and the first ``kk`` kept.  Raises ``ValueError`` where a run
+    is not in merge order after the rebase (the kernel relies on it)."""
+    _check_merge(scores, ids, widths, offsets, kk)
+    _, q, _ = scores.shape
+    pad = merge_keys(
+        torch.tensor([float("-inf")]), torch.tensor([_INT_MAX], dtype=torch.int32)
+    ).item()
+    runs = [torch.full((q, kk), pad, dtype=torch.int64, device=scores.device)]
+    for d, w in enumerate(int(x) for x in widths):
+        s, i = scores[d, :, :w], ids[d, :, :w]
+        g = torch.where(torch.isfinite(s), (i.long() + offsets[d]).int(), _INT_MAX)
+        keys = merge_keys(s, g)
+        if (keys[:, 1:] < keys[:, :-1]).any() or (keys > pad).any():
+            raise ValueError(f"shard {d}'s runs are not in merge order after the rebase")
+        runs.append(keys)
+    keys = torch.cat(runs[1:] + runs[:1], dim=1).sort(dim=1, stable=True).values[:, :kk]
+    s, i = _unmerge_keys(keys)
+    return torch.stack((s.view(torch.int32), i))
+
+
+def shard_merge(scores, ids, widths, offsets, kk: int):
+    """The ``kk`` best of each query's candidates over every shard, in
+    global ids.
+
+    scores [D, Q, W] f32 and ids [D, Q, W] int32: shard ``d``'s local top-k
+    of query ``q`` is its run ``[d, q, :widths[d]]``, ids local to the
+    shard, in merge order (score descending in IEEE total order, then id
+    ascending) after the rebase, as S2 (``dense_topk``) and Block-Max's
+    running top-k leave it; the rest of a row is not read.  widths: ``D``
+    ints in ``[0, W]`` (a shard that offered nothing has width 0).
+    offsets [D] int64 on the device of ``scores``: each shard's first global
+    id.  The rebase is the reference's ``g_ids``: id + offset where the
+    score is finite, ``INT_MAX`` elsewhere.
+
+    Returns one ``[2, Q, kk]`` int32 tensor, the scores' f32 bits then the
+    global ids (``merged_pair`` views it as the pair), in the order of the
+    reference's ``lax.sort((-s, id), num_keys=2)`` over the ``D * kk``
+    rebased candidates of its padded top-ks: slots past the candidates hold
+    ``(-inf, INT_MAX)``.  A CUDA tensor launches the kernel or raises; a CPU
+    tensor runs the plain version."""
+    global MERGE_LAUNCHES
+
+    dev = scores.device
     if _device_kind(dev) == "cpu":
-        return shard_merge_plain(scores, ids, kk)
+        return shard_merge_plain(scores, ids, widths, offsets, kk)
+    _check_merge(scores, ids, widths, offsets, kk)
+    d, q, w = scores.shape
+    if d > MAX_MERGE_SHARDS:
+        raise ValueError(f"shard_merge takes at most {MAX_MERGE_SHARDS} shards, got {d}")
 
     from ._build import library
 
-    lib = library()
-    out_s = torch.empty((q, kk), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, kk), dtype=torch.int32, device=dev)
-    if q == 0:
-        return out_s, out_i
-    m = 1 << max(1, (d * w - 1).bit_length())
-    scratch = None
-    if m > _MERGE_SMEM_KEYS:
-        scratch = torch.empty((q, m), dtype=torch.int64, device=dev)
+    out = torch.empty((2, q, kk), dtype=torch.int32, device=dev)
     _launch(
-        lib.bm25_shard_merge, "shard_merge", dev,
-        scores.data_ptr(), ids.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), d, q, w, kk, m,
+        library().bm25_shard_merge, "shard_merge", dev,
+        scores.data_ptr(), ids.data_ptr(), (ctypes.c_int * d)(*widths),
+        offsets.data_ptr(), out.data_ptr(), d, q, w, kk,
     )
     MERGE_LAUNCHES += 1
-    return out_s, out_i
+    return out
 
 
 # ---------------------------------------------------------------------------

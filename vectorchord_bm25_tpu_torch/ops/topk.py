@@ -168,20 +168,39 @@ def _check(acc, k, n_docs, block):
         raise ValueError(f"k must be in [1, n_docs = {n_docs}], got {k}")
 
 
-def dense_topk(acc, k: int, n_docs: int, block: int = 1024):
+def _check_out(out, acc, k):
+    q = acc.shape[0]
+    for x, dtype, name in zip(out, (torch.float32, torch.int32), ("scores", "ids")):
+        if x.dtype != dtype or tuple(x.shape) != (q, k) or x.device != acc.device:
+            raise ValueError(f"out {name} must be [{q}, {k}] {dtype} on {acc.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"out {name} must be contiguous")
+
+
+def dense_topk(acc, k: int, n_docs: int, block: int = 1024, out=None):
     """Exact top-k of ``where(acc > 0, acc, -inf)`` per row.
 
     acc: [Q, M] float32 with M >= n_docs; columns past n_docs must hold
     values <= 0.  Returns (scores [Q, k] f32 desc, ids [Q, k] i32); rows
     with fewer than k positive docs pad with -inf, whose ids follow the
     reference's lowest-index rule but mean nothing (callers mask on
-    isfinite).  A CUDA tensor launches the kernels or raises; a CPU tensor
-    runs the plain version."""
+    isfinite).  out: an optional (scores, ids) pair of contiguous [Q, k]
+    tensors on acc's device that the result is written into and that is
+    returned (the kernel writes there; the plain version's result is copied
+    in).  A CUDA tensor launches the kernels or raises; a CPU tensor runs
+    the plain version."""
     global LAUNCHES
 
     _check(acc, k, n_docs, block)
+    if out is not None:
+        _check_out(out, acc, k)
     if acc.device.type == "cpu":
-        return dense_topk_plain(acc, k, n_docs, block)
+        got = dense_topk_plain(acc, k, n_docs, block)
+        if out is None:
+            return got
+        out[0].copy_(got[0])
+        out[1].copy_(got[1])
+        return out
     if acc.device.type != "cuda":
         raise ValueError(f"unsupported device {acc.device}")
     q, m = acc.shape
@@ -202,8 +221,11 @@ def dense_topk(acc, k: int, n_docs: int, block: int = 1024):
     def scratch(shape, dtype, needed):
         return torch.empty(shape, dtype=dtype, device=dev) if needed else None
 
-    scores = torch.empty((q, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if out is None:
+        scores = torch.empty((q, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((q, k), dtype=torch.int32, device=dev)
+    else:
+        scores, ids = out
     bkeys = scratch((q, t), torch.int64, hier)
     bi = scratch((q, k), torch.int32, hier and k > _MAX_CHUNKS)
     sel = scratch((q, k), torch.int64, k > _CAP)

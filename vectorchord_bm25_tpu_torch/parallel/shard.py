@@ -11,11 +11,14 @@ lexicographic sort.  On one card the mesh becomes the leading dimension:
   each shard's row contiguous, so the existing kernels (S1-S5, E1, E3, B1,
   P1, P1-tf, S2) run on shard ``i``'s row as they run on one segment's
   tables;
-- each ``shard_map`` body becomes a loop over the shards that writes each
-  shard's ``[Q, kk]`` scores and global ids (``INT_MAX`` where the score is
-  not finite) into one ``[D, Q, kk]`` pair, and the ``all_gather`` plus
-  ``lax.sort((-s, id), num_keys=2)`` becomes one SH-merge launch
-  (``ops/shard_kernels.py:shard_merge``);
+- each ``shard_map`` body becomes a loop over the shards whose local top-k
+  producers (S2, Block-Max's running top-k) write each shard's sorted
+  ``[Q, w]`` scores and local ids straight into its slice of one stacked
+  ``[D, Q, w]`` pair, and the rebase to global ids (``INT_MAX`` where the
+  score is not finite), the ``all_gather`` and ``lax.sort((-s, id),
+  num_keys=2)`` become one SH-merge launch that merges the sorted runs
+  (``ops/shard_kernels.py:shard_merge``), given each shard's width and the
+  doc offsets uploaded with the index;
 - a ``psum`` becomes a sum over the leading dimension
   (``global_stats_step``, through SH-stats).
 
@@ -66,6 +69,7 @@ from ..utils.rwlock import RWLock
 __all__ = ["ShardedIndex"]
 
 _INT_MAX = np.int32(np.iinfo(np.int32).max)
+_NEG_INF_BITS = int(np.array(-np.inf, dtype=np.float32).view(np.int32))
 
 
 @dataclass
@@ -453,6 +457,7 @@ class ShardedIndex:
         self.doc_offsets = np.array(
             [v.doc_offset for v in self.views], dtype=np.int64
         )
+        self.dev_doc_offsets = put(self.doc_offsets)  # SH-merge's rebase
         self.dev_doc_fn = put(doc_fn)
         self.dev_doc_live = put(doc_live)
         self.dev_post_docid = put(post_docid) if with_blocks else None
@@ -711,41 +716,35 @@ class ShardedIndex:
         return -self.evaluate(document, query)
 
     # ------------------------------------------------------------------
-    # The per-shard candidates and their merge (SH-merge).
+    # The per-shard local top-ks and their merge (SH-merge).
     # ------------------------------------------------------------------
-    def _candidates(self, q: int, kk: int):
-        """An empty [D, q, kk] candidate pair: (-inf, INT_MAX) slots."""
-        d = self.n_shards
-        return (
-            torch.full((d, q, kk), float("-inf"), dtype=torch.float32, device=self.device),
-            torch.full((d, q, kk), int(_INT_MAX), dtype=torch.int32, device=self.device),
-        )
+    def _runs(self, q: int, w: int, pads: bool = False):
+        """The stacked [D, q, w] (scores, local ids) pair each shard's local
+        top-k is written into, SH-merge's input: one int32 allocation whose
+        first plane holds the scores' f32 bits.  ``pads``: filled with
+        (-inf, INT_MAX), as Block-Max's running top-k starts; else left
+        unset (SH-merge reads a shard's slots only up to its width)."""
+        buf = torch.empty((2, self.n_shards, q, w), dtype=torch.int32, device=self.device)
+        if pads:
+            buf[0].fill_(_NEG_INF_BITS)
+            buf[1].fill_(int(_INT_MAX))
+        return buf[0].view(torch.float32), buf[1]
 
-    def _put_local(self, cand_s, cand_i, si: int, l_scores, l_ids) -> None:
-        """Shard ``si``'s local [q, w] top-k (w <= kk) into its candidate
-        row: ids offset-rebased to global, INT_MAX where the score is not
-        finite (the reference's ``g_ids``)."""
-        w = l_scores.shape[1]
-        cand_s[si, :, :w] = l_scores
-        cand_i[si, :, :w] = torch.where(
-            torch.isfinite(l_scores),
-            l_ids.int() + int(self.views[si].doc_offset),
-            int(_INT_MAX),
-        )
+    def _dense_local(self, acc, runs, si: int) -> None:
+        """The dense bodies' local top-k (S2) of one shard's accumulator,
+        written by S2 straight into the shard's slice of ``runs``.  Their
+        width is min(kk, nmax): past the shard's slot count (kk > nmax: tiny
+        shards) SH-merge pads the merged row, as the reference's padded
+        ``top_k`` does."""
+        s, i = runs
+        dense_topk(acc, s.shape[2], self._nmax, out=(s[si], i[si]))
 
-    def _dense_local(self, acc, kk: int, cand_s, cand_i, si: int) -> None:
-        """The dense bodies' local top-k (S2) of one shard's accumulator.
-        Past the shard's slot count (kk > nmax: tiny shards) every slot is
-        a candidate, so the top-k of all nmax slots fills the row and the
-        rest stays (-inf, INT_MAX) — the reference's padded ``top_k``."""
-        s, i = dense_topk(acc, min(kk, self._nmax), self._nmax)
-        self._put_local(cand_s, cand_i, si, s, i)
-
-    @staticmethod
-    def _merged(cand_s, cand_i, kk: int):
-        """SH-merge of the candidates, as host arrays [q, kk]."""
-        s, i = shard_merge(cand_s, cand_i, kk)
-        return s.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+    def _merged(self, runs, widths, kk: int):
+        """SH-merge of the shards' runs (``widths[d]`` slots of shard d's
+        rows), as host arrays [q, kk] of scores and global ids: one launch
+        and one copy to the host."""
+        out = shard_merge(*runs, widths, self.dev_doc_offsets, kk).cpu().numpy()
+        return out[0].view(np.float32), out[1].astype(np.int64)
 
     # ------------------------------------------------------------------
     def _upload_stream(self):
@@ -873,6 +872,7 @@ class ShardedIndex:
             ]
         kk = _bucket(k, 1)
         nmax = self._nmax
+        width = min(kk, nmax)
         s1_eff = self._stream_s1_eff(fmask_dev)
 
         # Sub-batch queries so each shard's [q, nmax+1] accumulator
@@ -889,7 +889,8 @@ class ShardedIndex:
         for q0 in range(0, qn, q_cap):
             q1 = min(qn, q0 + q_cap)
             nq = q1 - q0
-            cand_s, cand_i = self._candidates(nq, kk)
+            runs = self._runs(nq, width)
+            widths = [0] * self.n_shards
             for si, ((ws, q_of), st) in enumerate(zip(per_shard, starts)):
                 lo, hi = int(st[q0]), int(st[q1])
                 if hi == lo:
@@ -905,9 +906,10 @@ class ShardedIndex:
                     *(self._put(x.astype(np.int32)) for x in (wsrc, q_starts, word_ord)),
                     nq, nmax,
                 )
-                self._dense_local(acc, kk, cand_s, cand_i, si)
+                self._dense_local(acc, runs, si)
+                widths[si] = width
                 del acc
-            s, i = self._merged(cand_s, cand_i, kk)
+            s, i = self._merged(runs, widths, kk)
             scores[q0:q1] = s
             gids[q0:q1] = i
         return scores[:, :k], gids[:, :k]
@@ -1467,7 +1469,7 @@ class ShardedIndex:
         # round's pool).
         kk = _bucket(k, 1)
         tf_mode = self.posting_mode == "tf"
-        cand_s, cand_i = self._candidates(len(queries), kk)
+        runs = self._runs(len(queries), kk, pads=True)
         for si in range(self.n_shards):
             tf_args = ()
             if tf_mode:
@@ -1477,7 +1479,7 @@ class ShardedIndex:
                     self.dev_s1,
                     self._put(self._bm_s0[si][q_tid[si]]),
                 )
-            l_scores, l_ids, _ = _blockmax_kernel(
+            _blockmax_kernel(
                 None if tf_mode else self.dev_bm_impact[si],
                 self.dev_bm_local[si],
                 self.dev_doc_live[si],
@@ -1496,9 +1498,9 @@ class ShardedIndex:
                 n_docs=self._nmax,
                 max_rounds=max_rounds,
                 posting_mode=self.posting_mode,
+                topk=(runs[0][si], runs[1][si]),
             )
-            self._put_local(cand_s, cand_i, si, l_scores, l_ids)
-        return self._merged(cand_s, cand_i, kk)
+        return self._merged(runs, [kk] * self.n_shards, kk)
 
     # ------------------------------------------------------------------
     def _prepare_compact(self, queries: Sequence[Query]):
@@ -1551,7 +1553,8 @@ class ShardedIndex:
         (the sharded analog of exact.py's _score_and_topk_compact)."""
         grp_ids, grp_ord = self._prepare_compact(queries)
         kk = _bucket(k, 1)
-        cand_s, cand_i = self._candidates(len(queries), kk)
+        width = min(kk, self._nmax)
+        runs = self._runs(len(queries), width)
         for si in range(self.n_shards):
             acc = exact_compact_accumulate(
                 self.dev_bm_impact[si],
@@ -1565,9 +1568,9 @@ class ShardedIndex:
                 self._rs,
             )
             acc.mul_(self.dev_doc_live[si]).mul_(fmask_dev[si])
-            self._dense_local(acc, kk, cand_s, cand_i, si)
+            self._dense_local(acc, runs, si)
             del acc
-        return self._merged(cand_s, cand_i, kk)
+        return self._merged(runs, [width] * self.n_shards, kk)
 
     # ------------------------------------------------------------------
     def _prepare(self, queries: Sequence[Query]):
@@ -1635,7 +1638,8 @@ class ShardedIndex:
         unfiltered = fmask_dev is self._dev_ones
         win_row, win_lo, win_hi, win_ord = self._prepare(queries)
         kk = _bucket(k, 1)
-        cand_s, cand_i = self._candidates(len(queries), kk)
+        width = min(kk, self._nmax)
+        runs = self._runs(len(queries), width)
         for si in range(self.n_shards):
             acc = exact_dense_accumulate(
                 self.dev_post_docid[si],
@@ -1649,9 +1653,9 @@ class ShardedIndex:
                 self._nmax,
                 filter_mask=None if unfiltered else fmask_dev[si],
             )
-            self._dense_local(acc, kk, cand_s, cand_i, si)
+            self._dense_local(acc, runs, si)
             del acc
-        return self._merged(cand_s, cand_i, kk)
+        return self._merged(runs, [width] * self.n_shards, kk)
 
     # ------------------------------------------------------------------
     def _route(self, queries: Sequence[Query]) -> np.ndarray:

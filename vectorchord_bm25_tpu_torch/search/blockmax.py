@@ -83,9 +83,13 @@ def _blockmax_kernel(
     n_docs: int,
     max_rounds: int,
     posting_mode: str = "impact",
+    topk=None,
 ):
     """Block-Max search; returns (topk_s [Q,k] f32, topk_d [Q,k] i32,
-    rounds)."""
+    rounds).  topk: an optional contiguous (scores, ids) [Q, k] pair,
+    holding (-inf, INT_MAX) on entry, to keep the running top-k in (the
+    sharded body hands each shard its slice of one stacked pair); it is
+    returned."""
     q = q_tid.shape[0]
     rs, c = range_size, chunk
     dev = q_tid.device
@@ -95,8 +99,11 @@ def _blockmax_kernel(
     ub_work = range_bounds(
         token_tr_start, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax
     )
-    topk_s = torch.full((q, k), float("-inf"), dtype=torch.float32, device=dev)
-    topk_d = torch.full((q, k), _INT_MAX, dtype=torch.int32, device=dev)
+    if topk is None:
+        topk_s = torch.full((q, k), float("-inf"), dtype=torch.float32, device=dev)
+        topk_d = torch.full((q, k), _INT_MAX, dtype=torch.int32, device=dev)
+    else:
+        topk_s, topk_d = topk
     # One zeroed flag a round: B1-select raises it if any query is active.
     flags = torch.zeros(max(max_rounds, 1), dtype=torch.int32, device=dev)
 
