@@ -4,11 +4,12 @@ and bf16 impacts, tf postings, the exhaustive range sweep; at 131,072 and
 at 2,097,152 docs), the served default, the stream engine, with a growing
 segment and at the scale where its ``auto`` strategy leaves the dense path,
 the exact engine (dense, bf16, compact, shared and sparse), the hybrid
-engine's routes, a restart (checkpoint, WAL replay, reopen), and the
+engine's routes, a restart (checkpoint, WAL replay, reopen), the
 sharded index (8 shards stacked on the card: its device build, every
-engine, a restart, and serving at 2,097,152 docs).  The corpora
-come from the port's own generators
-(``vectorchord_bm25_tpu_torch/data/synth.py``).
+engine, a restart, and serving at 2,097,152 docs), and the text path: a
+generated corpus of raw text built out of core and evaluated.  The
+corpora come from the port's own generators
+(``vectorchord_bm25_tpu_torch/data/synth.py``, ``data/stream_synth.py``).
 
     python3 chip_smoke.py [--docs N] [--sparse-docs N] [--seed S]
 
@@ -175,7 +176,9 @@ not 0 and no result line is printed):
       index with no checkpoint, reopened, the WAL replays, equal to the live
       index after the same mutations; ``maintain``, save, open: ``wal.log``
       empty, one generation left, results equal; bytes on disk and the host
-      seconds of each step;
+      seconds of each step, the save and the open on the native codecs
+      (``native/loader.py`` must have built its library) beside the numpy
+      codecs' times recorded in PERF.md;
   (u) the sharded index on phase (d)'s postings in 8 shards:
       ``ShardedIndex.build_from_postings(..., 8, device="cuda",
       device_build=True)``, where D1-sort (``posting_sort``) equals its plain
@@ -217,10 +220,27 @@ not 0 and no result line is printed):
       within rtol 2e-5); 32 queries equal the CPU-plain sharded index under
       both strategies; recall@10 = 1.0 on them; SH-merge timed on its largest
       call (``[8, 512, 16]``) as in (u);
+  (x) from raw text to ranked, evaluated results:
+      ``generate_streaming("msmarco-mini")`` (200,000 docs of text, 512
+      queries with qrels) built by ``build_index_streaming(ds,
+      engine="stream", n_workers=min(8, cpus), device="cuda")``: spawned
+      workers tokenize and intern, the native merger merges every run (the
+      native library must load, and every merge must be native), the
+      streaming flush, the served default on the card (dense: S1, S2);
+      host seconds of the scan, the merge, the flush and the stream index's
+      build and upload; ``run_dataset`` over all 512 queries in batches of
+      64 at k=1000 (NDCG@10, recall@10/100/1000 beside the reference's
+      0.703 and 1.0; recall@1000 must be 1.0) and at k=10 (QPS), S1's and
+      S2's launches must grow; every S1 and S2 call of one k=1000 batch
+      ``torch.equal`` to its plain version; 64 sampled queries at k=1000
+      equal the same index on the CPU (plain versions), ids and scores;
+      ``oracle_rank_parity`` at k=10 over all 512 queries must be 0; save
+      and open through the native codecs, seconds and bytes on disk, the
+      reopened index equal on the 64 queries;
   (k) the host build time of each phase.
 
 Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, (u)
-after (t), and (r), (s), (v) and (w) after (j).  Each path is driven with
+after (t), (r), (s), (v) and (w) after (j), and (x) after (w).  Each path is driven with
 its launch counters at 0 and read just after.  The ``kernels`` line lists
 P1 (f32 and bf16), P1-tf, B1-bounds, B1-select, B1-merge, S1-S5,
 SP-stream, E1 (f32 and bf16), E2, E3, SP-exact, SH-merge, SH-stats and
@@ -231,8 +251,8 @@ by phase and in all, its time and its plain version's from CUDA events, its boun
 operations over 67 TFLOP/s, counted from this run's inputs) and the time
 of one PyTorch call computing the same function where there is one
 (``library_ms``); the last line of stdout is ``{"ok": true, "device":
-{...}}``.  Needs torch with CUDA and nvcc; imports no jax, nothing of the
-JAX package and not ``bench.py``.
+{...}}``.  Needs torch with CUDA, nvcc and g++; imports no jax, nothing of
+the JAX package and not ``bench.py``.
 """
 
 from __future__ import annotations
@@ -1042,6 +1062,10 @@ def restart(index, queries, new_docs, label, what):
     import torch
 
     from vectorchord_bm25_tpu_torch import open_index, save_index
+    from vectorchord_bm25_tpu_torch.native import loader
+
+    if not loader.available():
+        raise AssertionError(f"(t) the native codecs did not load: {loader.BUILD_ERROR}")
 
     def doomed_too(p):
         return (np.asarray(p) * 2654435761) % 100 == 1
@@ -1116,6 +1140,11 @@ def restart(index, queries, new_docs, label, what):
         f"(t) {what} host times: "
         + "; ".join(f"{name} {sec:.2f} s" for name, sec in times.items())
         + f" [{label}]"
+    )
+    print(
+        f"(t) {what} at {index.sealed.n_docs} docs on the native codecs: save "
+        f"{times['save 1']:.2f} s, open {times['open 1']:.2f} s (the numpy codecs, "
+        f"PERF.md: save 3.72-5.96 s, open 2.26-3.54 s) [{label}]"
     )
     return times
 
@@ -3807,6 +3836,187 @@ def sharded_large(args, seg, batches, single, keys, doc_ids, tfs, doc_start, lab
     return entries, launches
 
 
+# Phase (x): the quality anchor of the reference's dataset harness, the
+# generated msmarco-mini corpus (DESIGN.md: NDCG@10 0.703, recall@1000 1.0
+# and 0 oracle rank-parity mismatches on the reference's CPU backend).
+TEXT_SHAPE = "msmarco-mini"
+TEXT_BATCH = 64
+TEXT_SAMPLE = 64
+REF_NDCG10, REF_RECALL1000 = 0.703, 1.0
+
+
+def text_slice(label, build_times):
+    """Phase (x): from raw text to ranked, evaluated results on the card.
+    ``generate_streaming(TEXT_SHAPE)`` built out of core (``n_workers``
+    spawned tokenizing workers, the native merge, the streaming flush), the
+    served default on the card, ``run_dataset`` at k=1000 and k=10, S1 and
+    S2 held to their plain versions on one k=1000 batch, 64 queries equal
+    to the CPU, the float64 oracle's ranks, a save and an open.  Returns
+    the launches of S1 and S2 in the timed runs, by kernel."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vectorchord_bm25_tpu_torch import Bm25Index, IndexOptions, open_index, save_index
+    from vectorchord_bm25_tpu_torch.data import harness
+    from vectorchord_bm25_tpu_torch.data.stream_synth import generate_streaming
+    from vectorchord_bm25_tpu_torch.native import loader
+    from vectorchord_bm25_tpu_torch.ops import stream_kernel, topk
+    from vectorchord_bm25_tpu_torch.parallel import hostbuild
+    from vectorchord_bm25_tpu_torch.search import stream as port_stream
+
+    if not loader.available():
+        raise AssertionError(f"(x) the native library did not load: {loader.BUILD_ERROR}")
+    t0 = time.perf_counter()
+    ds = generate_streaming(TEXT_SHAPE)
+    gen_s = time.perf_counter() - t0
+    n_workers = min(8, os.cpu_count() or 1)
+    stamps = {}
+
+    def progress(stage, done, total):
+        stamps[stage] = time.perf_counter()
+
+    merges = []
+    real_merge = hostbuild._merge_group
+
+    def merge_group(group, out_path):
+        merges.append(len(group))
+        return real_merge(group, out_path)
+
+    hostbuild._merge_group = merge_group
+    loader.MERGES = 0
+    t0 = time.perf_counter()
+    try:
+        index = harness.build_index_streaming(
+            ds, engine="stream", n_workers=n_workers, device="cuda", progress=progress
+        )
+    finally:
+        hostbuild._merge_group = real_merge
+    t_flushed = time.perf_counter()
+    engine = index.engine()
+    torch.cuda.synchronize()
+    t_up = time.perf_counter()
+    if not merges or loader.MERGES != len(merges):
+        raise AssertionError(
+            f"(x) {len(merges)} merges, {loader.MERGES} of them native: every merge "
+            f"must take the native merger"
+        )
+    if index.engine_kind != "stream" or not engine.dev_words.is_cuda:
+        raise AssertionError(f"(x) the index serves {index.engine_kind} on {index.device}")
+    seg = index.sealed
+    times = {
+        "scan": stamps["scan"] - t0,
+        "merge": stamps["merge"] - stamps["scan"],
+        "flush": t_flushed - stamps["merge"],
+        "stream index and upload": t_up - t_flushed,
+    }
+    build_times["(x) generate, scan, merge, flush, upload"] = gen_s + t_up - t0
+    n_postings = int(seg.token_df.sum())
+    print(
+        f"(x) {TEXT_SHAPE}: {seg.n_docs} docs, {ds.n_queries} queries, "
+        f"{seg.n_tokens} terms, {n_postings} postings; out-of-core build in "
+        f"{n_workers} workers, {len(merges)} merges of {merges} runs, all native "
+        f"({loader.library_path()}); host s: queries generated {gen_s:.2f}, "
+        + ", ".join(f"{name} {sec:.2f}" for name, sec in times.items())
+        + f"; device index {engine.memory_report()['total']} B; engine "
+        f"{type(engine).__name__}, strategy {engine.strategy} [{label}]"
+    )
+
+    queries = harness.make_queries(ds, index)
+    stream_kernel.LAUNCHES = topk.LAUNCHES = 0
+    run, metrics, qps_1000 = harness.run_dataset(
+        ds, index, k=1000, batch=TEXT_BATCH, queries=queries
+    )
+    _, metrics_10, qps_10 = harness.run_dataset(
+        ds, index, k=K, batch=TEXT_BATCH, queries=queries, rounds=3
+    )
+    launches = {
+        "stream_dense_accumulate": stream_kernel.LAUNCHES, "dense_topk": topk.LAUNCHES,
+    }
+    if not all(launches.values()):
+        raise AssertionError(f"(x) a kernel of the path never launched: {launches}")
+    if metrics["recall@1000"] != REF_RECALL1000 or len(run) != ds.n_queries:
+        raise AssertionError(f"(x) recall@1000 {metrics['recall@1000']} != 1.0 ({len(run)} runs)")
+    if not 0.0 < metrics["ndcg@10"] <= 1.0:
+        raise AssertionError(f"(x) NDCG@10 {metrics['ndcg@10']} outside (0, 1]")
+    if metrics_10["ndcg@10"] != metrics["ndcg@10"]:
+        raise AssertionError(f"(x) NDCG@10 at k=10 {metrics_10['ndcg@10']} != at k=1000")
+    print(
+        f"(x) run_dataset, {ds.n_queries} queries in batches of {TEXT_BATCH}: "
+        f"NDCG@10 {metrics['ndcg@10']:.6f} (the reference's CPU backend {REF_NDCG10}), "
+        f"recall@10 {metrics['recall@10']:.6f}, recall@100 {metrics['recall@100']:.6f}, "
+        f"recall@1000 {metrics['recall@1000']} (the reference's {REF_RECALL1000}); "
+        f"QPS at k=1000 {qps_1000:.1f} (one timed pass), at k={K} {qps_10:.1f} (best of 3); "
+        f"S1 {launches['stream_dense_accumulate']} launches, S2 {launches['dense_topk']} [{label}]"
+    )
+
+    # Every S1 and S2 call of one k=1000 batch held to its plain version.
+    restore_s1, s1_st = _checked(
+        port_stream, "stream_dense_accumulate", stream_kernel.stream_dense_accumulate_plain,
+        lambda a: a[6].numel(), _finite_err,
+    )
+    restore_s2, s2_st = _checked(
+        port_stream, "dense_topk", topk.dense_topk_plain, lambda a: a[0].numel(),
+        lambda o, w: _finite_err(o[0], w[0]),
+    )
+    try:
+        engine.search(queries[:TEXT_BATCH], 1000)
+    finally:
+        restore_s1()
+        restore_s2()
+    if not s1_st["checked"] or not s2_st["checked"]:
+        raise AssertionError(f"(x) S1 {s1_st['checked']}, S2 {s2_st['checked']} calls checked")
+    print(
+        f"(x) one {TEXT_BATCH}-query batch at k=1000: {s1_st['checked']} S1 and "
+        f"{s2_st['checked']} S2 calls == plain (torch.equal); S2's largest on "
+        f"{tuple(s2_st['args'][0].shape)}"
+    )
+
+    # The card against the same index on the CPU, and the float64 oracle.
+    rng = np.random.default_rng(17)
+    sample = [queries[i] for i in np.sort(rng.choice(len(queries), TEXT_SAMPLE, replace=False))]
+    cpu = Bm25Index(seg, index.seed, IndexOptions(), device="cpu")
+    want = hits_of(index.search_batch(sample, 1000))
+    if want != hits_of(cpu.search_batch(sample, 1000)):
+        raise AssertionError("(x) the card != the CPU-plain index at k=1000")
+    t0 = time.perf_counter()
+    mismatches = harness.oracle_rank_parity(ds, index, k=K, queries=queries)
+    parity_s = time.perf_counter() - t0
+    if mismatches:
+        raise AssertionError(f"(x) {mismatches} oracle rank-parity mismatches at k={K}")
+    print(
+        f"(x) {TEXT_SAMPLE} sampled queries at k=1000: card == CPU-plain, ids and "
+        f"scores ({sum(map(len, want))} hits); oracle_rank_parity over {len(queries)} "
+        f"queries at k={K}: {mismatches} mismatches (the reference's CPU backend: 0), "
+        f"{parity_s:.2f} host s"
+    )
+
+    # Persist through the native codecs, reopen on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "idx")
+        t0 = time.perf_counter()
+        save_index(index, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        opened = open_index(path, device="cuda")
+        opened.engine()
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        size = dir_bytes(path)
+        got = hits_of(opened.search_batch(sample, 1000))
+        opened._wal.close()
+    if got != want:
+        raise AssertionError("(x) the reopened index != the live index")
+    build_times["(x) save + open"] = save_s + open_s
+    print(
+        f"(x) save_index {save_s:.2f} s, open_index (and its engine) {open_s:.2f} s "
+        f"on the native codecs, {size} B on disk; the reopened index == the live "
+        f"index on {TEXT_SAMPLE} queries at k=1000 [{label}]"
+    )
+    return {name: {"(x)": n} for name, n in launches.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=131072)
@@ -4064,6 +4274,9 @@ def main() -> int:
     del index, engine, cpu, seg, queries, keys, doc_ids, tfs, doc_start, sample, ri
     sparse, b1_large, (shard_entries, large_launches) = sparse_slice(args, label, build_times)
     for name, by in large_launches.items():
+        shard_launches.setdefault(name, {}).update(by)
+    # (x) from raw text to ranked, evaluated results
+    for name, by in text_slice(label, build_times).items():
         shard_launches.setdefault(name, {}).update(by)
     next(e for e in shard_entries if e["name"] == "shard_merge")["bodies_u"] = merge_u
     b1_by_phase["(s)"] = b1_large["launches"]

@@ -16,6 +16,7 @@ other saved.  Public API:
     save_index(index, directory)
     index = open_index(directory, device="cuda")  # replays and attaches the WAL
     sharded = ShardedIndex.build(docs, 8, device="cuda")  # 8 shards, one card
+    docs = documents_from_texts(seed, texts)  # tsvector-style English
 """
 
 __version__ = "0.1.0"
@@ -47,6 +48,8 @@ __all__ = [
     "save_sharded_index",
     "load_sharded_index",
     "open_sharded_index",
+    "documents_from_texts",
+    "tsvector",
 ]
 
 # Where each public name lives in the port.
@@ -77,6 +80,8 @@ _HOME = {
     "save_sharded_index": ".index.storage",
     "load_sharded_index": ".index.storage",
     "open_sharded_index": ".index.storage",
+    "documents_from_texts": ".text.corpus",
+    "tsvector": ".text.tokenizer",
 }
 
 

@@ -37,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..native import loader
 from ..ops.bitpack import pack_u32_np, unpack_u32_np
 from ..text.intern import WIDTH, Document
 from ..utils.options import IndexOptions, SearchOptions
@@ -182,7 +183,10 @@ _SEGMENT_FIELDS = [
 
 
 def _bitpack_full(vals: np.ndarray, bases=None):
-    """Bit-pack full 128-blocks."""
+    """Bit-pack full 128-blocks (native, numpy fallback)."""
+    packed = loader.compress_blocks(vals, bases)
+    if packed is not None:
+        return packed
     b = vals.shape[0]
     widths = np.zeros(b, dtype=np.uint32)
     chunks = []
@@ -204,6 +208,9 @@ def _bitpack_full(vals: np.ndarray, bases=None):
 
 
 def _bitunpack_full(packed, bits, offsets, bases=None):
+    vals = loader.decompress_blocks(packed, bits, offsets, bases)
+    if vals is not None:
+        return vals
     b = np.asarray(bits).size
     vals = np.zeros((b, 128), dtype=np.uint32)
     packed = np.asarray(packed, dtype=np.uint8)
@@ -223,6 +230,9 @@ def _bitunpack_full(packed, bits, offsets, bases=None):
 def _bytepack_partial(vals: np.ndarray, ns: np.ndarray, bases=None):
     """Byte-pack partial blocks — only the first ns[i] live entries
     (the reference's partial-block policy, compression.rs:52-62)."""
+    packed = loader.bytepack_blocks(vals, ns, bases)
+    if packed is not None:
+        return packed
     b = vals.shape[0]
     widths = np.zeros(b, dtype=np.uint32)
     chunks = []
@@ -250,6 +260,9 @@ def _bytepack_partial(vals: np.ndarray, ns: np.ndarray, bases=None):
 
 
 def _byteunpack_partial(packed, widths, offsets, ns, bases=None, fill=0):
+    vals = loader.byteunpack_blocks(packed, widths, offsets, ns, bases, fill)
+    if vals is not None:
+        return vals
     b = np.asarray(widths).size
     vals = np.full((b, 128), fill, dtype=np.uint32)
     packed = np.asarray(packed, dtype=np.uint8)

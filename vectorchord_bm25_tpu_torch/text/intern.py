@@ -41,8 +41,14 @@ _U32_SATURATE = np.uint64(0xFFFFFFFF)
 
 
 def _keyed_hash16(seed: bytes, data: bytes) -> bytes:
-    # The reference tries its native C++ hash first; the keys are the same
-    # either way, so the port keeps only the pure-Python blake3.
+    try:
+        from ..native import loader
+
+        fn = loader.blake3_keyed_hash16()
+        if fn is not None:
+            return fn(seed, data)
+    except Exception:
+        pass
     from .blake3 import blake3_keyed_hash
 
     return blake3_keyed_hash(seed, data, 32)[:WIDTH]
