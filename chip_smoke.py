@@ -7,7 +7,8 @@ the exact engine (dense, bf16, compact, shared and sparse), the hybrid
 engine's routes, a restart (checkpoint, WAL replay, reopen), the
 sharded index (8 shards stacked on the card: its device build, every
 engine, a restart, and serving at 2,097,152 docs), and the text path: a
-generated corpus of raw text built out of core and evaluated.  The
+generated corpus of raw text built out of core and evaluated, and the
+command line driven over the same texts.  The
 corpora come from the port's own generators
 (``vectorchord_bm25_tpu_torch/data/synth.py``, ``data/stream_synth.py``).
 
@@ -237,10 +238,31 @@ not 0 and no result line is printed):
       ``oracle_rank_parity`` at k=10 over all 512 queries must be 0; save
       and open through the native codecs, seconds and bytes on disk, the
       reopened index equal on the 64 queries;
+  (y) the command line (``vectorchord_bm25_tpu_torch/cli.py``) over (x)'s
+      texts, written as JSONL: ``cli.main(["build", ..., "--workers",
+      min(8, cpus)])`` on the default device (the card; engine stream,
+      dense), then 64 of (x)'s query texts through ``cli.main(["search",
+      ...])`` at k=10 with stdout captured: every line equal to
+      ``load_index`` in process on the card and on the CPU (plain
+      versions), the hits held to (x)'s index by (w)'s rule (the seeds
+      differ), S1's and S2's launches grown, one search's S1 and S2 calls
+      ``torch.equal`` to their plain versions; one search as ``python -m
+      vectorchord_bm25_tpu_torch.cli`` on the card and one with ``--device
+      cpu``, each printing the in-process lines; insert (a payload past the
+      corpus, found by search; the WAL replayed on the card), delete,
+      maintain (``wal.log`` empty), inspect (equal to the index's values);
+      ``build --engine blockmax`` on the same file, its hits held to the
+      stream index, P1's and B1's launches grown, one batch's P1 and B1
+      calls held to their plain versions; ``memory_parity_report`` of both
+      and of (f)'s stream engine beside ``BENCH_r05.json``'s 0.732; two
+      searches under ``utils/profiling.trace`` (the Chrome trace names S1,
+      S2 and the annotation); ``tools/dryrun.dryrun_multichip(8,
+      device="cuda")`` with D1-sort's, SH-stats' and SH-merge's launches
+      grown; the host seconds of each step;
   (k) the host build time of each phase.
 
 Phases (l)-(q) run after (h), while the 131,072-doc corpus is held, (u)
-after (t), (r), (s), (v) and (w) after (j), and (x) after (w).  Each path is driven with
+after (t), (r), (s), (v) and (w) after (j), (x) after (w) and (y) after (x).  Each path is driven with
 its launch counters at 0 and read just after.  The ``kernels`` line lists
 P1 (f32 and bf16), P1-tf, B1-bounds, B1-select, B1-merge, S1-S5,
 SP-stream, E1 (f32 and bf16), E2, E3, SP-exact, SH-merge, SH-stats and
@@ -1151,7 +1173,8 @@ def restart(index, queries, new_docs, label, what):
 
 def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_times):
     """Phases (f)-(h): the served default engine with a growing segment.
-    Returns the kernels-line entries of S1 and S2."""
+    Returns the kernels-line entries of S1 and S2, and the engine's
+    ``memory_parity_report`` (phase (y) prints it)."""
     import torch
 
     from vectorchord_bm25_tpu_torch import (
@@ -1161,6 +1184,7 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     )
     from vectorchord_bm25_tpu_torch.ops import stream_kernel, topk
     from vectorchord_bm25_tpu_torch.search import stream as port_stream
+    from vectorchord_bm25_tpu_torch.utils.memparity import memory_parity_report
 
     # (f) the served default on the card
     t0 = time.perf_counter()
@@ -1170,6 +1194,7 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     if index.engine_kind != "stream" or type(engine) is not port_stream.StreamEngine:
         raise AssertionError(f"default engine is {index.engine_kind}: {engine!r}")
     build_times["(f) stream index"] = time.perf_counter() - t0
+    parity = memory_parity_report(engine, seg)
     print(
         f"(f) stream index: {si.n_windows} windows, {si.n_postings} postings, "
         f"{si.words.nbytes} B of stream words; host build "
@@ -1400,7 +1425,7 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
             "pad_rows_checked": pad_rows,
             "profile_f": s2_profile,
         },
-    ]
+    ], parity
 
 
 def _record(module, name):
@@ -3715,8 +3740,15 @@ def held_to_single(got, single, what):
     the same hit counts, a rank may hold another doc only where the two
     scores there are within 1e-4 (``rank_match``), scores within rtol 2e-5.
     Returns the number of such swaps."""
+    return rule_swaps(sharded_hits(got), single, what)
+
+
+def rule_swaps(got, single, what):
+    """``held_to_single``'s rule on two lists of hit lists of (score,
+    payload), e.g. two indexes of one corpus interned with different seeds.
+    Returns the number of swaps."""
     swaps = 0
-    for g, s in zip(sharded_hits(got), single):
+    for g, s in zip(got, single):
         if len(g) != len(s):
             raise AssertionError(f"{what}: {len(g)} hits, the single index {len(s)}")
         gs = np.array([x[0] for x in g], dtype=np.float64)
@@ -3852,7 +3884,8 @@ def text_slice(label, build_times):
     served default on the card, ``run_dataset`` at k=1000 and k=10, S1 and
     S2 held to their plain versions on one k=1000 batch, 64 queries equal
     to the CPU, the float64 oracle's ranks, a save and an open.  Returns
-    the launches of S1 and S2 in the timed runs, by kernel."""
+    the launches of S1 and S2 in the timed runs, by kernel, the dataset and
+    the index (phase (y) reuses both)."""
     import os
     import tempfile
 
@@ -4014,7 +4047,310 @@ def text_slice(label, build_times):
         f"on the native codecs, {size} B on disk; the reopened index == the live "
         f"index on {TEXT_SAMPLE} queries at k=1000 [{label}]"
     )
-    return {name: {"(x)": n} for name, n in launches.items()}
+    return {name: {"(x)": n} for name, n in launches.items()}, ds, index
+
+
+CLI_QUERIES = 64  # (y): (x)'s query texts searched through the command line
+CLI_BLOCKMAX_SEARCHES = 8  # (y): of them, through the Block-Max index
+REF_MEMORY_RATIO = 0.732  # BENCH_r05.json: the stream engine at 131,072 docs
+
+
+def cli_slice(ds, x_index, parity_f, label, build_times):
+    """Phase (y): the command line on the card, over (x)'s texts.  The
+    texts as JSONL; ``cli.main`` builds them out of core and searches (x)'s
+    query texts (stdout captured), each line equal to ``load_index`` in
+    process on the card and on the CPU, the hits to (x)'s index by
+    ``held_to_single``'s rule; S1 and S2 held to their plain versions on one
+    search; a search as a subprocess on the card and on the CPU; insert,
+    delete, maintain and inspect; a Block-Max build, its P1 and B1 held;
+    the memory parity of both and of (f)'s engine; a search under
+    ``profiling.trace``; the sharded dry run.  Returns the launches of S1,
+    S2, P1, B1 and the shard kernels by kernel."""
+    import glob
+    import io
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from vectorchord_bm25_tpu_torch import Query, cli, load_index
+    from vectorchord_bm25_tpu_torch.ops import score_kernel, shard_kernels, stream_kernel, topk
+    from vectorchord_bm25_tpu_torch.search import blockmax
+    from vectorchord_bm25_tpu_torch.search import stream as port_stream
+    from vectorchord_bm25_tpu_torch.text.tokenizer import tsvector
+    from vectorchord_bm25_tpu_torch.tools.dryrun import dryrun_multichip
+    from vectorchord_bm25_tpu_torch.utils import profiling
+    from vectorchord_bm25_tpu_torch.utils.memparity import memory_parity_report
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs = {}
+
+    def run(step, *argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main([str(a) for a in argv])
+        secs.setdefault(step, []).append(time.perf_counter() - t0)
+        return out.getvalue()
+
+    def query_of(index, text):
+        return Query.from_tokens(index.seed, tsvector(text).keys())
+
+    def lines_of(index, text):
+        """``search``'s stdout, computed in process."""
+        hits = index.search(query_of(index, text), k=K)
+        return "".join(f"{r}\t{h.payload}\t{h.score:.6f}\n" for r, h in enumerate(hits, 1))
+
+    def hits_in(index, texts):
+        return [[(h.score, h.payload) for h in index.search(query_of(index, t), k=K)] for t in texts]
+
+    texts = ds.query_texts[:CLI_QUERIES]
+    n_workers = min(8, os.cpu_count() or 1)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus.jsonl")
+        t0 = time.perf_counter()
+        with open(corpus, "w") as f:
+            for lo in range(0, ds.n_docs, 8192):
+                hi = min(ds.n_docs, lo + 8192)
+                for i, text in zip(range(lo, hi), ds.source(lo, hi)):
+                    f.write(json.dumps({"id": i, "text": text}) + "\n")
+        secs["write JSONL"] = [time.perf_counter() - t0]
+        stream_dir = os.path.join(tmp, "stream")
+        out = run("build", "build", "--input", corpus, "--index", stream_dir,
+                  "--workers", n_workers)
+        if not out.startswith(f"built: {ds.n_docs} docs"):
+            raise AssertionError(f"(y) build printed {out!r}")
+        card = load_index(stream_dir, device="cuda")
+        engine = card.engine()
+        cpu = load_index(stream_dir, device="cpu")
+        if card.engine_kind != "stream" or not engine.dev_words.is_cuda:
+            raise AssertionError(f"(y) the CLI's index serves {card.engine_kind} on {card.device}")
+        print(
+            f"(y) cli build --workers {n_workers} (the default device, engine stream): "
+            f"{out.strip()} in {secs['build'][0]:.2f} host s; JSONL of {ds.n_docs} texts "
+            f"written in {secs['write JSONL'][0]:.2f} s [{label}]"
+        )
+
+        # The main path: (x)'s query texts through the command line.
+        stream_kernel.LAUNCHES = topk.LAUNCHES = 0
+        printed = [run("search", "search", "--index", stream_dir, "--query", t, "-k", K)
+                   for t in texts]
+        launches["stream_dense_accumulate"] = stream_kernel.LAUNCHES
+        launches["dense_topk"] = topk.LAUNCHES
+        if not all(launches.values()):
+            raise AssertionError(f"(y) a kernel of the CLI's search never launched: {launches}")
+        for text, out in zip(texts, printed, strict=True):
+            if out != lines_of(card, text) or out != lines_of(cpu, text):
+                raise AssertionError(f"(y) search {text!r}: the CLI != load_index on the card/CPU")
+        rows = hits_in(card, texts)
+        swaps = rule_swaps(rows, hits_in(x_index, texts), "(y) the CLI's index vs (x)'s")
+        n_hits = sum(map(len, rows))
+        search_s = secs["search"]
+        print(
+            f"(y) {len(texts)} cli searches at k={K}: every line == load_index in process on "
+            f"the card and on the CPU (plain kernels); {n_hits} hits held to (x)'s index "
+            f"(seeds differ: the same counts, {swaps} swaps of scores within 1e-4, scores "
+            f"within rtol 2e-5); S1 {launches['stream_dense_accumulate']} launches, S2 "
+            f"{launches['dense_topk']}; host s a search (index load included): median "
+            f"{float(np.median(search_s)):.3f}, min {min(search_s):.3f}, max "
+            f"{max(search_s):.3f} [{label}]"
+        )
+        restore_s1, s1_st = _checked(
+            port_stream, "stream_dense_accumulate", stream_kernel.stream_dense_accumulate_plain,
+            lambda a: a[6].numel(), _finite_err,
+        )
+        restore_s2, s2_st = _checked(
+            port_stream, "dense_topk", topk.dense_topk_plain, lambda a: a[0].numel(),
+            lambda o, w: _finite_err(o[0], w[0]),
+        )
+        try:
+            held = run("held search", "search", "--index", stream_dir, "--query", texts[0],
+                       "-k", K)
+        finally:
+            restore_s1()
+            restore_s2()
+        if held != printed[0] or not s1_st["checked"] or not s2_st["checked"]:
+            raise AssertionError(f"(y) held search: S1 {s1_st['checked']}, S2 {s2_st['checked']}")
+        print(
+            f"(y) one cli search: {s1_st['checked']} S1 and {s2_st['checked']} S2 calls == "
+            f"plain (torch.equal)"
+        )
+
+        # One search in a process of its own, on the card (the default) and
+        # on the CPU.
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join([root, env.get("PYTHONPATH", "")])
+        for device in (None, "cpu"):
+            argv = [sys.executable, "-m", "vectorchord_bm25_tpu_torch.cli"]
+            argv += [] if device is None else ["--device", device]
+            argv += ["search", "--index", stream_dir, "--query", texts[1], "-k", str(K)]
+            t0 = time.perf_counter()
+            r = subprocess.run(argv, capture_output=True, text=True, cwd=root, env=env,
+                               timeout=600)
+            secs[f"subprocess search ({device or 'the card'})"] = [time.perf_counter() - t0]
+            if r.returncode or r.stdout != printed[1]:
+                raise AssertionError(
+                    f"(y) python -m ...cli search on {device or 'the card'}: rc "
+                    f"{r.returncode}, stdout {r.stdout!r}; stderr {r.stderr[-2000:]}"
+                )
+        print(
+            f"(y) python -m vectorchord_bm25_tpu_torch.cli search, the default device and "
+            f"--device cpu: both print the in-process lines; host s "
+            f"{secs['subprocess search (the card)'][0]:.2f}, "
+            f"{secs['subprocess search (cpu)'][0]:.2f} (interpreter start included)"
+        )
+
+        # insert, search, delete, maintain, inspect.
+        new_payload = ds.n_docs
+        out = run("insert", "insert", "--index", stream_dir, "--text", texts[2],
+                  "--payload", new_payload)
+        if out != f"inserted payload {new_payload}\n":
+            raise AssertionError(f"(y) insert printed {out!r}")
+        found = run("search", "search", "--index", stream_dir, "--query", texts[2], "-k", K)
+        replayed = load_index(stream_dir, device="cuda")
+        if f"\t{new_payload}\t" not in found or len(replayed.growing) != 1:
+            raise AssertionError(f"(y) the inserted doc is not found: {found!r}")
+        if found != lines_of(replayed, texts[2]) or found != lines_of(
+            load_index(stream_dir, device="cpu"), texts[2]
+        ):
+            raise AssertionError("(y) after the insert the CLI != load_index (WAL replayed)")
+        deleted = run("delete", "delete", "--index", stream_dir, "--payload", new_payload)
+        if deleted != "deleted 1 documents\n":
+            raise AssertionError(f"(y) delete printed {deleted!r}")
+        out = run("maintain", "maintain", "--index", stream_dir)
+        wal = os.path.getsize(os.path.join(stream_dir, "wal.log"))
+        if out != (
+            f"maintain done: merged 1 growing docs; sealed now {ds.n_docs} docs\n"
+        ) or wal:
+            raise AssertionError(f"(y) maintain printed {out!r}; wal.log {wal} B")
+        info = json.loads(run("inspect", "inspect", "--index", stream_dir))
+        after = load_index(stream_dir, device="cuda")
+        seg = after.sealed
+        want = {
+            "n_docs": seg.n_docs, "n_live": after.n_docs, "n_tokens": seg.n_tokens,
+            "n_blocks": seg.n_blocks, "sum_dl": seg.sum_dl, "growing_docs": len(after.growing),
+            "deleted_sealed": int(after.deleted.sum()), "engine": after.engine_kind,
+            "sealed_bytes": seg.memory_bytes(),
+        }
+        if {key: info[key] for key in want} != want or (
+            info["n_docs"], info["growing_docs"]
+        ) != (ds.n_docs, 0):
+            raise AssertionError(f"(y) inspect {info} != the index's {want}")
+        if run("search", "search", "--index", stream_dir, "--query", texts[0], "-k", K) != printed[0]:
+            raise AssertionError("(y) after maintain a search != the first one")
+        print(
+            f"(y) cli insert (payload {new_payload}, found by search; load_index replays the "
+            f"WAL on the card == the CPU), delete ({deleted.strip()!r}), maintain (wal.log "
+            f"{wal} B), inspect == the index: n_docs {info['n_docs']}, growing_docs "
+            f"{info['growing_docs']}, {info['n_tokens']} terms, {info['n_blocks']} blocks, "
+            f"sealed_bytes {info['sealed_bytes']}; host s insert {secs['insert'][0]:.2f}, "
+            f"delete {secs['delete'][0]:.2f}, maintain {secs['maintain'][0]:.2f}, inspect "
+            f"{secs['inspect'][0]:.2f} [{label}]"
+        )
+
+        # The Block-Max engine, through the same file.
+        bm_dir = os.path.join(tmp, "blockmax")
+        out = run("build --engine blockmax", "build", "--input", corpus, "--index", bm_dir,
+                  "--engine", "blockmax", "--workers", n_workers)
+        if not out.startswith(f"built: {ds.n_docs} docs"):
+            raise AssertionError(f"(y) build --engine blockmax printed {out!r}")
+        bm = load_index(bm_dir, device="cuda")
+        bm_engine = bm.engine()
+        score_kernel.LAUNCHES = 0
+        b1_zero()
+        bm_printed = [
+            run("blockmax search", "search", "--index", bm_dir, "--query", t, "-k", K)
+            for t in texts[:CLI_BLOCKMAX_SEARCHES]
+        ]
+        launches["fused_range_scores"] = score_kernel.LAUNCHES
+        launches.update(b1_read())
+        if not all(launches.values()):
+            raise AssertionError(f"(y) a kernel of the Block-Max search never launched: {launches}")
+        for text, out in zip(texts, bm_printed):
+            if out != lines_of(bm, text):
+                raise AssertionError(f"(y) blockmax search {text!r}: the CLI != load_index")
+        bm_swaps = rule_swaps(hits_in(bm, texts), rows, "(y) Block-Max vs the stream index")
+        restore_p1, p1_st = _checked(
+            blockmax, "fused_range_scores", score_kernel.fused_range_scores_plain,
+            lambda a: a[2].numel(), _finite_err,
+        )
+        try:
+            b1_check(bm_engine, [query_of(bm, t) for t in texts], label, "(y)")
+        finally:
+            restore_p1()
+        if not p1_st["checked"]:
+            raise AssertionError("(y) P1 saw no call of the held batch")
+        print(
+            f"(y) cli build --engine blockmax {secs['build --engine blockmax'][0]:.2f} host s; "
+            f"{CLI_BLOCKMAX_SEARCHES} cli searches == load_index; {len(texts)} queries held to "
+            f"the stream index ({bm_swaps} swaps within 1e-4); P1 "
+            f"{launches['fused_range_scores']} launches, B1 "
+            + ", ".join(f"{name} {launches[name]}" for name in B1_NAMES)
+            + f"; one {len(texts)}-query batch: {p1_st['checked']} P1 calls == plain "
+            f"(torch.equal), B1 as above [{label}]"
+        )
+
+        # Memory parity: device bytes over the reference's format bytes.
+        for what, rep in (
+            ("the CLI's stream index", memory_parity_report(engine, card.sealed)),
+            ("the CLI's Block-Max index", memory_parity_report(bm_engine, bm.sealed)),
+            (f"(f)'s stream engine (BENCH_r05.json: {REF_MEMORY_RATIO})", parity_f),
+        ):
+            print(f"(y) memory_parity_report of {what}: {json.dumps(rep)}")
+
+        # One CLI search loop under torch.profiler.
+        logdir = os.path.join(tmp, "trace")
+        with profiling.trace(logdir, device="cuda"):
+            for text in texts[:2]:
+                with profiling.annotate("cli search"):
+                    run("traced search", "search", "--index", stream_dir, "--query", text,
+                        "-k", K)
+        (trace_file,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        with open(trace_file) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        named = {
+            what: sorted(n for n in names if key in n)[:1]
+            for what, key in (("S1", "dense_tiles_kernel"), ("S2", "dense_topk_select"),
+                              ("annotation", "cli search"))
+        }
+        if not all(named.values()):
+            raise AssertionError(f"(y) the trace names no {[w for w, n in named.items() if not n]}")
+        print(
+            f"(y) profiling.trace of 2 cli searches: {os.path.getsize(trace_file)} B of Chrome "
+            f"trace naming S1 {named['S1'][0]!r}, S2 {named['S2'][0]!r} and the annotation "
+            f"{named['annotation'][0]!r}"
+        )
+
+    # The sharded dry run on the card.
+    shard_kernels.MERGE_LAUNCHES = shard_kernels.STATS_LAUNCHES = shard_kernels.SORT_LAUNCHES = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(SHARDS, device="cuda")
+    secs["dry run"] = [time.perf_counter() - t0]
+    launches.update(
+        shard_merge=shard_kernels.MERGE_LAUNCHES, shard_stats=shard_kernels.STATS_LAUNCHES,
+        posting_sort=shard_kernels.SORT_LAUNCHES,
+    )
+    if not out.getvalue().startswith("dryrun_multichip OK:") or not all(launches.values()):
+        raise AssertionError(f"(y) dry run: {out.getvalue()!r}, launches {launches}")
+    print(
+        f"(y) {out.getvalue().strip()}; on the card: D1-sort {launches['posting_sort']}, "
+        f"SH-stats {launches['shard_stats']}, SH-merge {launches['shard_merge']} launches; "
+        f"{secs['dry run'][0]:.2f} host s"
+    )
+    build_times["(y) the command line, all of it"] = sum(sum(v) for v in secs.values())
+    print(
+        "(y) host s of each CLI step: "
+        + "; ".join(
+            f"{step} {sum(v):.2f}" + (f" in {len(v)} calls" if len(v) > 1 else "")
+            for step, v in secs.items()
+        )
+        + f" [{label}]"
+    )
+    return {name: {"(y)": n} for name, n in launches.items()}
 
 
 def main() -> int:
@@ -4222,7 +4558,7 @@ def main() -> int:
         f"card and on the CPU"
     )
 
-    stream = stream_slice(
+    stream, parity_f = stream_slice(
         args, seg, seed, queries, keys, tfs, doc_start, label, build_times
     )
     t0 = time.perf_counter()
@@ -4276,8 +4612,13 @@ def main() -> int:
     for name, by in large_launches.items():
         shard_launches.setdefault(name, {}).update(by)
     # (x) from raw text to ranked, evaluated results
-    for name, by in text_slice(label, build_times).items():
+    x_launches, ds, x_index = text_slice(label, build_times)
+    for name, by in x_launches.items():
         shard_launches.setdefault(name, {}).update(by)
+    # (y) the command line on the card
+    for name, by in cli_slice(ds, x_index, parity_f, label, build_times).items():
+        shard_launches.setdefault(name, {}).update(by)
+    del ds, x_index
     next(e for e in shard_entries if e["name"] == "shard_merge")["bodies_u"] = merge_u
     b1_by_phase["(s)"] = b1_large["launches"]
     p1_hybrid["(s)"] = b1_large["p1_launches"]
