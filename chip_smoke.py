@@ -949,8 +949,8 @@ def device_profile(fn, what, label, track=(), expect=None, tries=3):
             prof.step()
         rows, every_ms = [], 0.0
         for e in prof.key_averages():
-            if e.key.startswith("ProfilerStep"):
-                continue  # the schedule's step annotation, not device work
+            if e.key.startswith("ProfilerStep") or getattr(e, "is_user_annotation", False):
+                continue  # the schedule's step and the program's spans, not device work
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total

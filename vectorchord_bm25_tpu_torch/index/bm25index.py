@@ -41,7 +41,9 @@ import torch
 
 from ..models.fieldnorm import length_to_fieldnorm
 from ..models.scoring import idf as idf_fn, tf as tf_fn
+from ..ops import launch_count
 from ..text.intern import Document, Query, random_seed
+from ..utils import tracing
 from ..utils.options import IndexOptions, SearchOptions, SessionConfig
 from .growing import GrowingSegment
 from .sealed import SealedSegment, build_sealed_segment, segment_from_reference
@@ -253,7 +255,7 @@ class Bm25Index:
     # ------------------------------------------------------------------
     def insert(self, document: Document, payload: int) -> None:
         """aminsert analog: append to the growing segment."""
-        with self._rw.read(), self._mutex:
+        with self._rw.read(), self._mutex, tracing.span("vcbm25.growing.insert"):
             self.growing.insert(document, payload)
             if self._wal is not None:
                 import base64
@@ -586,7 +588,6 @@ class Bm25Index:
         """
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
-        queries = [self._unbind(q) for q in queries]
         sess = session or SessionConfig()
         if filter_fn is not None and not sess.resolve_prefilter(
             self.search_options
@@ -619,7 +620,6 @@ class Bm25Index:
         """
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
-        queries = [self._unbind(q) for q in queries]
         sess = session or SessionConfig()
         if filter_fn is not None and not sess.resolve_prefilter(
             self.search_options
@@ -639,7 +639,25 @@ class Bm25Index:
     def _search_batch_dispatch(self, queries, k, filter_fn=None):
         """Dispatch sealed + growing device work under the read lock;
         the returned finalize() syncs and merges (lock-free: all inputs
-        were snapshotted at dispatch)."""
+        were snapshotted at dispatch).  The batch's dispatch and finalize
+        are the root spans ``vcbm25.facade.dispatch`` and
+        ``vcbm25.facade.finalize`` under one batch id (utils/tracing.py)."""
+        batch = tracing.next_batch()
+        on = tracing.active()
+        launches = launch_count() if on else 0
+        with tracing.span("vcbm25.facade.dispatch", batch):
+            with tracing.span("vcbm25.facade.unbind"):
+                queries = [self._unbind(q) for q in queries]
+            finalize = self._dispatch_locked(queries, k, filter_fn, batch)
+        if on:
+            tracing.count("batches")
+            tracing.count("queries", len(queries))
+            tracing.count("kernel_calls", launch_count() - launches)
+        return finalize
+
+    def _dispatch_locked(self, queries, k, filter_fn, batch):
+        """The growing and sealed dispatches of unbound ``queries``;
+        returns the batch's finalize()."""
         qn = len(queries)
         g = len(self.growing)
         g_fin = None
@@ -668,6 +686,10 @@ class Bm25Index:
             s_fin = None
 
         def finalize():
+            with tracing.span("vcbm25.facade.finalize", batch):
+                return results()
+
+        def results():
             if s_fin is not None:
                 scores, slots, payloads = s_fin()
                 scores = scores.astype(np.float64)
@@ -680,47 +702,51 @@ class Bm25Index:
                 payloads = np.full((qn, k), -1, dtype=np.int64)
 
             if g:
-                # Vectorized lexsort merge of sealed [Q, k] + growing
-                # [Q, k].
                 g_top_scores, top = g_fin()
-                all_scores = np.concatenate(
-                    [scores, g_top_scores], axis=1
-                )
-                # Pad slots (-1) sort after real ids at equal -inf score.
-                g_ids = np.where(
-                    top >= 0, g_base + top, np.iinfo(np.int64).max
-                )
-                all_order = np.concatenate(
-                    [
-                        np.where(
-                            slots < 0, np.iinfo(np.int64).max, slots
-                        ),
-                        g_ids,
-                    ],
-                    axis=1,
-                )
-                all_payloads = np.concatenate(
-                    [payloads, g_payloads[np.maximum(top, 0)]], axis=1
-                )
-                pick = np.lexsort((all_order, -all_scores), axis=-1)[:, :k]
-                merged_scores = np.take_along_axis(all_scores, pick, axis=1)
-                merged_payloads = np.take_along_axis(
-                    all_payloads, pick, axis=1
-                )
+                with tracing.span("vcbm25.facade.merge"):
+                    # Vectorized lexsort merge of sealed [Q, k] + growing
+                    # [Q, k].
+                    all_scores = np.concatenate(
+                        [scores, g_top_scores], axis=1
+                    )
+                    # Pad slots (-1) sort after real ids at equal -inf score.
+                    g_ids = np.where(
+                        top >= 0, g_base + top, np.iinfo(np.int64).max
+                    )
+                    all_order = np.concatenate(
+                        [
+                            np.where(
+                                slots < 0, np.iinfo(np.int64).max, slots
+                            ),
+                            g_ids,
+                        ],
+                        axis=1,
+                    )
+                    all_payloads = np.concatenate(
+                        [payloads, g_payloads[np.maximum(top, 0)]], axis=1
+                    )
+                    pick = np.lexsort((all_order, -all_scores), axis=-1)[:, :k]
+                    merged_scores = np.take_along_axis(all_scores, pick, axis=1)
+                    merged_payloads = np.take_along_axis(
+                        all_payloads, pick, axis=1
+                    )
             else:
                 merged_scores, merged_payloads = scores, payloads
 
             out: List[List[SearchHit]] = []
-            for qi in range(qn):
-                row_s = merged_scores[qi]
-                row_p = merged_payloads[qi]
-                valid = np.isfinite(row_s)
-                out.append(
-                    [
-                        SearchHit(s, p)
-                        for s, p in zip(row_s[valid], row_p[valid])
-                    ]
-                )
+            with tracing.span("vcbm25.facade.hits"):
+                for qi in range(qn):
+                    row_s = merged_scores[qi]
+                    row_p = merged_payloads[qi]
+                    valid = np.isfinite(row_s)
+                    out.append(
+                        [
+                            SearchHit(s, p)
+                            for s, p in zip(row_s[valid], row_p[valid])
+                        ]
+                    )
+            if tracing.active():
+                tracing.count("hits", int(np.isfinite(merged_scores).sum()))
             return out
 
         return finalize

@@ -34,6 +34,7 @@ import torch
 
 from ..models.fieldnorm import length_to_fieldnorm
 from ..text.intern import Document, Query
+from ..utils import tracing
 from .sealed import SealedSegment, build_sealed_segment_from_postings
 
 __all__ = ["GrowingSegment"]
@@ -306,10 +307,12 @@ class GrowingSegment:
         if self._dev_engine is None:
             from ..search.stream import StreamEngine
 
-            seg, stats = self._mini_segment()
-            self._dev_engine = StreamEngine(
-                seg, global_stats=stats, device=self.device
-            )
+            tracing.count("growing_rebuilds")
+            with tracing.span("vcbm25.growing.rebuild"):
+                seg, stats = self._mini_segment()
+                self._dev_engine = StreamEngine(
+                    seg, global_stats=stats, device=self.device
+                )
             self._dev_engine_n = len(self.documents)
             self._tail_flat = None
             self._dev_engine.set_deleted(np.asarray(self.deleted, dtype=bool))
@@ -321,6 +324,7 @@ class GrowingSegment:
             self._dev_engine_deleted_dirty = False
         return self._dev_engine
 
+    @tracing.traced("vcbm25.growing.dispatch")
     def topk_batch_async(self, queries, k: int, keep=None):
         """Dispatch the growing top-k on device; returns finalize() ->
         (scores [Q, k] float64 -inf-padded, idx [Q, k] int64 -1-padded)
@@ -353,18 +357,19 @@ class GrowingSegment:
         from ..text.intern import Query
         from ..utils.batchkeys import batch_lookup
 
-        ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
-        kb = np.zeros((ids.size, 16), dtype=np.uint8)
-        if ids.size:
-            kb[:, :4] = ids.astype(">u4").view(np.uint8).reshape(-1, 4)
-        keys_all = kb.reshape(-1).view("S16")
-        counts = np.bincount(qidx, minlength=qn) if ids.size else np.zeros(
-            qn, dtype=np.int64
-        )
-        gqueries = [
-            Query(keys=a)
-            for a in np.split(keys_all, np.cumsum(counts)[:-1])
-        ]
+        with tracing.span("vcbm25.growing.rekey"):
+            ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
+            kb = np.zeros((ids.size, 16), dtype=np.uint8)
+            if ids.size:
+                kb[:, :4] = ids.astype(">u4").view(np.uint8).reshape(-1, 4)
+            keys_all = kb.reshape(-1).view("S16")
+            counts = np.bincount(qidx, minlength=qn) if ids.size else np.zeros(
+                qn, dtype=np.int64
+            )
+            gqueries = [
+                Query(keys=a)
+                for a in np.split(keys_all, np.cumsum(counts)[:-1])
+            ]
         fmask = None
         if keep is not None:
             fmask = np.asarray(keep, dtype=np.float32)[:n0]
@@ -373,6 +378,7 @@ class GrowingSegment:
             self._tail_topk(ids, qidx, qn, k, keep) if g > n0 else None
         )
 
+        @tracing.traced("vcbm25.growing.finalize")
         def finalize():
             s_f32, dids, _ = fin()
             s = s_f32.astype(np.float64)
@@ -403,6 +409,7 @@ class GrowingSegment:
 
         return finalize
 
+    @tracing.traced("vcbm25.growing.tail")
     def _tail_topk(self, ids, qidx, qn, k, keep):
         """Host top-k over the tail docs [_dev_engine_n, G) — the
         reference's brute-force growing-chain pass (search.rs:83-135)

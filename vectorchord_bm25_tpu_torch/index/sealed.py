@@ -36,6 +36,7 @@ import numpy as np
 from ..models.fieldnorm import length_to_fieldnorm
 from ..models.scoring import ScoreTables, idf, tf as tf_score
 from ..text.intern import WIDTH, Document
+from ..utils import tracing
 from ..utils.options import IndexOptions
 
 BLOCK = 128  # postings per block (reference flush.rs:68-136)
@@ -296,6 +297,7 @@ def build_sealed_segment(
     )
 
 
+@tracing.traced("vcbm25.build.sealed")
 def build_sealed_segment_from_postings(
     keys: Optional[np.ndarray],  # [P] |S16 (None iff token_ids given)
     doc_ids: np.ndarray,  # [P] int64, in [0, n_docs)

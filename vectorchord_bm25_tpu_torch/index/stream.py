@@ -57,6 +57,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils import tracing
 from .sealed import SealedSegment
 
 __all__ = [
@@ -233,6 +234,7 @@ def _bits_class(maxv: np.ndarray, classes) -> np.ndarray:
     return out
 
 
+@tracing.traced("vcbm25.build.stream")
 def build_stream_index(
     seg: SealedSegment, global_stats: Optional[tuple] = None
 ) -> StreamIndex:

@@ -23,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 
+from ..utils import tracing
+
 __all__ = ["library", "build_log", "nvcc_path", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,6 +130,7 @@ def _compile(sources, workdir):
 
 
 @functools.lru_cache(maxsize=1)
+@tracing.traced("vcbm25.build.kernels")
 def library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     sources = _sources()

@@ -46,6 +46,7 @@ from ..ops.stream_sparse import doc_ordered, segment_offsets, stream_sparse_topk
 from ..ops.topk import dense_topk
 from ..text.intern import Query
 from ..utils.batchkeys import batch_lookup, group_positions
+from ..utils import tracing
 from ..utils.buckets import bucket_pow2 as _bucket
 from ..utils.device import as_device
 
@@ -195,21 +196,20 @@ class StreamEngine:
             arr = np.ascontiguousarray(x, dtype=dtype)
             return torch.from_numpy(arr).to(self.device)
 
-        # set_deleted re-uploads through _put.
-        self._put = put
-        # u32 words and u16 meta as the same bits in int32 / int16 (every
-        # meta value is below 2^15): torch's unsigned coverage is thin.
-        self.dev_words = put(si.words.view(np.int32))
-        self._doc_fn_host = si.doc_fn.copy()
-        self.dev_s1bd = put(self._s1_by_doc_host())
-        self._pad_off = np.int32(si.words.size - 64)
-        self._pad_win = np.int32(si.n_windows)
-        self.dev_w_off = put(np.append(si.w_off4, self._pad_off), np.int32)
-        self.dev_w_base = put(np.append(si.w_base, 0), np.int32)
-        self.dev_w_meta = put(
-            np.append(si.w_meta16(), 0).astype(np.uint16).view(np.int16)
-        )
-        self.dev_w_s0 = put(np.append(si.w_s0, 0.0), np.float32)
+        with tracing.span("vcbm25.build.upload"):
+            # u32 words and u16 meta as the same bits in int32 / int16 (every
+            # meta value is below 2^15): torch's unsigned coverage is thin.
+            self.dev_words = put(si.words.view(np.int32))
+            self._doc_fn_host = si.doc_fn.copy()
+            self.dev_s1bd = put(self._s1_by_doc_host())
+            self._pad_off = np.int32(si.words.size - 64)
+            self._pad_win = np.int32(si.n_windows)
+            self.dev_w_off = put(np.append(si.w_off4, self._pad_off), np.int32)
+            self.dev_w_base = put(np.append(si.w_base, 0), np.int32)
+            self.dev_w_meta = put(
+                np.append(si.w_meta16(), 0).astype(np.uint16).view(np.int16)
+            )
+            self.dev_w_s0 = put(np.append(si.w_s0, 0.0), np.float32)
         self.n_docs = si.n_docs
 
     def _s1_by_doc_host(self) -> np.ndarray:
@@ -231,7 +231,7 @@ class StreamEngine:
         d = np.asarray(deleted, dtype=bool)[:n]
         fn[:n] = np.where(d, fn[:n] | _DELETED_BIT, fn[:n] & 0xFF)
         self._doc_fn_host = fn
-        self.dev_s1bd = self._put(self._s1_by_doc_host())
+        self.dev_s1bd = _upload(self._s1_by_doc_host(), self.device)
 
     def _s1_eff(self, filter_mask: Optional[np.ndarray]):
         """dev_s1bd with filtered docs (filter value <= 0) forced to +inf."""
@@ -239,7 +239,7 @@ class StreamEngine:
             return self.dev_s1bd
         fm = np.ones(self.n_docs + 1, dtype=np.float32)
         fm[: self.n_docs] = np.asarray(filter_mask, dtype=np.float32)
-        keep = torch.from_numpy(fm).to(self.device) > 0.0
+        keep = _upload(fm, self.device) > 0.0
         return torch.where(keep, self.dev_s1bd, float("inf"))
 
     def memory_report(self) -> dict:
@@ -277,6 +277,7 @@ class StreamEngine:
         lists, n_terms, _ = self._term_windows(queries)
         return lists, n_terms
 
+    @tracing.traced("vcbm25.stream.lookup")
     def _term_windows(self, queries: Sequence[Query]):
         """``_win_lists``' output and the sparse kernels' segments: (lists,
         n_terms, (cnt, qidx)), each (query, term occurrence)'s window count
@@ -374,6 +375,7 @@ class StreamEngine:
     #: Partial-pool ceiling (entries per query per tier).
     MS_POOL_CAP = 16384
 
+    @tracing.traced("vcbm25.stream.route")
     def _ms_route(self, queries):
         """Predicted-work router for strategy='auto' at scale: True for
         queries the pruned path should serve.
@@ -409,6 +411,7 @@ class StreamEngine:
             frac <= self.MS_ROUTE_FRAC
         )
 
+    @tracing.traced("vcbm25.stream.maxscore")
     def _maxscore_phase(self, queries, k, s1_eff, n_terms):
         """Tiered two-phase pruned exact top-k (strategy='maxscore').
 
@@ -470,11 +473,13 @@ class StreamEngine:
         query)."""
         mat, _ = self._assemble(lists, sub)
         seg_off = segment_offsets(*segs, sub, lists[2].size)
-        return stream_sparse_topk(
-            self.dev_words, s1_eff, *self._window_tables(),
-            torch.from_numpy(mat).to(self.device), k, self.n_docs,
-            int(max_terms - 1).bit_length(), torch.from_numpy(seg_off),
-        )
+        mat = _upload(mat, self.device)
+        with tracing.span("vcbm25.stream.launch"):
+            return stream_sparse_topk(
+                self.dev_words, s1_eff, *self._window_tables(),
+                mat, k, self.n_docs,
+                int(max_terms - 1).bit_length(), torch.from_numpy(seg_off),
+            )
 
     def _dispatches(self, lists):
         """The reference's dense chunking (search/stream.py:1016-1047) of
@@ -512,6 +517,7 @@ class StreamEngine:
             yield np.arange(q0, q1), wsrc, q_start, w_ord, n_qb
             q0 = q1
 
+    @tracing.traced("vcbm25.stream.ms_tier")
     def _ms_tier(
         self, ids, qidx, qn, k, s1_eff, n_terms, tau_frac, pool_min,
         exclude_frac,
@@ -562,8 +568,9 @@ class StreamEngine:
         sp = np.full((qn, c_pool), -np.inf, dtype=np.float32)
         ip = np.full((qn, c_pool), n_docs, dtype=np.int64)
         for sub, (s_d, i_d) in p1:
-            s = s_d.cpu().numpy()
-            i = i_d.cpu().numpy().astype(np.int64)
+            tracing.count("dispatch_syncs")
+            s = _host(s_d)
+            i = _host(i_d).astype(np.int64)
             sp[sub, : s.shape[1]] = s
             ip[sub, : i.shape[1]] = np.where(np.isfinite(s), i, n_docs)
         del p1
@@ -623,13 +630,14 @@ class StreamEngine:
         lane_cap2 = max(1, _LANE_CAP // (tmax * c_pad * 128))
         for i0 in range(0, ok.size, lane_cap2):
             s2 = slice(i0, min(ok.size, i0 + lane_cap2))
-            s_d, i_d = rescore_topk(
-                self.dev_words, s1_eff, *self._window_tables(),
-                *(torch.from_numpy(x[s2]).to(self.device) for x in (cand, t_lo, t_hi)),
-                k, n_docs,
-            )
-            res_s[s2] = s_d.cpu().numpy()[:, :k]
-            res_i[s2] = i_d.cpu().numpy().astype(np.int64)[:, :k]
+            parts = [_upload(x[s2], self.device) for x in (cand, t_lo, t_hi)]
+            with tracing.span("vcbm25.stream.launch"):
+                s_d, i_d = rescore_topk(
+                    self.dev_words, s1_eff, *self._window_tables(), *parts, k, n_docs,
+                )
+            tracing.count("dispatch_syncs")
+            res_s[s2] = _host(s_d)[:, :k]
+            res_i[s2] = _host(i_d).astype(np.int64)[:, :k]
 
         # Exact-theta certification (see _ms_certify): kth_exact includes
         # the excluded and tail terms' contributions; unselected pool docs
@@ -653,6 +661,7 @@ class StreamEngine:
             )
         return pending, fallback, stats
 
+    @tracing.traced("vcbm25.stream.dispatch")
     def search_async(
         self,
         queries: Sequence[Query],
@@ -726,43 +735,46 @@ class StreamEngine:
             use_sparse = sparse_sel.size > 0
 
         if not use_sparse and ms_sel is None:
-            for rows, wsrc, q_start, w_ord, n_qb in self._dispatches(lists):
-                # The planning's order: each query's span holds its term
-                # runs in ordinal order, as S1's tile walk reads them.
-                acc = stream_dense_accumulate(
-                    self.dev_words, s1_eff, *self._window_tables(),
-                    *(torch.from_numpy(x).to(self.device) for x in (wsrc, q_start, w_ord)),
-                    n_qb, n_docs,
-                )
-                pending.append((rows, dense_topk(acc, kk, n_docs)))
-                # The accumulator (1 GiB at the budget) goes before the
-                # next dispatch allocates its own.
-                del acc
+            with tracing.span("vcbm25.stream.plan"):
+                for rows, wsrc, q_start, w_ord, n_qb in self._dispatches(lists):
+                    # The planning's order: each query's span holds its term
+                    # runs in ordinal order, as S1's tile walk reads them.
+                    plan = [_upload(x, self.device) for x in (wsrc, q_start, w_ord)]
+                    with tracing.span("vcbm25.stream.launch"):
+                        acc = stream_dense_accumulate(
+                            self.dev_words, s1_eff, *self._window_tables(), *plan, n_qb, n_docs,
+                        )
+                        pending.append((rows, dense_topk(acc, kk, n_docs)))
+                    # The accumulator (1 GiB at the budget) goes before the
+                    # next dispatch allocates its own.
+                    del acc
         elif use_sparse:
-            sel = sparse_sel
-            ssz = sizes[sel]
-            # Cost bucketing: when padding every row to the longest wastes
-            # over 65,536 windows, rows go to x4 size buckets.
-            bucket_of = np.zeros(sel.size, dtype=np.int64)
-            waste = sel.size * int(ssz.max(initial=0)) - int(ssz.sum())
-            if waste > 65536:
-                b = 32
-                while np.any(ssz > b):
-                    bucket_of[ssz > b] += 1
-                    b *= 4
-            for bu in np.unique(bucket_of):
-                bidx = sel[np.flatnonzero(bucket_of == bu)]
-                p_bucket = max(
-                    1, _bucket(int(sizes[bidx].max(initial=1)), 8)
-                )
-                lane_cap = max(1, _LANE_CAP // (p_bucket * 128))
-                for i0 in range(0, bidx.size, lane_cap):
-                    sub = bidx[i0 : i0 + lane_cap]
-                    mt = int(max(1, n_terms[sub].max(initial=1)))
-                    pending.append((sub, self._sparse_topk(s1_eff, lists, segs, sub, kk, mt)))
+            with tracing.span("vcbm25.stream.plan"):
+                sel = sparse_sel
+                ssz = sizes[sel]
+                # Cost bucketing: when padding every row to the longest wastes
+                # over 65,536 windows, rows go to x4 size buckets.
+                bucket_of = np.zeros(sel.size, dtype=np.int64)
+                waste = sel.size * int(ssz.max(initial=0)) - int(ssz.sum())
+                if waste > 65536:
+                    b = 32
+                    while np.any(ssz > b):
+                        bucket_of[ssz > b] += 1
+                        b *= 4
+                for bu in np.unique(bucket_of):
+                    bidx = sel[np.flatnonzero(bucket_of == bu)]
+                    p_bucket = max(
+                        1, _bucket(int(sizes[bidx].max(initial=1)), 8)
+                    )
+                    lane_cap = max(1, _LANE_CAP // (p_bucket * 128))
+                    for i0 in range(0, bidx.size, lane_cap):
+                        sub = bidx[i0 : i0 + lane_cap]
+                        mt = int(max(1, n_terms[sub].max(initial=1)))
+                        pending.append((sub, self._sparse_topk(s1_eff, lists, segs, sub, kk, mt)))
 
         payload_arr = np.asarray(self.segment.doc_payload)
 
+        @tracing.traced("vcbm25.stream.finalize")
         def finalize():
             scores = np.full((qn, k), -np.inf, dtype=np.float32)
             ids = np.full((qn, k), -1, dtype=np.int64)
@@ -794,7 +806,19 @@ class StreamEngine:
         return self.search_async(queries, k, filter_mask)()
 
 
+def _upload(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, its bytes counted as ``h2d_bytes``."""
+    tracing.count("h2d_bytes", x.nbytes)
+    return torch.from_numpy(x).to(device)
+
+
 def _host(x):
-    """A result block as numpy: device tensors are copied back, the MaxScore
-    tiers' host arrays pass as they are."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    """A result block as numpy: device tensors are copied back (the wait
+    ``vcbm25.stream.wait``, the bytes ``d2h_bytes``), the MaxScore tiers'
+    host arrays pass as they are."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    with tracing.span("vcbm25.stream.wait"):
+        out = x.cpu().numpy()
+    tracing.count("d2h_bytes", out.nbytes)
+    return out
