@@ -33,6 +33,7 @@ Pinned semantics (see SURVEY.md §3):
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -103,6 +104,38 @@ class SearchHit(tuple):
     def operator_score(self) -> float:
         """The <&> operator value: negated score (operators.rs:54)."""
         return -self[0]
+
+
+def _hit_lists(
+    scores: np.ndarray, payloads: np.ndarray
+) -> List[List[SearchHit]]:
+    """A batch's ``[Q, w]`` scores and payloads as Q lists of
+    ``SearchHit``, one a row, each keeping its row's finite lanes in lane
+    order (pads at -inf and NaN lanes drop out).
+
+    The whole batch goes to Python scalars in one ``tolist()`` a matrix
+    (Python ``float`` and ``int`` already, so the hits skip
+    ``SearchHit.__new__``'s conversions) and to hits in one pass; rows are
+    list slices of that pass, and only rows with a lane that is not finite
+    are filtered again by their mask.  Counts ``hits`` and
+    ``hit_rows_short`` (the rows filtered again)."""
+    q, w = scores.shape
+    valid = np.isfinite(scores)
+    flat = list(
+        map(
+            tuple.__new__,
+            itertools.repeat(SearchHit),
+            zip(scores.ravel().tolist(), payloads.ravel().tolist()),
+        )
+    )
+    out = [flat[i * w : (i + 1) * w] for i in range(q)]
+    short = np.flatnonzero(~valid.all(axis=1)).tolist()
+    for i in short:
+        out[i] = list(itertools.compress(out[i], valid[i].tolist()))
+    if tracing.active():
+        tracing.count("hits", int(np.count_nonzero(valid)))
+        tracing.count("hit_rows_short", len(short))
+    return out
 
 
 class Bm25Index:
@@ -733,21 +766,8 @@ class Bm25Index:
             else:
                 merged_scores, merged_payloads = scores, payloads
 
-            out: List[List[SearchHit]] = []
             with tracing.span("vcbm25.facade.hits"):
-                for qi in range(qn):
-                    row_s = merged_scores[qi]
-                    row_p = merged_payloads[qi]
-                    valid = np.isfinite(row_s)
-                    out.append(
-                        [
-                            SearchHit(s, p)
-                            for s, p in zip(row_s[valid], row_p[valid])
-                        ]
-                    )
-            if tracing.active():
-                tracing.count("hits", int(np.isfinite(merged_scores).sum()))
-            return out
+                return _hit_lists(merged_scores, merged_payloads)
 
         return finalize
 
