@@ -313,21 +313,26 @@ SNAP = {
         "vcbm25.facade.finalize/vcbm25.growing.finalize": {"total_s": 0.03},
         "vcbm25.facade.finalize/vcbm25.growing.finalize/vcbm25.stream.finalize/vcbm25.stream.wait": {"total_s": 0.003},
         "vcbm25.facade.finalize/vcbm25.facade.hits": {"total_s": 0.12},
+        "vcbm25.facade.dispatch/vcbm25.blockmax.dispatch/vcbm25.blockmax.rounds": {"total_s": 0.09},
+        "vcbm25.facade.dispatch/vcbm25.blockmax.dispatch/vcbm25.blockmax.rounds/vcbm25.blockmax.flag": {"total_s": 0.015},
     },
-    "counters": {"batches": 3, "h2d_bytes": 3 * 2048, "kernel_calls": 18},
+    "counters": {"batches": 3, "h2d_bytes": 3 * 2048, "kernel_calls": 18, "blockmax_rounds": 75},
 }
 WANT_READ = {
     "hits_ms": 40.0, "card_wait_ms": 3.0, "plan_ms": 20.0, "growing_ms": 40.0,
     "h2d_kib": 2.0, "kernel_calls": 6.0,
 }
+# The Block-Max engine's readers (read in the Block-Max cell alone).
+WANT_READ_BLOCKMAX = {"bm_rounds": 25.0, "bm_loop_ms": 30.0, "bm_flag_ms": 5.0}
+READERS = {**WANT_READ, **WANT_READ_BLOCKMAX}
 
 
-@pytest.mark.parametrize("name", sorted(WANT_READ))
+@pytest.mark.parametrize("name", sorted(READERS))
 def test_reader_on_a_made_snapshot(name, monkeypatch):
     reader = _reader(name)
     program = sys.modules["portbench.metrics._program"]
     monkeypatch.setattr(program, "snapshot", lambda: SNAP)
-    assert reader.read(_run()) == pytest.approx(WANT_READ[name])
+    assert reader.read(_run()) == pytest.approx(READERS[name])
     # Nothing to read: no batch, or none of the metric's spans or counters.
     monkeypatch.setattr(program, "snapshot", lambda: {"spans": {}, "counters": {"batches": 3}, "records": []})
     assert reader.read(_run()) is None
@@ -335,7 +340,7 @@ def test_reader_on_a_made_snapshot(name, monkeypatch):
     assert reader.read(_run()) is None
 
 
-@pytest.mark.parametrize("name", sorted(WANT_READ))
+@pytest.mark.parametrize("name", sorted(READERS))
 def test_reader_without_the_recorder(name, monkeypatch):
     # A program without utils/tracing.py, as the parent of this change.
     import vectorchord_bm25_tpu_torch.utils as utils
@@ -345,13 +350,27 @@ def test_reader_without_the_recorder(name, monkeypatch):
     assert _reader(name).read(_run()) is None
 
 
+@pytest.mark.parametrize("name", sorted(WANT_READ_BLOCKMAX))
+def test_blockmax_readers_read_nothing_without_the_engine(name, monkeypatch):
+    # A stream cell's snapshot: no Block-Max span and no Block-Max counter.
+    stream_only = {
+        "spans": {p: v for p, v in SNAP["spans"].items() if "blockmax" not in p},
+        "counters": {c: v for c, v in SNAP["counters"].items() if not c.startswith("blockmax")},
+    }
+    reader = _reader(name)
+    monkeypatch.setattr(sys.modules["portbench.metrics._program"], "snapshot", lambda: stream_only)
+    assert reader.read(_run()) is None
+
+
 def test_traced_cpu_run_reports_the_recorder_metrics():
     """A whole traced run of the ingest cell at a CPU size: the profiled
     steps switch the recorder on, and every new reader finds its spans and
     counters there."""
     from portbench.tests.tiny import run_tiny
 
-    result, _ = run_tiny("trec-covid.ingest", trace=True)
+    # A window of several CPU steps, so the profiled steps (from 40% of it)
+    # start inside it on a loaded host too.
+    result, _ = run_tiny("trec-covid.ingest", trace=True, seconds=2.0)
     m = result["metrics"]
     assert set(WANT_READ) <= set(m)
     for name in ("hits_ms", "card_wait_ms", "plan_ms", "growing_ms", "h2d_kib"):
@@ -359,3 +378,108 @@ def test_traced_cpu_run_reports_the_recorder_metrics():
     assert m["kernel_calls"]["value"] == 0  # the CPU versions bump no counter
     assert result["correct"]
     assert not tracing.active()
+
+
+# The Block-Max engine's spans and counters.
+
+BM = f"{DISPATCH}/vcbm25.blockmax.dispatch"
+BM_WANT = {
+    DISPATCH,
+    f"{DISPATCH}/vcbm25.facade.unbind",
+    BM,
+    f"{BM}/vcbm25.blockmax.lookup",
+    f"{BM}/vcbm25.blockmax.upload",
+    f"{BM}/vcbm25.blockmax.bounds",
+    f"{BM}/vcbm25.blockmax.rounds",
+    f"{BM}/vcbm25.blockmax.rounds/vcbm25.blockmax.flag",
+    FINALIZE,
+    f"{FINALIZE}/vcbm25.blockmax.finalize",
+    f"{FINALIZE}/vcbm25.blockmax.finalize/vcbm25.blockmax.wait",
+    f"{FINALIZE}/vcbm25.facade.hits",
+}
+
+
+def blockmax_index(posting_mode):
+    """600 docs in five 128-doc ranges, one candidate range a round."""
+    rng = np.random.default_rng(13)
+    idx = Bm25Index.build(
+        make_docs(rng, 600, vocab=60), engine="blockmax",
+        engine_options={"posting_mode": posting_mode, "chunk": 1}, device="cpu",
+    )
+    idx.engine()
+    return idx
+
+
+@pytest.mark.parametrize("posting_mode", ["tf", "impact"])
+def test_blockmax_batch_spans_and_counters(posting_mode):
+    idx = blockmax_index(posting_mode)
+    engine = idx.engine()
+    tracing.enable()
+    result = idx.search_batch_async(QUERIES, 5)()
+    snap = tracing.snapshot()
+    assert set(snap["spans"]) == BM_WANT
+    c, spans = snap["counters"], snap["spans"]
+    rounds = engine.last_rounds
+    assert rounds > 1
+    assert c["blockmax_rounds"] == rounds
+    # A flag read a round and the one that ends the loop.
+    assert spans[f"{BM}/vcbm25.blockmax.rounds/vcbm25.blockmax.flag"]["count"] == rounds + 1
+    for name in ("lookup", "upload", "bounds", "rounds"):
+        assert spans[f"{BM}/vcbm25.blockmax.{name}"]["count"] == 1
+    # The uploads: the query terms, their s0 in tf mode, the [N+1] filter.
+    q_tid, _ = engine._prepare([idx._unbind(q) for q in QUERIES])
+    want = q_tid.nbytes + 4 * (idx.sealed.n_docs + 1) + (4 * q_tid.size if posting_mode == "tf" else 0)
+    assert c["h2d_bytes"] == want
+    assert c["d2h_bytes"] == 8 * len(QUERIES) * 8  # [Q, 8] f32 scores and i32 ids (k=5 bucketed)
+    assert c["hits"] == sum(len(h) for h in result) > 0
+    tracing.disable()
+    tracing.reset()
+    assert hits_of(idx.search_batch_async(QUERIES, 5)()) == hits_of(result)
+
+
+@pytest.mark.parametrize("posting_mode", ["tf", "impact"])
+def test_blockmax_off_records_nothing(posting_mode):
+    idx = blockmax_index(posting_mode)
+    idx.search_batch_async(QUERIES, 5)()
+    assert tracing.snapshot() == {"spans": {}, "counters": {}, "records": []}
+
+
+def test_blockmax_loop_cut_by_max_rounds_reads_a_flag_a_round():
+    from vectorchord_bm25_tpu_torch.search import blockmax
+
+    idx = blockmax_index("impact")
+    e = idx.engine()
+    q_tid, lmax = e._prepare([idx._unbind(q) for q in QUERIES])
+    tracing.enable()
+    _, _, rounds = blockmax._blockmax_kernel(
+        e.dev_post_impact, e.dev_post_local, e.dev.doc_live, e._filter(None), e.dev_tr_range,
+        e.dev_tr_start, e.dev_tr_ub, e.dev_token_tr_start, torch.from_numpy(q_tid),
+        k=8, chunk=1, lmax=lmax, range_size=e.ranges.range_size, n_ranges=e.ranges.n_ranges,
+        n_docs=e.dev.n_docs, max_rounds=2,
+    )
+    snap = tracing.snapshot()
+    assert rounds == 2
+    assert snap["counters"]["blockmax_rounds"] == 2
+    assert snap["spans"]["vcbm25.blockmax.rounds/vcbm25.blockmax.flag"]["count"] == 2
+
+
+def test_blockmax_rangescan_has_dispatch_and_finalize_only():
+    idx = blockmax_index("impact")
+    e = idx.engine()
+    queries = [idx._unbind(q) for q in QUERIES]
+    tracing.enable()
+    e.search_rangescan_async(queries, 5)()
+    snap = tracing.snapshot()
+    assert set(snap["spans"]) == {
+        "vcbm25.blockmax.dispatch", "vcbm25.blockmax.finalize", "vcbm25.blockmax.finalize/vcbm25.blockmax.wait",
+    }
+    q_tid, _ = e._prepare(queries)
+    assert snap["counters"]["h2d_bytes"] == q_tid.nbytes + 4 * (idx.sealed.n_docs + 1)
+
+
+@pytest.mark.parametrize("posting_mode", ["tf", "impact"])
+def test_blockmax_build_spans(posting_mode):
+    tracing.enable()
+    blockmax_index(posting_mode)
+    names = {path.split("/")[-1] for path in tracing.snapshot()["spans"]}
+    assert {"vcbm25.build.ranges", "vcbm25.build.upload"} <= names

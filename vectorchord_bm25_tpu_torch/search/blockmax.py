@@ -52,10 +52,15 @@ from ..ops.topk import dense_topk
 from ..text.intern import Query
 from ..utils.batchkeys import batch_lookup, group_positions
 from ..utils.buckets import bucket_pow2 as _bucket
+from ..utils import tracing
 from ..utils.device import as_device
 from .device import DeviceSegment
+from .stream import _host, _upload
 
 __all__ = ["BlockMaxEngine"]
+
+# The span of a finalize's blocking copies of the results to the host.
+_WAIT = "vcbm25.blockmax.wait"
 
 _INT_MAX = int(np.iinfo(np.int32).max)
 
@@ -96,9 +101,10 @@ def _blockmax_kernel(
 
     # Phase 1 (B1-bounds): dense per-range upper bounds, each range's terms
     # summed in ascending t, times the reference's float-safety scale.
-    ub_work = range_bounds(
-        token_tr_start, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax
-    )
+    with tracing.span("vcbm25.blockmax.bounds"):
+        ub_work = range_bounds(
+            token_tr_start, tr_range, tr_ub, q_tid, n_ranges=n_ranges, lmax=lmax
+        )
     if topk is None:
         topk_s = torch.full((q, k), float("-inf"), dtype=torch.float32, device=dev)
         topk_d = torch.full((q, k), _INT_MAX, dtype=torch.int32, device=dev)
@@ -108,30 +114,34 @@ def _blockmax_kernel(
     flags = torch.zeros(max(max_rounds, 1), dtype=torch.int32, device=dev)
 
     rounds = 0
-    while rounds < max_rounds:
-        # B1-select: the C highest-bound ranges above the threshold and
-        # their posting spans; ub_work and the flag are updated in place.
-        cand_r, start, length, active = round_select(
-            ub_work, topk_s, tr_range, tr_start, token_tr_start, q_tid,
-            chunk=c, lmax=lmax, flag=flags[rounds : rounds + 1],
-        )
-        if not bool(active):  # the round's one device-to-host read
-            break
+    with tracing.span("vcbm25.blockmax.rounds"):
+        while rounds < max_rounds:
+            # B1-select: the C highest-bound ranges above the threshold and
+            # their posting spans; ub_work and the flag are updated in place.
+            cand_r, start, length, active = round_select(
+                ub_work, topk_s, tr_range, tr_start, token_tr_start, q_tid,
+                chunk=c, lmax=lmax, flag=flags[rounds : rounds + 1],
+            )
+            with tracing.span("vcbm25.blockmax.flag"):
+                go = bool(active)  # the round's one device-to-host read
+            if not go:
+                break
 
-        if posting_mode == "tf":
-            acc = tf_range_scores(
-                post_tf, post_local, doc_fn, s1_table, q_s0, cand_r, start,
-                length, rs=rs, n_docs=n_docs,
-            )  # [Q, C, RS]
-        else:
-            acc = fused_range_scores(
-                post_impact, post_local, start, length, rs=rs
-            )  # [Q, C, RS]
+            if posting_mode == "tf":
+                acc = tf_range_scores(
+                    post_tf, post_local, doc_fn, s1_table, q_s0, cand_r, start,
+                    length, rs=rs, n_docs=n_docs,
+                )  # [Q, C, RS]
+            else:
+                acc = fused_range_scores(
+                    post_impact, post_local, start, length, rs=rs
+                )  # [Q, C, RS]
 
-        # B1-merge: live/filter mask, score > 0 rule, lexicographic merge
-        # into topk_s / topk_d in place.
-        round_merge(acc, cand_r, doc_live, filter_mask, topk_s, topk_d, n_docs=n_docs)
-        rounds += 1
+            # B1-merge: live/filter mask, score > 0 rule, lexicographic merge
+            # into topk_s / topk_d in place.
+            round_merge(acc, cand_r, doc_live, filter_mask, topk_s, topk_d, n_docs=n_docs)
+            rounds += 1
+    tracing.count("blockmax_rounds", rounds)
     return topk_s, topk_d, rounds
 
 
@@ -238,84 +248,88 @@ class BlockMaxEngine:
         self.posting_mode = posting_mode
         self.impact_dtype = impact_dtype
         self.segment = segment
-        self.ranges = range_index or build_range_index(segment)
+        if range_index is None:
+            with tracing.span("vcbm25.build.ranges"):
+                range_index = build_range_index(segment)
+        self.ranges = range_index
         if chunk is None:
             # The reference's scale-aware default: the worst-case round
             # count stays bounded without over-gathering on small corpora.
             chunk = min(256, max(32, self.ranges.n_ranges // 64))
         self.chunk = chunk
-        # The pruned engine needs only the doc tables, not the [B, 128]
-        # block arrays (its postings live in the compact flat arrays).
-        self.dev = DeviceSegment.from_sealed(
-            segment, device=self.device, with_blocks=False
-        )
-
-        ri = self.ranges
-        v = segment.n_tokens
-        if ri.post_impact.size >= 2**31 or ri.token_tr_start[-1] >= 2**31:
-            raise ValueError(
-                "index exceeds int32 posting/group addressing (2^31); "
-                "shard the corpus across devices"
+        with tracing.span("vcbm25.build.upload"):
+            # The pruned engine needs only the doc tables, not the [B, 128]
+            # block arrays (its postings live in the compact flat arrays).
+            self.dev = DeviceSegment.from_sealed(
+                segment, device=self.device, with_blocks=False
             )
 
-        def put(x, dtype=None):
-            return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
-                self.device
-            )
-
-        # The reference's uploads (search/blockmax.py:414-468).  CSR with
-        # the null-term entry (token id V: empty window) + pad slot M.
-        tts = np.zeros(v + 2, dtype=np.int32)
-        tts[: v + 1] = ri.token_tr_start
-        tts[v + 1] = tts[v]
-        if posting_mode == "tf":
-            tf_max = int(segment.block_tfs.max()) if segment.n_blocks else 0
-            if tf_max > 0xFFFF:
+            ri = self.ranges
+            v = segment.n_tokens
+            if ri.post_impact.size >= 2**31 or ri.token_tr_start[-1] >= 2**31:
                 raise ValueError(
-                    f"posting_mode='tf' stores term frequencies in at "
-                    f"most 16 bits (max tf here: {tf_max}); use "
-                    f"posting_mode='impact'"
+                    "index exceeds int32 posting/group addressing (2^31); "
+                    "shard the corpus across devices"
                 )
-            # u16 term frequencies travel as the same bits in int16.
-            tf_host = (
-                ri.post_tf.astype(np.uint8)
-                if tf_max <= 0xFF
-                else ri.post_tf.astype(np.uint16).view(np.int16)
-            )
-            self.dev_post_impact = None
-            self.dev_post_tf = put(tf_host)
-            fn_pad = np.zeros(segment.n_docs + 1, dtype=np.uint8)
-            fn_pad[: segment.n_docs] = segment.doc_fieldnorm
-            self.dev_doc_fn = put(fn_pad)
-            self.dev_s1 = put(segment.score_tables().s1_table, np.float32)
-            s0_host = np.zeros(segment.n_tokens + 1, dtype=np.float32)
-            s0_host[: segment.n_tokens] = segment.token_s0()
-            self._s0_host = s0_host  # the null term V scores 0
-        else:
-            impact = put(ri.post_impact, np.float32)
+
+            def put(x, dtype=None):
+                return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
+                    self.device
+                )
+
+            # The reference's uploads (search/blockmax.py:414-468).  CSR with
+            # the null-term entry (token id V: empty window) + pad slot M.
+            tts = np.zeros(v + 2, dtype=np.int32)
+            tts[: v + 1] = ri.token_tr_start
+            tts[v + 1] = tts[v]
+            if posting_mode == "tf":
+                tf_max = int(segment.block_tfs.max()) if segment.n_blocks else 0
+                if tf_max > 0xFFFF:
+                    raise ValueError(
+                        f"posting_mode='tf' stores term frequencies in at "
+                        f"most 16 bits (max tf here: {tf_max}); use "
+                        f"posting_mode='impact'"
+                    )
+                # u16 term frequencies travel as the same bits in int16.
+                tf_host = (
+                    ri.post_tf.astype(np.uint8)
+                    if tf_max <= 0xFF
+                    else ri.post_tf.astype(np.uint16).view(np.int16)
+                )
+                self.dev_post_impact = None
+                self.dev_post_tf = put(tf_host)
+                fn_pad = np.zeros(segment.n_docs + 1, dtype=np.uint8)
+                fn_pad[: segment.n_docs] = segment.doc_fieldnorm
+                self.dev_doc_fn = put(fn_pad)
+                self.dev_s1 = put(segment.score_tables().s1_table, np.float32)
+                s0_host = np.zeros(segment.n_tokens + 1, dtype=np.float32)
+                s0_host[: segment.n_tokens] = segment.token_s0()
+                self._s0_host = s0_host  # the null term V scores 0
+            else:
+                impact = put(ri.post_impact, np.float32)
+                if impact_dtype == "bfloat16":
+                    # Round to nearest even, as the reference's jnp cast does.
+                    impact = impact.to(torch.bfloat16)
+                self.dev_post_impact = impact
+                self.dev_post_tf = None
+                self.dev_doc_fn = None
+                self.dev_s1 = None
+                self._s0_host = None
+            self.dev_post_local = put(ri.post_local, np.uint8)
+            self.dev_tr_range = put(np.append(ri.tr_range, _INT_MAX), np.int32)
+            # Group lengths are tr_start diffs; slots M and M+1 hold the total
+            # so the pad group reads length 0.
+            total = int(ri.tr_start[-1] + ri.tr_len[-1]) if ri.tr_len.size else 0
+            self.dev_tr_start = put(np.append(ri.tr_start, [total, total]), np.int32)
+            ub = np.append(ri.tr_ub, 0.0).astype(np.float32)
             if impact_dtype == "bfloat16":
-                # Round to nearest even, as the reference's jnp cast does.
-                impact = impact.to(torch.bfloat16)
-            self.dev_post_impact = impact
-            self.dev_post_tf = None
-            self.dev_doc_fn = None
-            self.dev_s1 = None
-            self._s0_host = None
-        self.dev_post_local = put(ri.post_local, np.uint8)
-        self.dev_tr_range = put(np.append(ri.tr_range, _INT_MAX), np.int32)
-        # Group lengths are tr_start diffs; slots M and M+1 hold the total
-        # so the pad group reads length 0.
-        total = int(ri.tr_start[-1] + ri.tr_len[-1]) if ri.tr_len.size else 0
-        self.dev_tr_start = put(np.append(ri.tr_start, [total, total]), np.int32)
-        ub = np.append(ri.tr_ub, 0.0).astype(np.float32)
-        if impact_dtype == "bfloat16":
-            # bf16 round-to-nearest can raise a posting's stored impact by
-            # up to 2^-8 relative; pruning bounds must cover that.
-            ub = ub * np.float32(1.0 + 2.0**-7)
-        self.dev_tr_ub = put(ub)
-        self.dev_token_tr_start = put(tts)
-        # Per-term L (for the lmax bucket).
-        self._term_l = np.diff(ri.token_tr_start)
+                # bf16 round-to-nearest can raise a posting's stored impact by
+                # up to 2^-8 relative; pruning bounds must cover that.
+                ub = ub * np.float32(1.0 + 2.0**-7)
+            self.dev_tr_ub = put(ub)
+            self.dev_token_tr_start = put(tts)
+            # Per-term L (for the lmax bucket).
+            self._term_l = np.diff(ri.token_tr_start)
         self.last_rounds = 0
 
     @classmethod
@@ -402,8 +416,9 @@ class BlockMaxEngine:
         fm = np.ones(self.dev.n_docs + 1, dtype=np.float32)
         if filter_mask is not None:
             fm[: self.dev.n_docs] = np.asarray(filter_mask, dtype=np.float32)
-        return torch.from_numpy(fm).to(self.device)
+        return _upload(fm, self.device)
 
+    @tracing.traced("vcbm25.blockmax.dispatch")
     def search_async(
         self,
         queries: Sequence[Query],
@@ -418,28 +433,32 @@ class BlockMaxEngine:
         chunk = self.chunk if chunk is None else chunk
         dev = self.dev
         ri = self.ranges
-        q_tid, lmax = self._prepare(queries)
-        tf_args = ()
-        if self.posting_mode == "tf":
-            q_s0 = self._s0_host[np.minimum(q_tid, self.segment.n_tokens)]
-            tf_args = (
-                self.dev_post_tf,
-                self.dev_doc_fn,
-                self.dev_s1,
-                torch.from_numpy(q_s0).to(self.device),
-            )
+        with tracing.span("vcbm25.blockmax.lookup"):
+            q_tid, lmax = self._prepare(queries)
+        with tracing.span("vcbm25.blockmax.upload"):
+            tf_args = ()
+            if self.posting_mode == "tf":
+                q_s0 = self._s0_host[np.minimum(q_tid, self.segment.n_tokens)]
+                tf_args = (
+                    self.dev_post_tf,
+                    self.dev_doc_fn,
+                    self.dev_s1,
+                    _upload(q_s0, self.device),
+                )
+            filt = self._filter(filter_mask)
+            d_tid = _upload(q_tid, self.device)
 
         kk = min(_bucket(k, 1), max(dev.n_docs, 1))
         scores, ids, rounds = _blockmax_kernel(
             self.dev_post_impact,
             self.dev_post_local,
             dev.doc_live,
-            self._filter(filter_mask),
+            filt,
             self.dev_tr_range,
             self.dev_tr_start,
             self.dev_tr_ub,
             self.dev_token_tr_start,
-            torch.from_numpy(q_tid).to(self.device),
+            d_tid,
             *tf_args,
             k=kk,
             chunk=min(chunk, ri.n_ranges),
@@ -452,13 +471,13 @@ class BlockMaxEngine:
         )
         self.last_rounds = rounds
 
+        @tracing.traced("vcbm25.blockmax.finalize")
         def finalize():
-            return _finish(
-                self.segment, scores.cpu().numpy(), ids.cpu().numpy(), k
-            )
+            return _finish(self.segment, _host(scores, _WAIT), _host(ids, _WAIT), k)
 
         return finalize
 
+    @tracing.traced("vcbm25.blockmax.dispatch")
     def search_rangescan_async(
         self,
         queries: Sequence[Query],
@@ -494,7 +513,7 @@ class BlockMaxEngine:
             self.dev_tr_range,
             self.dev_tr_start,
             self.dev_token_tr_start,
-            torch.from_numpy(q_tid).to(self.device),
+            _upload(q_tid, self.device),
             k=kk,
             chunk=chunk,
             lmax=lmax,
@@ -503,10 +522,9 @@ class BlockMaxEngine:
             n_docs=dev.n_docs,
         )
 
+        @tracing.traced("vcbm25.blockmax.finalize")
         def finalize():
-            return _finish(
-                self.segment, scores.cpu().numpy(), ids.cpu().numpy(), k
-            )
+            return _finish(self.segment, _host(scores, _WAIT), _host(ids, _WAIT), k)
 
         return finalize
 

@@ -812,13 +812,13 @@ def _upload(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
-def _host(x):
+def _host(x, span: str = "vcbm25.stream.wait"):
     """A result block as numpy: device tensors are copied back (the wait
-    ``vcbm25.stream.wait``, the bytes ``d2h_bytes``), the MaxScore tiers'
-    host arrays pass as they are."""
+    ``span``, the bytes ``d2h_bytes``), the MaxScore tiers' host arrays pass
+    as they are."""
     if not isinstance(x, torch.Tensor):
         return x
-    with tracing.span("vcbm25.stream.wait"):
+    with tracing.span(span):
         out = x.cpu().numpy()
     tracing.count("d2h_bytes", out.nbytes)
     return out
