@@ -81,7 +81,7 @@ WANT = {
     DISPATCH,
     f"{DISPATCH}/vcbm25.facade.unbind",
     f"{DISPATCH}/vcbm25.growing.dispatch",
-    f"{DISPATCH}/vcbm25.growing.dispatch/vcbm25.growing.rekey",
+    f"{DISPATCH}/vcbm25.growing.dispatch/vcbm25.growing.lookup",
     f"{DISPATCH}/vcbm25.growing.dispatch/vcbm25.growing.tail",
     f"{DISPATCH}/vcbm25.growing.dispatch/vcbm25.stream.dispatch",
     f"{DISPATCH}/vcbm25.growing.dispatch/vcbm25.stream.dispatch/vcbm25.stream.lookup",
@@ -128,6 +128,15 @@ def test_batch_spans_parents_and_self_times(index):
     assert (c["batches"], c["queries"]) == (1, len(QUERIES))
     assert c["hits"] == sum(len(h) for h in result) > 0
     assert c["d2h_bytes"] > 0 and "growing_rebuilds" not in c
+    # The tail's (query, posting) pairs: each query's sealed-known terms
+    # against each tail doc's.
+    grow = index.growing
+    pairs = 0
+    for q in QUERIES:
+        tids = grow.sealed.lookup_tokens(q.keys)
+        for doc_tids in grow._tid[grow._dev_engine_n :]:
+            pairs += int(np.isin(doc_tids, tids[tids >= 0]).sum())
+    assert c["growing_tail_pairs"] == pairs > 0
 
 
 def test_results_bit_identical_on_and_off(index):

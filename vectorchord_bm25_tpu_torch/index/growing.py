@@ -70,6 +70,9 @@ class GrowingSegment:
         self._dev_engine = None
         self._dev_engine_n = 0
         self._dev_engine_deleted_dirty = False
+        # The engine's tokens' sealed ids, ascending: a sealed id's
+        # position here is its token id in the engine.
+        self._dev_tids = np.zeros(0, dtype=np.int64)
         # Flat tid-sorted postings of the tail [_dev_engine_n, G),
         # f32 impacts; invalidated by inserts (tail-sized rebuild).
         self._tail_flat = None
@@ -258,7 +261,8 @@ class GrowingSegment:
         """The growing docs as a mini sealed segment keyed by sealed token
         id, with the sealed statistics to score it by: the reference's
         ``device_engine`` build (index/growing.py:268-326), which has no
-        entry point of its own.  Returns (segment, global_stats)."""
+        entry point of its own.  Returns (segment, global_stats, the
+        segment's tokens' sealed ids, ascending)."""
         g = len(self.documents)
         # (tid, doc)-sorted raw postings with synthetic keys.
         tf_flat = np.concatenate(self._tf) if self._tf else np.zeros(0, np.int64)
@@ -297,7 +301,7 @@ class GrowingSegment:
             .reshape(-1)
         )
         s0v = self.sealed.token_s0()[seg_tids].astype(np.float32)
-        return seg, (int(self.sealed.n_docs), int(self.sealed.sum_dl), s0v)
+        return seg, (int(self.sealed.n_docs), int(self.sealed.sum_dl), s0v), seg_tids
 
     def device_engine(self):
         """The port's StreamEngine over a frozen prefix of the growing
@@ -309,7 +313,7 @@ class GrowingSegment:
 
             tracing.count("growing_rebuilds")
             with tracing.span("vcbm25.growing.rebuild"):
-                seg, stats = self._mini_segment()
+                seg, stats, self._dev_tids = self._mini_segment()
                 self._dev_engine = StreamEngine(
                     seg, global_stats=stats, device=self.device
                 )
@@ -351,29 +355,22 @@ class GrowingSegment:
             self._dev_engine = None  # rebuild absorbs the tail
         engine = self.device_engine()
         n0 = self._dev_engine_n
-        # Re-key queries into the mini segment's tid-space (one batched
-        # lookup; within-query tids ascend because sealed tids are
-        # sorted-key ranks, so the synthetic keys stay sorted).
-        from ..text.intern import Query
+        # One lookup in the sealed table serves the engine and the tail: a
+        # sealed id's token id in the engine is its rank among the engine's
+        # sealed ids; ids the engine lacks drop out, and within a query the
+        # ranks ascend as the sealed ids do.
         from ..utils.batchkeys import batch_lookup
 
-        with tracing.span("vcbm25.growing.rekey"):
+        with tracing.span("vcbm25.growing.lookup"):
             ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
-            kb = np.zeros((ids.size, 16), dtype=np.uint8)
-            if ids.size:
-                kb[:, :4] = ids.astype(">u4").view(np.uint8).reshape(-1, 4)
-            keys_all = kb.reshape(-1).view("S16")
-            counts = np.bincount(qidx, minlength=qn) if ids.size else np.zeros(
-                qn, dtype=np.int64
-            )
-            gqueries = [
-                Query(keys=a)
-                for a in np.split(keys_all, np.cumsum(counts)[:-1])
-            ]
+            pos = np.searchsorted(self._dev_tids, ids)
+            found = pos < self._dev_tids.size
+            found[found] = self._dev_tids[pos[found]] == ids[found]
+            eng_ids, eng_qidx = pos[found], qidx[found]
         fmask = None
         if keep is not None:
             fmask = np.asarray(keep, dtype=np.float32)[:n0]
-        fin = engine.search_async(gqueries, k, filter_mask=fmask)
+        fin = engine.search_ids_async(eng_ids, eng_qidx, qn, k, filter_mask=fmask)
         tail = (
             self._tail_topk(ids, qidx, qn, k, keep) if g > n0 else None
         )
@@ -414,20 +411,27 @@ class GrowingSegment:
         """Host top-k over the tail docs [_dev_engine_n, G) — the
         reference's brute-force growing-chain pass (search.rs:83-135)
         applied to only the docs the device engine has not absorbed.
-        f32 impacts accumulated in (query, doc, term-ascending) order,
-        matching the device engine's lane accumulation, so prefix/tail
-        near-ties rank identically however the rebuild falls.
+        ``ids``/``qidx``: the batch's sealed ids and their queries, as
+        ``batch_lookup`` gives them (ids ascending within a query).
+
+        Only the (query, tail posting) pairs the batch touches are
+        scored, counted as ``growing_tail_pairs``: each (query, doc)
+        group summed in f32 in term-ascending order, matching the device
+        engine's lane accumulation, so prefix/tail near-ties rank
+        identically however the rebuild falls; then deleted, filtered
+        and score <= 0 docs dropped and the rest ranked (score desc, id
+        asc).
 
         Returns (scores [Q, m] float64 -inf-padded, idx [Q, m] int64
         GLOBAL growing ids, -1-padded), m = min(k, tail)."""
+        from ..utils.batchkeys import group_positions
+
         n0 = self._dev_engine_n
         g = len(self.documents)
         tn = g - n0
         m = min(k, tn)
         scores_out = np.full((qn, m), -np.inf, dtype=np.float64)
         idx_out = np.full((qn, m), -1, dtype=np.int64)
-        if m == 0:
-            return scores_out, idx_out
         if self._tail_flat is None or self._tail_flat[0] != n0:
             tids = (
                 np.concatenate(self._tid[n0:])
@@ -459,39 +463,46 @@ class GrowingSegment:
                 impact = np.zeros(0, dtype=np.float32)
             self._tail_flat = (n0, tids, impact.astype(np.float32), doc_of)
         _, tids, impact, doc_of = self._tail_flat
-        if tids.size == 0 or ids.size == 0:
-            return scores_out, idx_out
-        from ..utils.batchkeys import group_positions
-
+        # The (query, posting) pairs: in query order, a query's ids
+        # ascending, a term's postings in doc order.
         lo = np.searchsorted(tids, ids, side="left")
-        hi = np.searchsorted(tids, ids, side="right")
-        cnt = hi - lo
-        if int(cnt.sum()) == 0:
-            return scores_out, idx_out
+        cnt = np.searchsorted(tids, ids, side="right") - lo
         src = np.repeat(lo, cnt) + group_positions(cnt)
-        q_of = np.repeat(qidx, cnt)
-        d = doc_of[src]
-        imp = impact[src]
-        t_of = tids[src]
-        # f32 accumulation in (query, doc, tid-ascending) posting order
-        # — np.add.at applies in element order, matching the device.
-        acc_order = np.lexsort((t_of, d, q_of))
-        dense = np.zeros((qn, tn), dtype=np.float32)
-        np.add.at(
-            dense, (q_of[acc_order], d[acc_order]), imp[acc_order]
-        )
+        tracing.count("growing_tail_pairs", src.size)
+        if m == 0 or src.size == 0:
+            return scores_out, idx_out
+        # Group by (query, doc); the stable sort keeps each group's
+        # postings term-ascending.
+        key = np.repeat(qidx, cnt) * tn + doc_of[src]
+        order = np.argsort(key, kind="stable")
+        key = key[order]
+        imp = impact[src[order]]
+        head = np.flatnonzero(np.concatenate(([True], key[1:] != key[:-1])))
+        size = np.diff(np.append(head, key.size))
+        # f32 sums in term order: the j-th posting of every group in pass j.
+        s = imp[head]
+        for j in range(1, int(size.max())):
+            more = size > j
+            s[more] += imp[head[more] + j]
+        q, d = np.divmod(key[head], tn)
         drop = np.asarray(self.deleted[n0:], dtype=bool)
         if keep is not None:
             drop = drop | ~np.asarray(keep, dtype=bool)[n0:]
-        if drop.any():
-            dense[:, drop] = 0.0
-        # Rank rows (score desc, id asc): stable argsort on -scores
-        # keeps ascending doc ids among ties.
-        top = np.argsort(-dense, axis=1, kind="stable")[:, :m]
-        s = np.take_along_axis(dense, top, axis=1).astype(np.float64)
-        live = s > 0.0
-        scores_out[live] = s[live]
-        idx_out[live] = (top + n0)[live]
+        live = (s > 0.0) & ~drop[d]
+        q, d, s = q[live], d[live], s[live]
+        # Rank (score desc, id asc) within each query and keep m.  The
+        # groups are in (query, id) order, so one stable sort on (query,
+        # score desc) leaves equal scores in id order; a positive f32's
+        # bits order as its value does.
+        rank = np.argsort(
+            (q << 31) | (0x7FFFFFFF - s.view(np.int32)).astype(np.int64),
+            kind="stable",
+        )
+        q, d, s = q[rank], d[rank], s[rank]
+        col = group_positions(np.bincount(q, minlength=qn))
+        top = col < m
+        scores_out[q[top], col[top]] = s[top]
+        idx_out[q[top], col[top]] = d[top] + n0
         return scores_out, idx_out
 
     def topk_batch(self, queries, k: int, keep=None):

@@ -282,12 +282,14 @@ class StreamEngine:
         """``_win_lists``' output and the sparse kernels' segments: (lists,
         n_terms, (cnt, qidx)), each (query, term occurrence)'s window count
         and query, in the lists' order."""
-        si = self.stream
-        seg = self.segment
-        tws = si.token_w_start
-        qn = len(queries)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        return self._layout(ids, qidx, len(queries))
+
+    def _layout(self, ids: np.ndarray, qidx: np.ndarray, qn: int):
+        """``_term_windows`` of a batch already looked up: ``ids`` (token
+        ids) and ``qidx`` (their queries) as ``batch_lookup`` gives them."""
+        tws = self.stream.token_w_start
         empty = np.zeros(0, dtype=np.int64)
-        ids, qidx = batch_lookup(seg.lookup_tokens, queries)
         if ids.size == 0:
             sizes = np.zeros(qn, dtype=np.int64)
             lists = (empty, np.zeros(qn + 1, dtype=np.int64), sizes)
@@ -661,6 +663,19 @@ class StreamEngine:
             )
         return pending, fallback, stats
 
+    def _routes_maxscore(self, k: int) -> bool:
+        """Whether a batch at ``k`` goes to MaxScore, wholly or by
+        ``_ms_route``: 'maxscore' sends every query through the pruned path
+        (k above MS_MAX_K serves exhaustively); at scale 'auto' routes per
+        query (k <= MS_ROUTE_MAX_K)."""
+        if k > self.MS_MAX_K:
+            return False
+        return self.strategy == "maxscore" or (
+            self.strategy == "auto"
+            and self.n_docs >= self.SPARSE_MIN_DOCS
+            and k <= self.MS_ROUTE_MAX_K
+        )
+
     @tracing.traced("vcbm25.stream.dispatch")
     def search_async(
         self,
@@ -671,28 +686,50 @@ class StreamEngine:
         """Dispatch a batch and return finalize() -> (scores, ids,
         payloads): the reference's routing (search/stream.py:939-1014), its
         dense and sparse branches (:1016-1103) and finalize (:1105-1127)."""
+        queries = list(queries)
+        return self._search(queries, len(queries), k, filter_mask, None)
+
+    @tracing.traced("vcbm25.stream.dispatch")
+    def search_ids_async(
+        self,
+        ids: np.ndarray,
+        qidx: np.ndarray,
+        qn: int,
+        k: int,
+        filter_mask: Optional[np.ndarray] = None,
+    ):
+        """``search_async`` on a batch of ``qn`` queries already looked up
+        in this engine's token table: ``ids`` (token ids) and ``qidx``
+        (their queries), query-ascending and token-ascending within a query,
+        as ``batch_lookup`` gives them for ``Query`` objects.  The same
+        routing, dispatches and results; MaxScore reads ``Query`` objects,
+        so a batch it takes has them made from the ids (the token keys)."""
+        queries = None
+        if self._routes_maxscore(k):
+            counts = np.bincount(qidx, minlength=qn)
+            keys = self.segment.token_keys[ids]
+            queries = [Query(keys=a) for a in np.split(keys, np.cumsum(counts)[:-1])][:qn]
+        return self._search(queries, qn, k, filter_mask, (ids, qidx))
+
+    def _search(self, queries, qn: int, k: int, filter_mask, looked_up):
+        """The body of both entries: ``looked_up`` is None (look ``queries``
+        up) or the batch's (ids, qidx); ``queries`` is read only by
+        MaxScore's routing and tiers."""
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
         # Per-dispatch profile: cleared up front so a reader after this call
         # never sees a previous dispatch's stats.
         self.last_ms_stats = None
-        queries = list(queries)
-        qn = len(queries)
         n_docs = self.n_docs
-        # 'maxscore' sends every query through the pruned path (k above
-        # MS_MAX_K serves exhaustively); at scale 'auto' routes per query
-        # (_ms_route, k <= MS_ROUTE_MAX_K) and the rest, and every query no
-        # tier certifies, take the exhaustive sparse reduction.
+        # At scale the queries MaxScore does not take (_routes_maxscore,
+        # _ms_route), and every query no tier certifies, take the exhaustive
+        # sparse reduction.
         at_scale = n_docs >= self.SPARSE_MIN_DOCS
         ms_sel = None
-        if k <= self.MS_MAX_K:
+        if self._routes_maxscore(k):
             if self.strategy == "maxscore":
                 ms_sel = np.arange(qn, dtype=np.int64)
-            elif (
-                self.strategy == "auto"
-                and at_scale
-                and k <= self.MS_ROUTE_MAX_K
-            ):
+            else:
                 ms_sel = np.flatnonzero(self._ms_route(queries))
         use_sparse = ms_sel is None and (
             self.strategy in ("sparse", "maxscore")
@@ -701,7 +738,12 @@ class StreamEngine:
 
         s1_eff = self._s1_eff(filter_mask)
         kk = min(_bucket(k, 1), max(n_docs, 1))
-        lists, n_terms, segs = self._term_windows(queries)
+        if looked_up is None:
+            lists, n_terms, segs = self._term_windows(queries)
+        else:
+            # The lookup's span, so the engine's planning keeps one shape.
+            with tracing.span("vcbm25.stream.lookup"):
+                lists, n_terms, segs = self._layout(*looked_up, qn)
         sizes = lists[2]
 
         pending = []
