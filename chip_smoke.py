@@ -1184,6 +1184,7 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
     )
     from vectorchord_bm25_tpu_torch.ops import stream_kernel, topk
     from vectorchord_bm25_tpu_torch.search import stream as port_stream
+    from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup
     from vectorchord_bm25_tpu_torch.utils.memparity import memory_parity_report
 
     # (f) the served default on the card
@@ -1360,12 +1361,13 @@ def stream_slice(args, seg, seed, queries, keys, tfs, doc_start, label, build_ti
         port_stream, "stream_dense_accumulate", stream_kernel.stream_dense_accumulate_plain,
         lambda a: a[6].numel(), _finite_err,
     )
+    looked_up = batch_lookup(index.sealed.lookup_tokens, sample)
     try:
-        index.growing.topk_batch_async(sample, K)()  # every S1 call held to plain
+        index.growing.topk_batch_async(*looked_up, len(sample), K, None)()  # every S1 call held to plain
     finally:
         restore()
     stream_kernel.LAUNCHES = 0
-    index.growing.topk_batch_async(sample, K)()
+    index.growing.topk_batch_async(*looked_up, len(sample), K, None)()
     grow_launches = stream_kernel.LAUNCHES
     g_engine = index.growing.device_engine()
     if not grow_launches or not grow_st["checked"] or not g_engine.dev_words.is_cuda:
@@ -1897,6 +1899,7 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
     from vectorchord_bm25_tpu_torch.search import exact
     from vectorchord_bm25_tpu_torch.search.exact import ExactEngine
     from vectorchord_bm25_tpu_torch.search.hybrid import HybridEngine
+    from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup
 
     rng = np.random.default_rng(args.seed + 6)
     sample = [queries[i] for i in np.sort(rng.choice(len(queries), AUDIT, replace=False))]
@@ -2104,7 +2107,8 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
     e1_held = {}
     counters = [(exact_kernel, "DENSE_LAUNCHES"), s2]
     index_h, hyb = hybrid({})
-    routes = np.bincount(hyb._route(queries)[0], minlength=3)
+    looked_up = (*batch_lookup(seg.lookup_tokens, queries), len(queries))
+    routes = np.bincount(hyb._route(*looked_up)[0], minlength=3)
     if not held_e1(hyb, "(q1)"):
         raise AssertionError("(q1): the hybrid engine made no E1 call")
     qps, launches, _ = _serve(index_h, queries, counters, "hybrid", rounds=3)
@@ -2124,7 +2128,7 @@ def exact_hybrid(args, seg, seed, queries, ri, bm_engine, label):
     threshold = 0.10
     while True:
         probe = HybridEngine(seg, ri, route_threshold=threshold, oneshot_cap=64)
-        routes = np.bincount(probe._route(queries)[0], minlength=3)
+        routes = np.bincount(probe._route(*looked_up)[0], minlength=3)
         if routes[2] or threshold < 1e-4:
             break
         threshold /= 2

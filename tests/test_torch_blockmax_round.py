@@ -36,6 +36,7 @@ from vectorchord_bm25_tpu_torch.ops import blockmax_round as br  # noqa: E402
 from vectorchord_bm25_tpu_torch.ops.topk import lex_topk  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.hybrid import HybridEngine  # noqa: E402
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
 
 from test_sealed import make_docs  # noqa: E402
 
@@ -510,7 +511,7 @@ def test_hybrid_pruned_and_oneshot_routes_unchanged(rng, memory_mode):
         Query.from_int_ids([1000]), Query.from_int_ids([1000, 1001]),
         Query.from_int_ids([17]), Query.from_int_ids([999999]),
     ]
-    routes = port._route(queries)[0].tolist()
+    routes = port._route(*batch_lookup(port.segment.lookup_tokens, queries), len(queries))[0].tolist()
     assert 0 in routes and 2 in routes
     for g, w in zip(port.search(queries, 15), ref.search(queries, 15)):
         np.testing.assert_array_equal(g, w)

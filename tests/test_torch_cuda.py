@@ -17,6 +17,7 @@ from vectorchord_bm25_tpu.index.sealed import build_sealed_segment  # noqa: E402
 from vectorchord_bm25_tpu.text.intern import Query  # noqa: E402
 from vectorchord_bm25_tpu_torch.ops import score_kernel  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine  # noqa: E402
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
 
 from test_sealed import make_docs  # noqa: E402
 
@@ -33,6 +34,12 @@ def card():
 @pytest.fixture
 def gen():
     return np.random.default_rng(0x5EED)
+
+
+def looked_up(engine, queries):
+    """The batch as the engines' planning reads it: its lookup in the
+    engine's token table and its query count."""
+    return (*batch_lookup(engine.segment.lookup_tokens, queries), len(queries))
 
 
 @pytest.mark.parametrize("q,t,c,rs", [(2, 3, 4, 128), (64, 4, 32, 128), (5, 2, 3, 256), (3, 1, 2, 32)])
@@ -1321,7 +1328,7 @@ def test_exact_merge_equals_plain(card, gen, impact_dtype, k):
     eng = exact.ExactEngine(seg, device=card, strategy="sparse", impact_dtype=impact_dtype)
     eng.set_deleted(gen.random(n_docs) < 0.1)
     queries = _exact_queries(gen, vocab)
-    wr, wl, wh, wo, mt = eng._prepare(queries, with_terms=True)
+    wr, wl, wh, wo, mt = eng._prepare(*looked_up(eng, queries), with_terms=True)
     fm = torch.ones(n_docs + 1, device=card)
     fm[:n_docs] = torch.from_numpy((gen.random(n_docs) < 0.7).astype(np.float32)).cuda()
     dev = eng.dev
@@ -1363,7 +1370,7 @@ def test_exact_merge_past_a_tile_of_segments_equals_plain(card, gen):
         SimpleNamespace(keys=keys([5, 7], 2049)),
         PortQuery.from_int_ids([3, 9]),
     ]
-    wr, wl, wh, wo, mt = eng._prepare(queries, with_terms=True)
+    wr, wl, wh, wo, mt = eng._prepare(*looked_up(eng, queries), with_terms=True)
     seg_off = ordinal_offsets(wo)
     assert seg_off.shape[1] - 1 == mt == 4098
     fm = torch.ones(n_docs + 1, device=card)
@@ -1430,7 +1437,7 @@ def test_exact_tiles_equal_plain(card, gen, monkeypatch, impact_dtype, filtered,
     seg = segment_from_reference(build_sealed_segment(make_docs(gen, n_docs, vocab=40)))
     engine = ExactEngine(seg, device=card, strategy="dense", impact_dtype=impact_dtype)
     engine.set_deleted(gen.random(n_docs) < 0.1)
-    wins = list(engine._prepare(_exact_queries(gen, 40)))
+    wins = list(engine._prepare(*looked_up(engine, _exact_queries(gen, 40))))
     if order == "shuffled":
         for r in range(wins[0].shape[0]):
             perm = gen.permutation(wins[0].shape[1])
@@ -1526,7 +1533,7 @@ def test_hybrid_on_card_equals_cpu(card, gen, heavy_mode, memory_mode):
     on_cpu.set_deleted(deleted)
     fmask = gen.random(n_docs) < 0.7
     queries = _exact_queries(gen, vocab, n=96)
-    routes = np.bincount(on_card._route(queries)[0], minlength=3)
+    routes = np.bincount(on_card._route(*looked_up(on_card, queries))[0], minlength=3)
     assert routes.all(), routes  # every strategy group is exercised
     counter = "COMPACT_LAUNCHES" if memory_mode == "compact" else "DENSE_LAUNCHES"
     for kw in ({}, {"filter_mask": fmask}):

@@ -40,6 +40,14 @@ from vectorchord_bm25_tpu_torch.ops.dense_tiles import PAD  # noqa: E402
 from vectorchord_bm25_tpu_torch.parallel import shard  # noqa: E402
 from vectorchord_bm25_tpu_torch.search import exact as port_exact  # noqa: E402
 from vectorchord_bm25_tpu_torch.search import stream as port_stream  # noqa: E402
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
+
+
+def looked_up(engine, queries):
+    """The batch as the engines' planning reads it: its lookup in the
+    engine's token table and its query count."""
+    return (*batch_lookup(engine.segment.lookup_tokens, queries), len(queries))
+
 
 torch.set_num_threads(2)
 
@@ -257,7 +265,8 @@ def test_growing_segment_in_layout(corpus, monkeypatch):
     for j, doc in enumerate(make_docs(rng, 600, 60)):
         index.insert(doc, 10**6 + j)
     calls = record(monkeypatch, port_stream, "stream_dense_accumulate")
-    index.growing.topk_batch_async(queries, 10)()
+    ids, qidx = batch_lookup(index.sealed.lookup_tokens, queries)
+    index.growing.topk_batch_async(ids, qidx, len(queries), 10, None)()
     assert_stream_calls_in_layout(calls)
 
 
@@ -307,7 +316,7 @@ def stream_case(seg, queries, budget=1 << 30):
     """The stream engine's dispatches' arguments on the CPU."""
     engine = StreamEngine(seg, device="cpu", strategy="dense", accumulator_budget=budget)
     out = []
-    for _, wsrc, q_start, w_ord, n_qb in engine._dispatches(engine._win_lists(queries)[0]):
+    for _, wsrc, q_start, w_ord, n_qb in engine._dispatches(engine._layout(*looked_up(engine, queries))[0]):
         out.append((
             engine.dev_words, engine.dev_s1bd, *engine._window_tables(),
             *(torch.from_numpy(x) for x in (wsrc, q_start, w_ord)), n_qb, engine.n_docs,
@@ -405,7 +414,7 @@ def test_exact_tile_walk_equals_plain(corpus, impact_dtype, filtered, tile):
     _, seg, queries = corpus
     engine = ExactEngine(seg, device="cpu", strategy="dense", impact_dtype=impact_dtype)
     engine.set_deleted(np.random.default_rng(3).random(seg.n_docs) < 0.1)
-    wr, wl, wh, wo = engine._prepare(queries)
+    wr, wl, wh, wo = engine._prepare(*looked_up(engine, queries))
     dev = engine.dev
     args = (
         dev.post_docid, dev.post_impact, dev.doc_live,

@@ -48,6 +48,7 @@ from vectorchord_bm25_tpu_torch.ops.stream_sparse import (  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.blockmax import BlockMaxEngine  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.exact import ExactEngine, oracle_topk  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.hybrid import HybridEngine  # noqa: E402
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
 from vectorchord_bm25_tpu_torch.utils.options import (  # noqa: E402
     IndexOptions as PortIndexOptions,
     SearchOptions as PortSearchOptions,
@@ -55,6 +56,13 @@ from vectorchord_bm25_tpu_torch.utils.options import (  # noqa: E402
 
 from test_exact import rank_match, scalar_topk  # noqa: E402
 from test_sealed import make_docs  # noqa: E402
+
+
+def looked_up(engine, queries):
+    """The batch as the engines' planning reads it: its lookup in the
+    engine's token table and its query count."""
+    return (*batch_lookup(engine.segment.lookup_tokens, queries), len(queries))
+
 
 torch.set_num_threads(2)
 
@@ -129,7 +137,7 @@ def test_lockstep_dense(lockstep_case, impact_dtype, filtered, k):
     ref, port = both(seg, impact_dtype=impact_dtype)
     ref.set_deleted(deleted)
     port.set_deleted(deleted)
-    wr, wl, wh, wo = port._prepare(queries)
+    wr, wl, wh, wo = port._prepare(*looked_up(port, queries))
     for got, want in zip((wr, wl, wh), ref._prepare(queries)):
         np.testing.assert_array_equal(got, want)
     fm = fm if filtered else np.ones_like(fm)
@@ -163,7 +171,7 @@ def test_lockstep_sparse(lockstep_case, impact_dtype, filtered, k):
     ref, port = both(seg, impact_dtype=impact_dtype, strategy="sparse")
     ref.set_deleted(deleted)
     port.set_deleted(deleted)
-    wr, wl, wh, _, mt = port._prepare(queries, with_terms=True)
+    wr, wl, wh, _, mt = port._prepare(*looked_up(port, queries), with_terms=True)
     assert mt == ref._prepare(queries, with_terms=True)[3] == 5
     fm = fm if filtered else np.ones_like(fm)
     seg_steps = int(mt - 1).bit_length()
@@ -211,7 +219,7 @@ def test_sparse_topk_segments_equal_reference(lockstep_case, case, k):
         "all_filtered": np.append(np.zeros(seg.n_docs, np.float32), 1.0).astype(np.float32),
         "bf16": fm,
     }[case]
-    wr, wl, wh, wo, mt = port._prepare(queries, with_terms=True)
+    wr, wl, wh, wo, mt = port._prepare(*looked_up(port, queries), with_terms=True)
     seg_steps = int(mt - 1).bit_length()
     want_s, want_i = (
         np.asarray(x)
@@ -263,7 +271,7 @@ def test_sparse_topk_past_a_tile_of_segments(lockstep_case, k):
         types.SimpleNamespace(keys=keys([5, 7], 1050)),
         Query.from_int_ids([3, 9]),
     ]
-    wr, wl, wh, wo, mt = port._prepare(queries, with_terms=True)
+    wr, wl, wh, wo, mt = port._prepare(*looked_up(port, queries), with_terms=True)
     seg_off = ordinal_offsets(wo)
     assert seg_off.shape[1] - 1 == mt == 2100
     seg_steps = int(mt - 1).bit_length()
@@ -294,7 +302,7 @@ def test_lockstep_compact(lockstep_case, impact_dtype, filtered, k):
     ref, port = both(seg, impact_dtype=impact_dtype, compact=True)
     ref.set_deleted(deleted)
     port.set_deleted(deleted)
-    grp_ids, grp_ord = port._prepare_compact(queries)
+    grp_ids, grp_ord = port._prepare_compact(*looked_up(port, queries))
     np.testing.assert_array_equal(grp_ids, ref._prepare_compact(queries))
     fm = fm if filtered else np.ones_like(fm)
     kk = min(k, seg.n_docs)
@@ -325,9 +333,9 @@ def test_term_ordinals(lockstep_case):
     seg, queries, _, _ = lockstep_case
     _, dense = both(seg)
     _, compact = both(seg, compact=True)
-    wr, wl, wh, wo = dense._prepare(queries)
+    wr, wl, wh, wo = dense._prepare(*looked_up(dense, queries))
     assert ((wo >= 0) == (wh > wl)).all()
-    grp_ids, grp_ord = compact._prepare_compact(queries)
+    grp_ids, grp_ord = compact._prepare_compact(*looked_up(compact, queries))
     assert ((grp_ord >= 0) == (grp_ids < compact._ranges.tr_range.size)).all()
     for ords in (wo, grp_ord):
         for row, q in zip(ords, queries):
@@ -397,7 +405,7 @@ def test_compact_layout_of_planning(lockstep_case, corpus, subset):
         seg = build_sealed_segment_from_postings(keys, doc_ids, tfs, 4096, doc_grouped=True)
         queries = synth_queries_fast(keys, doc_start, seg, 64, seed=4)
     _, port = both(seg, compact=True)
-    lists = port._grp_lists(queries)
+    lists = port._grp_lists(*looked_up(port, queries))
     sub = np.arange(len(queries))
     if subset:
         sub = np.sort(np.random.default_rng(5).choice(len(queries), len(queries) // 2, replace=False))
@@ -415,7 +423,7 @@ def test_compact_layout_check_matches_numpy(lockstep_case, seed):
     # pads moved forward.
     seg, queries, _, _ = lockstep_case
     _, port = both(seg, compact=True)
-    grp_ids, grp_ord = port._prepare_compact(queries)
+    grp_ids, grp_ord = port._prepare_compact(*looked_up(port, queries))
     tr_range = port._ranges.tr_range
     rng = np.random.default_rng(seed)
     q, g = grp_ids.shape

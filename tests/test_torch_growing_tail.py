@@ -2,15 +2,17 @@
 (``GrowingSegment._tail_topk``) held bit for bit to the dense ``[Q, tail]``
 formulation it replaced, kept here as the oracle; the stream engine's
 ids entry (``StreamEngine.search_ids_async``) held bit for bit to
-``search_async``; and a growing dispatch that makes no ``Query`` object and
-looks the batch up once."""
+``search_async``; a facade batch, for every engine and growing state,
+that makes no ``Query`` object below the facade and looks the batch up
+once; and the facade's one merge of sealed, growing-prefix and tail
+results held to the per-query ``Bm25Index.search``."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from vectorchord_bm25_tpu_torch import Bm25Index, Document, Query  # noqa: E402
+from vectorchord_bm25_tpu_torch import Bm25Index, Document, Query, SearchOptions  # noqa: E402
 from vectorchord_bm25_tpu_torch.search.stream import StreamEngine  # noqa: E402
 from vectorchord_bm25_tpu_torch.text import intern  # noqa: E402
 from vectorchord_bm25_tpu_torch.utils import tracing  # noqa: E402
@@ -76,6 +78,13 @@ def dense_tail_topk(grow, ids, qidx, qn, k, keep):
     return scores_out, idx_out, int(src.size)
 
 
+def grow_topk(grow, queries, k, keep=None):
+    """The growing segment's blocks for ``queries``, looked up as the
+    facade looks them up."""
+    ids, qidx = batch_lookup(grow.sealed.lookup_tokens, queries)
+    return grow.topk_batch_async(ids, qidx, len(queries), k, keep)()
+
+
 def tail_docs(rng, case):
     """The tail's documents for ``case``."""
     if case == "empty":
@@ -113,7 +122,7 @@ def growing_with_tail(case, seed=3):
     for j in range(30):
         idx.insert(Document.from_int_ids(rng.integers(0, VOCAB, 10).tolist()), 1000 + j)
     grow = idx.growing
-    grow.topk_batch_async([Query.from_int_ids([1])], K)()  # the engine holds 30 docs
+    grow_topk(grow, [Query.from_int_ids([1])], K)  # the engine holds 30 docs
     for j, doc in enumerate(tail_docs(rng, case)):
         idx.insert(doc, 2000 + j)
     return idx, grow, rng
@@ -201,10 +210,59 @@ def test_search_ids_async_equals_search_async(strategy, filtered):
     assert np.isfinite(want[0]).any()
 
 
-def test_growing_dispatch_makes_no_query_and_one_lookup(monkeypatch):
-    idx, grow, rng = growing_with_tail("over_k")
+def hits_of(result):
+    return [[(h.score, h.payload) for h in hits] for hits in result]
+
+
+def facade_index(engine, options, growing, seed=5):
+    """A 600-doc sealed segment served by ``engine`` and a growing segment
+    that is empty ("empty"), all in its device engine ("prefix"), or 30
+    docs there and 20 in the host tail ("prefix_tail")."""
+    rng = np.random.default_rng(seed)
+
+    def docs(n):
+        return [Document.from_int_ids(rng.integers(0, VOCAB, int(rng.integers(1, 30))).tolist()) for _ in range(n)]
+
+    idx = Bm25Index.build(docs(600), engine=engine, engine_options=options, device="cpu")
+    if growing != "empty":
+        for j, doc in enumerate(docs(30)):
+            idx.insert(doc, 1000 + j)
+        idx.search_batch_async([Query.from_int_ids([1])], K)()  # the engine holds 30 docs
+    if growing == "prefix_tail":
+        for j, doc in enumerate(docs(20)):
+            idx.insert(doc, 2000 + j)
+    return idx, rng
+
+
+ENGINES = {
+    "stream": ("stream", {}),
+    "blockmax": ("blockmax", {"chunk": 2}),
+    "exact": ("exact", {}),
+    "hybrid": ("hybrid", {"oneshot_cap": 8, "heavy_mode": "pruned"}),
+    "maxscore": ("stream", {"strategy": "maxscore"}),
+    "auto_routed": ("stream", {}),
+}
+
+
+def at_scale(monkeypatch, case):
+    """For "auto_routed", 'auto' past its sparse crossover with a router
+    that sends the queries matching 6 windows or more to MaxScore."""
+    if case == "auto_routed":
+        monkeypatch.setattr(StreamEngine, "SPARSE_MIN_DOCS", 64)
+        monkeypatch.setattr(StreamEngine, "MS_ROUTE_FRAC", 1.0)
+        monkeypatch.setattr(StreamEngine, "MS_ROUTE_MIN_WINDOWS", 6)
+
+
+@pytest.mark.parametrize("growing", ["empty", "prefix", "prefix_tail"])
+@pytest.mark.parametrize("case", sorted(ENGINES))
+def test_growing_dispatch_makes_no_query_and_one_lookup(monkeypatch, case, growing):
+    at_scale(monkeypatch, case)
+    engine, options = ENGINES[case]
+    idx, rng = facade_index(engine, options, growing)
+    grow = idx.growing
+    assert len(grow) - grow._dev_engine_n == (20 if growing == "prefix_tail" else 0)
     queries = batch(rng)
-    want = grow.topk_batch_async(queries, K)()
+    want = hits_of(idx.search_batch_async(queries, K)())
     made = []
     post_init = intern.Query.__post_init__
 
@@ -213,14 +271,40 @@ def test_growing_dispatch_makes_no_query_and_one_lookup(monkeypatch):
         post_init(self)
 
     lookups = []
-    sealed_lookup = grow.sealed.lookup_tokens
-    engine_lookup = grow.device_engine().segment.lookup_tokens
+    sealed_lookup = idx.sealed.lookup_tokens
     monkeypatch.setattr(intern.Query, "__post_init__", counted)
-    monkeypatch.setattr(grow.sealed, "lookup_tokens", lambda keys: lookups.append("sealed") or sealed_lookup(keys))
-    monkeypatch.setattr(
-        grow.device_engine().segment, "lookup_tokens", lambda keys: lookups.append("engine") or engine_lookup(keys)
-    )
-    got = grow.topk_batch_async(queries, K)()
-    assert made == [] and lookups == ["sealed"]
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    monkeypatch.setattr(idx.sealed, "lookup_tokens", lambda keys: lookups.append(keys.size) or sealed_lookup(keys))
+    if grow._dev_engine is not None:
+        engine_lookup = grow._dev_engine.segment.lookup_tokens
+        monkeypatch.setattr(
+            grow._dev_engine.segment, "lookup_tokens", lambda keys: lookups.append(-1) or engine_lookup(keys)
+        )
+    got = hits_of(idx.search_batch_async(queries, K)())
+    assert made == [] and lookups == [sum(len(q) for q in queries)]
+    assert got == want and any(got)
+    if case in ("maxscore", "auto_routed"):
+        stats = idx.engine().last_ms_stats
+        assert stats["batch_queries"] == len(queries) and stats["tiers"]
+        routed = stats["routed_queries"]
+        assert routed == len(queries) if case == "maxscore" else 0 < routed < len(queries)
+
+
+@pytest.mark.parametrize("case", sorted(ENGINES))
+def test_one_merge_equals_per_query_search(monkeypatch, case):
+    # Sealed, growing prefix and tail all hold hits, some docs of each
+    # deleted, under a prefilter: every row of the batch is the per-query
+    # path's list, which merges by its own sort.
+    at_scale(monkeypatch, case)
+    engine, options = ENGINES[case]
+    idx, rng = facade_index(engine, options, "prefix_tail", seed=8)
+    idx.search_options = SearchOptions(prefilter=True)
+    grow = idx.growing
+    assert grow._dev_engine_n == 30 and len(grow) == 50
+    idx.bulkdelete_payloads([3, 17, 250, 1002, 1011, 2004, 2013])
+    keep = lambda p: p % 5 != 1  # noqa: E731
+    queries = batch(rng, n=40)
+    rows = idx.search_batch_async(queries, K, filter_fn=keep)()
+    assert rows == [idx.search(q, k=K, filter_fn=keep) for q in queries]
+    payloads = {h.payload for hits in rows for h in hits}
+    assert min(payloads) < 1000 and any(1000 <= p < 1030 for p in payloads) and max(payloads) >= 2000
+    assert not payloads & {3, 17, 250, 1002, 1011, 2004, 2013} and all(keep(p) for p in payloads)

@@ -35,6 +35,13 @@ from vectorchord_bm25_tpu_torch.utils.batchkeys import (  # noqa: E402
 from test_exact import rank_match  # noqa: E402
 from test_sealed import make_docs  # noqa: E402
 
+
+def looked_up(engine, queries):
+    """The batch as the engines' planning reads it: its lookup in the
+    engine's token table and its query count."""
+    return (*batch_lookup(engine.segment.lookup_tokens, queries), len(queries))
+
+
 torch.set_num_threads(2)
 
 HEAVY_MODES = ["auto", "exact", "pruned", "rangescan"]
@@ -84,14 +91,14 @@ def test_hybrid_matches_exact(rng):
     pseg = segment_from_reference(seg)
     exact = ExactEngine(pseg, device="cpu")
     hybrid = HybridEngine(pseg, route_threshold=0.10, chunk=8, device="cpu")
-    strategy, ranges = hybrid._route(queries)
+    strategy, ranges = hybrid._route(*looked_up(hybrid, queries))
     # Heavy queries take the iterative pruned path; selective ones don't.
     assert strategy.tolist()[:2] == [2, 2]
     assert all(s != 2 for s in strategy.tolist()[2:])
     # With a forced one-shot cap, selective queries one-shot instead, and
     # results are identical.
     hybrid_os = HybridEngine(pseg, route_threshold=0.10, oneshot_cap=64, device="cpu")
-    strategy2, _ = hybrid_os._route(queries)
+    strategy2, _ = hybrid_os._route(*looked_up(hybrid_os, queries))
     assert strategy2.tolist()[2:] == [0, 0]
     s1_, i1, p1 = hybrid_os.search(queries, 15)
     s0_, i0, p0 = hybrid.search(queries, 15)
@@ -136,7 +143,7 @@ def test_routes_equal_reference(rng, heavy_mode, memory_mode):
     )
     ref, port = both(seg, **opts)
     assert port.memory_report() == ref.memory_report()  # nothing built yet
-    strategy, ranges = port._route(queries)
+    strategy, ranges = port._route(*looked_up(port, queries))
     ref_strategy, ref_ranges = ref._route(queries)
     np.testing.assert_array_equal(strategy, ref_strategy)
     np.testing.assert_array_equal(ranges, ref_ranges)
@@ -170,7 +177,7 @@ def test_tf_postings_heavy_route(rng):
         posting_mode="tf",
     )
     ref, port = both(seg, **{**opts, "use_pallas": None})
-    assert set(port._route(queries)[0].tolist()) == {0, 1, 2}
+    assert set(port._route(*looked_up(port, queries))[0].tolist()) == {0, 1, 2}
     assert_same(port.search(queries, 15), ref.search(queries, 15))
     assert port.blockmax.posting_mode == "tf"
     assert port.memory_report() == ref.memory_report()

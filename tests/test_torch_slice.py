@@ -20,6 +20,7 @@ from vectorchord_bm25_tpu.text.intern import Document, Query, random_seed  # noq
 from vectorchord_bm25_tpu.text.tokenizer import tsvector  # noqa: E402
 from vectorchord_bm25_tpu.utils.options import SessionConfig  # noqa: E402
 from vectorchord_bm25_tpu_torch import Bm25Index  # noqa: E402
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
 
 from test_sealed import make_docs  # noqa: E402
 from test_tokenizer import TOY_CORPUS  # noqa: E402
@@ -330,4 +331,6 @@ def test_no_cpu_fallback(corpus, monkeypatch):
         index.search_batch(queries[:2], 5)
     index.insert(docs[0], 99)  # the growing segment's engine
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        index.growing.topk_batch_async(queries[:2], 5)
+        index.growing.topk_batch_async(
+            *batch_lookup(index.sealed.lookup_tokens, queries[:2]), 2, 5, None
+        )

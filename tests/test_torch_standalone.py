@@ -46,8 +46,16 @@ from vectorchord_bm25_tpu_torch.index import ranges, sealed, storage, stream  # 
 from vectorchord_bm25_tpu_torch.ops import bitpack  # noqa: E402
 from vectorchord_bm25_tpu_torch.search import exact, hybrid  # noqa: E402
 from vectorchord_bm25_tpu_torch.text import intern  # noqa: E402
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
 
 from test_sealed import make_docs  # noqa: E402
+
+
+def looked_up(engine, queries):
+    """The batch as the engines' planning reads it: its lookup in the
+    engine's token table and its query count."""
+    return (*batch_lookup(engine.segment.lookup_tokens, queries), len(queries))
+
 
 torch.set_num_threads(2)
 
@@ -529,7 +537,7 @@ def test_exact_and_hybrid_planning_equals_reference(rng):
     sub = np.array([3, 0, 17, 64, 40])
     ref_dense, dense = ref_exact.ExactEngine(ref_seg), exact.ExactEngine(seg, device="cpu")
     (*ref_wins, ), ref_terms = ref_dense._win_lists(queries)
-    wins, n_terms = dense._win_lists(queries)
+    wins, n_terms = dense._win_lists(*looked_up(dense, queries))
     np.testing.assert_array_equal(n_terms, ref_terms)
     assert len(wins) == len(ref_wins) + 1
     for got, want in zip(wins, ref_wins):
@@ -540,7 +548,7 @@ def test_exact_and_hybrid_planning_equals_reference(rng):
         np.testing.assert_array_equal(got, want)
     ref_compact = ref_exact.ExactEngine(ref_seg, compact=True)
     compact = exact.ExactEngine(seg, device="cpu", compact=True)
-    ref_lists, lists = ref_compact._grp_lists(queries), compact._grp_lists(queries)
+    ref_lists, lists = ref_compact._grp_lists(queries), compact._grp_lists(*looked_up(compact, queries))
     assert len(lists) == len(ref_lists) + 1
     for got, want in zip(lists, ref_lists):
         np.testing.assert_array_equal(got, want)
@@ -549,10 +557,11 @@ def test_exact_and_hybrid_planning_equals_reference(rng):
     )
     # An empty batch of lists (no known term) keeps the shapes.
     none = [ref_intern.Query.from_int_ids([10**6])]
-    assert [x.size for x in dense._win_lists(none)[0]] == [0, 0, 0, 2, 1, 0]
-    assert [x.size for x in compact._grp_lists(none)] == [0, 2, 1, 0]
+    assert [x.size for x in dense._win_lists(*looked_up(dense, none))[0]] == [0, 0, 0, 2, 1, 0]
+    assert [x.size for x in compact._grp_lists(*looked_up(compact, none))] == [0, 2, 1, 0]
     for opts in ({}, {"route_threshold": 0.02, "oneshot_cap": 6}):
-        got = hybrid.HybridEngine(seg, device="cpu", **opts)._route(queries)
+        port = hybrid.HybridEngine(seg, device="cpu", **opts)
+        got = port._route(*looked_up(port, queries))
         want = ref_hybrid.HybridEngine(ref_seg, **opts)._route(queries)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)

@@ -25,10 +25,18 @@ from vectorchord_bm25_tpu_torch.search.stream import (  # noqa: E402
     StreamEngine,
     window_ordinals,
 )
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
 
 from test_sealed import make_docs  # noqa: E402
 from test_stream import random_segment  # noqa: E402
 from test_torch_stream_kernel import big_gap_segment  # noqa: E402
+
+
+def looked_up(engine, queries):
+    """The batch as the engines' planning reads it: its lookup in the
+    engine's token table and its query count."""
+    return (*batch_lookup(engine.segment.lookup_tokens, queries), len(queries))
+
 
 torch.set_num_threads(2)
 
@@ -160,7 +168,7 @@ def test_lockstep_dispatch_inputs(rng):
     seg = random_segment(rng, 2000, 50, 20000, tf_hi=20)
     ref, port = engines(seg)
     queries = rand_queries(rng, 12, 55) + [Query.from_int_ids([7, 7])]
-    (rows, wsrc, q_start, w_ord, n_qb), = list(port._dispatches(port._win_lists(queries)[0]))
+    (rows, wsrc, q_start, w_ord, n_qb), = list(port._dispatches(port._layout(*looked_up(port, queries))[0]))
     assert rows.size == len(queries) and wsrc.size % 128 == 0
     # The reference's per-window query rows (its pad windows add to row 0).
     wq = np.zeros(wsrc.size, dtype=np.int32)
@@ -192,7 +200,7 @@ def test_window_ordinals(rng):
     si = build_stream_index(seg)
     port = StreamEngine(seg, stream=si, device="cpu")
     queries = [Query.from_int_ids([1, 2]), Query.from_int_ids([3, 5]), Query.from_int_ids([4])]
-    (wsrc, starts, sizes), _ = port._win_lists(queries)
+    (wsrc, starts, sizes), _, _ = port._layout(*looked_up(port, queries))
     ords = window_ordinals(si, wsrc, starts, sizes)
     tws = si.token_w_start
     want = np.concatenate(

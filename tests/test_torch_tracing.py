@@ -19,6 +19,7 @@ from vectorchord_bm25_tpu_torch import ops  # noqa: E402
 from vectorchord_bm25_tpu_torch.ops import stream_kernel, topk  # noqa: E402
 from vectorchord_bm25_tpu_torch.search import stream as stream_mod  # noqa: E402
 from vectorchord_bm25_tpu_torch.utils import tracing  # noqa: E402
+from vectorchord_bm25_tpu_torch.utils.batchkeys import batch_lookup  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -42,6 +43,12 @@ def make_docs(rng, n, vocab=40):
 
 
 QUERIES = [Query.from_int_ids([1, 2, 3]), Query.from_int_ids([5]), Query.from_int_ids([7, 30])]
+
+
+def looked_up(engine, queries):
+    """The batch as the engines' planning reads it: its lookup in the
+    engine's token table and its query count."""
+    return (*batch_lookup(engine.segment.lookup_tokens, queries), len(queries))
 
 
 def hits_of(result):
@@ -80,6 +87,7 @@ FINALIZE = "vcbm25.facade.finalize"
 WANT = {
     DISPATCH,
     f"{DISPATCH}/vcbm25.facade.unbind",
+    f"{DISPATCH}/vcbm25.facade.lookup",
     f"{DISPATCH}/vcbm25.growing.dispatch",
     f"{DISPATCH}/vcbm25.growing.dispatch/vcbm25.growing.lookup",
     f"{DISPATCH}/vcbm25.growing.dispatch/vcbm25.growing.tail",
@@ -147,7 +155,7 @@ def test_results_bit_identical_on_and_off(index):
 
 
 def _dense_upload_bytes(engine, queries):
-    lists = engine._term_windows(queries)[0]
+    lists = engine._layout(*looked_up(engine, queries))[0]
     return sum(
         sum(x.nbytes for x in (wsrc, q_start, w_ord))
         for _, wsrc, q_start, w_ord, _ in engine._dispatches(lists)
@@ -395,6 +403,7 @@ BM = f"{DISPATCH}/vcbm25.blockmax.dispatch"
 BM_WANT = {
     DISPATCH,
     f"{DISPATCH}/vcbm25.facade.unbind",
+    f"{DISPATCH}/vcbm25.facade.lookup",
     BM,
     f"{BM}/vcbm25.blockmax.lookup",
     f"{BM}/vcbm25.blockmax.upload",
@@ -436,7 +445,7 @@ def test_blockmax_batch_spans_and_counters(posting_mode):
     for name in ("lookup", "upload", "bounds", "rounds"):
         assert spans[f"{BM}/vcbm25.blockmax.{name}"]["count"] == 1
     # The uploads: the query terms, their s0 in tf mode, the [N+1] filter.
-    q_tid, _ = engine._prepare([idx._unbind(q) for q in QUERIES])
+    q_tid, _ = engine._prepare(*looked_up(engine, [idx._unbind(q) for q in QUERIES]))
     want = q_tid.nbytes + 4 * (idx.sealed.n_docs + 1) + (4 * q_tid.size if posting_mode == "tf" else 0)
     assert c["h2d_bytes"] == want
     assert c["d2h_bytes"] == 8 * len(QUERIES) * 8  # [Q, 8] f32 scores and i32 ids (k=5 bucketed)
@@ -458,7 +467,7 @@ def test_blockmax_loop_cut_by_max_rounds_reads_a_flag_a_round():
 
     idx = blockmax_index("impact")
     e = idx.engine()
-    q_tid, lmax = e._prepare([idx._unbind(q) for q in QUERIES])
+    q_tid, lmax = e._prepare(*looked_up(e, [idx._unbind(q) for q in QUERIES]))
     tracing.enable()
     _, _, rounds = blockmax._blockmax_kernel(
         e.dev_post_impact, e.dev_post_local, e.dev.doc_live, e._filter(None), e.dev_tr_range,
@@ -482,7 +491,7 @@ def test_blockmax_rangescan_has_dispatch_and_finalize_only():
     assert set(snap["spans"]) == {
         "vcbm25.blockmax.dispatch", "vcbm25.blockmax.finalize", "vcbm25.blockmax.finalize/vcbm25.blockmax.wait",
     }
-    q_tid, _ = e._prepare(queries)
+    q_tid, _ = e._prepare(*looked_up(e, queries))
     assert snap["counters"]["h2d_bytes"] == q_tid.nbytes + 4 * (idx.sealed.n_docs + 1)
 
 

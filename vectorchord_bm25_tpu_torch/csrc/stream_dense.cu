@@ -19,7 +19,7 @@
 // window is decoded by one warp, four lanes a thread (window_decode.cuh,
 // shared with S3 and S5), and only its lanes inside the tile gather their
 // s1_eff entry and add.  The list is the planning's own, query-major and
-// term-major (search/stream.py::_win_lists, window_ordinals): each run is
+// term-major (search/stream.py::_layout, window_ordinals): each run is
 // one term's windows, consecutive in the stream and doc-ascending, so a
 // window's first doc is w_base[w] and the host sorts nothing.  The first
 // version launched once per ordinal onto a zero-filled accumulator, one

@@ -45,11 +45,12 @@ from ..models.scoring import idf as idf_fn, tf as tf_fn
 from ..ops import launch_count
 from ..text.intern import Document, Query, random_seed
 from ..utils import tracing
+from ..utils.batchkeys import batch_lookup
 from ..utils.options import IndexOptions, SearchOptions, SessionConfig
 from .growing import GrowingSegment
 from .sealed import SealedSegment, build_sealed_segment, segment_from_reference
 
-__all__ = ["Bm25Index", "BoundQuery", "SearchHit"]
+__all__ = ["Bm25Index", "BoundQuery", "SearchHit", "merge_ranked"]
 
 def _eval_predicate(predicate, payloads: np.ndarray) -> np.ndarray:
     """Evaluate a payload predicate over an int64 array, preferring one
@@ -69,6 +70,21 @@ def _eval_predicate(predicate, payloads: np.ndarray) -> np.ndarray:
         dtype=bool,
         count=payloads.size,
     )
+
+
+def merge_ranked(blocks, k: int):
+    """One ranking of a batch's result blocks, each (scores [Q, w]
+    float64, ids [Q, w] int64, payloads [Q, w] int64) with pads at -inf
+    and id -1: every block's columns side by side, ranked per query by
+    score descending, then id ascending, pads last (after real ids at an
+    equal -inf score, in block order).  Returns the first k columns of
+    (scores, ids, payloads)."""
+    scores = np.concatenate([b[0] for b in blocks], axis=1)
+    ids = np.concatenate([b[1] for b in blocks], axis=1)
+    payloads = np.concatenate([b[2] for b in blocks], axis=1)
+    order = np.where(ids < 0, np.iinfo(np.int64).max, ids)
+    pick = np.lexsort((order, -scores), axis=-1)[:, :k]
+    return tuple(np.take_along_axis(x, pick, axis=1) for x in (scores, ids, payloads))
 
 
 class BoundQuery:
@@ -689,9 +705,13 @@ class Bm25Index:
         return finalize
 
     def _dispatch_locked(self, queries, k, filter_fn, batch):
-        """The growing and sealed dispatches of unbound ``queries``;
-        returns the batch's finalize()."""
+        """The growing and sealed dispatches of unbound ``queries``, both
+        served from one lookup of the batch in the sealed token table;
+        returns the batch's finalize(), which ranks the sealed, growing
+        prefix and tail results in one merge."""
         qn = len(queries)
+        with tracing.span("vcbm25.facade.lookup"):
+            ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
         g = len(self.growing)
         g_fin = None
         g_payloads = None
@@ -704,17 +724,12 @@ class Bm25Index:
                 if filter_fn is not None
                 else None
             )
-            g_fin = self.growing.topk_batch_async(queries, k, keep)
+            g_fin = self.growing.topk_batch_async(ids, qidx, qn, k, keep)
 
         g_base = self.sealed.n_docs
         if self.sealed.n_docs:
             mask = self._sealed_filter_mask(filter_fn)
-            engine = self.engine()
-            if hasattr(engine, "search_async"):
-                s_fin = engine.search_async(list(queries), k, filter_mask=mask)
-            else:
-                s_res = engine.search(list(queries), k, filter_mask=mask)
-                s_fin = lambda: s_res  # noqa: E731
+            s_fin = self.engine().search_ids_async(ids, qidx, qn, k, filter_mask=mask)
         else:
             s_fin = None
 
@@ -735,39 +750,21 @@ class Bm25Index:
                 payloads = np.full((qn, k), -1, dtype=np.int64)
 
             if g:
-                g_top_scores, top = g_fin()
+                g_blocks = g_fin()
                 with tracing.span("vcbm25.facade.merge"):
-                    # Vectorized lexsort merge of sealed [Q, k] + growing
-                    # [Q, k].
-                    all_scores = np.concatenate(
-                        [scores, g_top_scores], axis=1
-                    )
-                    # Pad slots (-1) sort after real ids at equal -inf score.
-                    g_ids = np.where(
-                        top >= 0, g_base + top, np.iinfo(np.int64).max
-                    )
-                    all_order = np.concatenate(
-                        [
-                            np.where(
-                                slots < 0, np.iinfo(np.int64).max, slots
-                            ),
-                            g_ids,
+                    # Sealed slots, then growing ids after them: one
+                    # (score desc, id asc) ranking of every block.
+                    scores, _, payloads = merge_ranked(
+                        [(scores, slots, payloads)]
+                        + [
+                            (s, np.where(i >= 0, g_base + i, -1), g_payloads[np.maximum(i, 0)])
+                            for s, i in g_blocks
                         ],
-                        axis=1,
+                        k,
                     )
-                    all_payloads = np.concatenate(
-                        [payloads, g_payloads[np.maximum(top, 0)]], axis=1
-                    )
-                    pick = np.lexsort((all_order, -all_scores), axis=-1)[:, :k]
-                    merged_scores = np.take_along_axis(all_scores, pick, axis=1)
-                    merged_payloads = np.take_along_axis(
-                        all_payloads, pick, axis=1
-                    )
-            else:
-                merged_scores, merged_payloads = scores, payloads
 
             with tracing.span("vcbm25.facade.hits"):
-                return _hit_lists(merged_scores, merged_payloads)
+                return _hit_lists(scores, payloads)
 
         return finalize
 

@@ -53,10 +53,6 @@ class GrowingSegment:
         # CSR postings against the sealed token table.
         self._tid: List[np.ndarray] = []
         self._tf: List[np.ndarray] = []
-        # Flattened tid-sorted posting cache for the batched scorer;
-        # rebuilt lazily after inserts (deletes don't touch it — the
-        # delete bitmap is applied at scoring time).
-        self._flat = None
         # Lazily built device engine over a FROZEN PREFIX of the growing
         # postings (batched serving).  Inserts do NOT invalidate it:
         # fresh docs beyond `_dev_engine_n` form a small host-scored
@@ -93,7 +89,6 @@ class GrowingSegment:
         self.fieldnorms.append(int(length_to_fieldnorm(document.length())))
         self._tid.append(tids.astype(np.int64))
         self._tf.append(document.values.astype(np.int64))
-        self._flat = None
         self._tail_flat = None
         return len(self.documents) - 1
 
@@ -188,75 +183,6 @@ class GrowingSegment:
             self.payloads, dtype=np.int64
         )
 
-    def _flat_postings(self):
-        """(tid_sorted, impact_sorted, doc_of_sorted): the growing CSR
-        flattened once, tid-sorted for searchsorted term slicing, with
-        per-posting impacts precomputed from the sealed Cache tables —
-        rebuilt only after inserts, NOT per search call."""
-        if self._flat is None:
-            seg = self.sealed
-            if self._tid:
-                tids = np.concatenate(self._tid)
-                tfs = np.concatenate(self._tf).astype(np.float64)
-                doc_of = np.repeat(
-                    np.arange(len(self._tid), dtype=np.int64),
-                    [t.size for t in self._tid],
-                )
-            else:
-                tids = np.zeros(0, dtype=np.int64)
-                tfs = np.zeros(0, dtype=np.float64)
-                doc_of = np.zeros(0, dtype=np.int64)
-            known = tids >= 0
-            tids, tfs, doc_of = tids[known], tfs[known], doc_of[known]
-            order = np.argsort(tids, kind="stable")
-            tids, tfs, doc_of = tids[order], tfs[order], doc_of[order]
-            if tids.size:
-                tables = seg.score_tables()
-                s0 = seg.token_s0()
-                fn = np.asarray(self.fieldnorms, dtype=np.int64)[doc_of]
-                impact = (tfs * s0[tids]) / (tfs + tables.s1_table[fn])
-            else:
-                impact = np.zeros(0, dtype=np.float64)
-            self._flat = (tids, impact, doc_of)
-        return self._flat
-
-    def score_batch(self, queries) -> np.ndarray:
-        """Scores for a whole query batch in one vectorized pass.
-
-        Returns [Q, G] float64; deleted docs score 0 (the score > 0 rule
-        excludes them downstream).  Semantics identical to per-query
-        `score` (sealed statistics, sealed-known terms only) but cost is
-        one searchsorted over the flat posting array per batch instead
-        of Q re-concatenations (search.rs:83-135 merges per query; our
-        hot path is 4096-query batches).
-        """
-        from ..utils.batchkeys import batch_lookup, group_positions
-
-        qn = len(queries)
-        g = len(self.documents)
-        scores = np.zeros((qn, g), dtype=np.float64)
-        if g == 0 or qn == 0:
-            return scores
-        tids, impact, doc_of = self._flat_postings()
-        if tids.size == 0:
-            return scores
-        ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
-        if ids.size == 0:
-            return scores
-        lo = np.searchsorted(tids, ids, side="left")
-        hi = np.searchsorted(tids, ids, side="right")
-        cnt = hi - lo
-        total = int(cnt.sum())
-        if total == 0:
-            return scores
-        src = np.repeat(lo, cnt) + group_positions(cnt)
-        q_of = np.repeat(qidx, cnt)
-        np.add.at(scores, (q_of, doc_of[src]), impact[src])
-        dead = np.asarray(self.deleted, dtype=bool)
-        if dead.any():
-            scores[:, dead] = 0.0
-        return scores
-
     def _mini_segment(self):
         """The growing docs as a mini sealed segment keyed by sealed token
         id, with the sealed statistics to score it by: the reference's
@@ -329,25 +255,27 @@ class GrowingSegment:
         return self._dev_engine
 
     @tracing.traced("vcbm25.growing.dispatch")
-    def topk_batch_async(self, queries, k: int, keep=None):
-        """Dispatch the growing top-k on device; returns finalize() ->
-        (scores [Q, k] float64 -inf-padded, idx [Q, k] int64 -1-padded)
-        ranked (score desc, id asc) — the merge-ready form of
-        topk_batch, overlappable with the sealed dispatch.
+    def topk_batch_async(self, ids, qidx, qn: int, k: int, keep):
+        """Dispatch the growing top-k of a batch of ``qn`` queries looked
+        up in the SEALED token table (``ids``, ``qidx`` as
+        ``batch_lookup`` gives them), overlappable with the sealed
+        dispatch; ``keep``: an optional [G] bool mask (prefilter).  Returns
+        finalize() -> a list of result blocks, each (scores [Q, w] float64
+        -inf-padded, idx [Q, w] int64 growing ids, -1-padded) ranked
+        (score desc, id asc) within a query: the prefix's, then the
+        tail's when there is one, unmerged (the facade ranks them with
+        the sealed results in one sort).
 
         Two-level serving: the device engine covers the frozen prefix
         [0, _dev_engine_n); docs inserted since are scored on host
-        (same f32 semantics) and merged — so an insert burst between
-        served batches costs O(tail), not an O(G log G) engine rebuild
-        per batch.  The engine is rebuilt (absorbing the tail) only
-        when the tail exceeds max(512, min(n0/8, 4096)) docs.
+        (same f32 semantics) — so an insert burst between served
+        batches costs O(tail), not an O(G log G) engine rebuild per
+        batch.  The engine is rebuilt (absorbing the tail) only when the
+        tail exceeds max(512, min(n0/8, 4096)) docs.
         """
         g = len(self.documents)
-        qn = len(queries)
         if g == 0 or qn == 0:
-            s = np.full((qn, k), -np.inf, dtype=np.float64)
-            i = np.full((qn, k), -1, dtype=np.int64)
-            return lambda: (s, i)
+            return lambda: []
         n0 = self._dev_engine_n if self._dev_engine is not None else 0
         if self._dev_engine is None or g - n0 > max(
             512, min(n0 // 8, 4096)
@@ -355,14 +283,11 @@ class GrowingSegment:
             self._dev_engine = None  # rebuild absorbs the tail
         engine = self.device_engine()
         n0 = self._dev_engine_n
-        # One lookup in the sealed table serves the engine and the tail: a
-        # sealed id's token id in the engine is its rank among the engine's
-        # sealed ids; ids the engine lacks drop out, and within a query the
-        # ranks ascend as the sealed ids do.
-        from ..utils.batchkeys import batch_lookup
-
+        # The sealed lookup serves the engine and the tail: a sealed id's
+        # token id in the engine is its rank among the engine's sealed ids;
+        # ids the engine lacks drop out, and within a query the ranks
+        # ascend as the sealed ids do.
         with tracing.span("vcbm25.growing.lookup"):
-            ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
             pos = np.searchsorted(self._dev_tids, ids)
             found = pos < self._dev_tids.size
             found[found] = self._dev_tids[pos[found]] == ids[found]
@@ -381,28 +306,7 @@ class GrowingSegment:
             s = s_f32.astype(np.float64)
             dids = np.asarray(dids, dtype=np.int64)
             s[dids < 0] = -np.inf
-            if tail is None:
-                return s, dids
-            ts, ti = tail
-            # Merge prefix + tail columns, re-rank (score desc, id asc)
-            # per query, keep k — both sides are -inf/-1 padded so the
-            # padding sorts last.
-            S = np.concatenate([s, ts], axis=1)
-            I = np.concatenate([dids, ti], axis=1)
-            w = S.shape[1]
-            qrow = np.repeat(np.arange(qn, dtype=np.int64), w)
-            order = np.lexsort((I.ravel(), -S.ravel(), qrow))
-            m = min(k, w)
-            S2 = S.ravel()[order].reshape(qn, w)[:, :m]
-            I2 = I.ravel()[order].reshape(qn, w)[:, :m]
-            if m < k:
-                S2 = np.pad(
-                    S2, ((0, 0), (0, k - m)), constant_values=-np.inf
-                )
-                I2 = np.pad(
-                    I2, ((0, 0), (0, k - m)), constant_values=-1
-                )
-            return S2, I2
+            return [(s, dids)] if tail is None else [(s, dids), tail]
 
         return finalize
 
@@ -504,74 +408,6 @@ class GrowingSegment:
         scores_out[q[top], col[top]] = s[top]
         idx_out[q[top], col[top]] = d[top] + n0
         return scores_out, idx_out
-
-    def topk_batch(self, queries, k: int, keep=None):
-        """Per-query top-m growing hits without the dense [Q, G] matrix.
-
-        Returns (scores [Q, m] float64 with -inf padding, idx [Q, m]
-        int64 growing-local ids with -1 padding), m = min(k, G), ranked
-        (score desc, id asc) — ready for the sealed-results lexsort
-        merge.  Cost is O(hits log hits) in the number of actual
-        (query, growing-posting) matches, not O(Q x G): at batch 4096
-        with 10k growing docs the dense pass zeroes and scans 41M cells
-        per batch while typical hit counts are ~100k (the round-3
-        growing bench measured the dense form collapsing batched QPS to
-        0.23x sealed-only).
-
-        keep: optional [G] bool mask (prefilter); deleted docs and
-        score<=0 are always excluded (bulkdelete.rs deleted-flag
-        semantics)."""
-        from ..utils.batchkeys import batch_lookup, group_positions
-
-        qn = len(queries)
-        g = len(self.documents)
-        m = min(k, g)
-        scores = np.full((qn, max(m, 1)), -np.inf, dtype=np.float64)
-        idx = np.full((qn, max(m, 1)), -1, dtype=np.int64)
-        scores, idx = scores[:, :m], idx[:, :m]
-        if m == 0 or qn == 0:
-            return scores, idx
-        tids, impact, doc_of = self._flat_postings()
-        if tids.size == 0:
-            return scores, idx
-        ids, qidx = batch_lookup(self.sealed.lookup_tokens, queries)
-        if ids.size == 0:
-            return scores, idx
-        lo = np.searchsorted(tids, ids, side="left")
-        hi = np.searchsorted(tids, ids, side="right")
-        cnt = hi - lo
-        total = int(cnt.sum())
-        if total == 0:
-            return scores, idx
-        src = np.repeat(lo, cnt) + group_positions(cnt)
-        q_of = np.repeat(qidx, cnt)
-        d = doc_of[src]
-        imp = impact[src]
-        drop = np.asarray(self.deleted, dtype=bool)
-        if keep is not None:
-            drop = drop | ~np.asarray(keep, dtype=bool)
-        if drop.any():
-            sel = ~drop[d]
-            q_of, d, imp = q_of[sel], d[sel], imp[sel]
-            if q_of.size == 0:
-                return scores, idx
-        # Aggregate per (query, doc), then rank within query.
-        key = q_of * g + d
-        uk, inv = np.unique(key, return_inverse=True)
-        s = np.bincount(inv, weights=imp)
-        pos_ok = s > 0.0
-        uk, s = uk[pos_ok], s[pos_ok]
-        if uk.size == 0:
-            return scores, idx
-        uq, ud = uk // g, uk % g
-        order = np.lexsort((ud, -s, uq))
-        uq, ud, s = uq[order], ud[order], s[order]
-        counts = np.bincount(uq, minlength=qn)
-        pos = group_positions(counts[counts > 0])
-        take = pos < m
-        scores[uq[take], pos[take]] = s[take]
-        idx[uq[take], pos[take]] = ud[take]
-        return scores, idx
 
     def live_documents(self) -> List[Tuple[int, Document]]:
         """(payload, document) pairs of live docs, in insertion order

@@ -17,7 +17,7 @@ once.  On a CPU tensor it runs ``stream_dense_accumulate_plain``, built on
 ``unpack_and_score_plain``, the plain PyTorch twin of M1.
 
 The windows come in the planning's order (``search/stream.py::
-_win_lists``: query-major, term-major, a term's windows consecutive and
+_layout``: query-major, term-major, a term's windows consecutive and
 doc-ascending) with each query's span and each window's term ordinal.
 
 Exactness.  The reference's scatter-add adds each (query, doc)'s terms in

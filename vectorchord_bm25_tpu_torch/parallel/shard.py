@@ -58,7 +58,13 @@ from ..ops.stream_rescore import rescore_topk
 from ..ops.stream_sparse import doc_ordered, segment_offsets, stream_sparse_topk
 from ..ops.topk import dense_topk
 from ..search.blockmax import _blockmax_kernel
-from ..search.stream import StreamEngine, _ms_certify, _ms_prefix_prep, window_ordinals
+from ..search.stream import (
+    StreamEngine,
+    _ms_certify,
+    _ms_prefix_prep,
+    routes_maxscore,
+    window_ordinals,
+)
 from ..text.intern import WIDTH, Document, Query, random_seed
 from ..utils.batchkeys import batch_lookup, group_positions
 from ..utils.buckets import bucket_pow2 as _bucket
@@ -1674,18 +1680,8 @@ class ShardedIndex:
         if self.engine == "blockmax":
             return self._search_blockmax(queries, k, fmask_dev)
         if self.engine == "stream":
-            # Same auto k-gate as the single-chip engine: routing to the
-            # pruned path loses at deep k; explicit 'maxscore' serves any
-            # k <= MS_MAX_K.
-            use_ms = k <= StreamEngine.MS_MAX_K and (
-                self.strategy == "maxscore"
-                or (
-                    self.strategy == "auto"
-                    and self._nmax >= StreamEngine.SPARSE_MIN_DOCS
-                    and k <= StreamEngine.MS_ROUTE_MAX_K
-                )
-            )
-            if use_ms:
+            # The single-chip engine's gate, on the largest shard.
+            if routes_maxscore(self.strategy, self._nmax, k):
                 return self._search_stream_ms(queries, k, fmask_dev)
             return self._search_stream(queries, k, fmask_dev)
         if self.engine == "exact":
@@ -1788,38 +1784,34 @@ class ShardedIndex:
         )
         scores = np.where(valid, scores, -np.inf)
 
-        # Merge growing-segment hits (host brute force, global stats;
-        # growing global ids follow the sealed doc space).  One [Q, G]
-        # scoring pass + a vectorized lexsort merge.
+        # Merge growing-segment hits (global stats; growing global ids
+        # follow the sealed doc space): the growing prefix's and tail's
+        # blocks ranked with the sealed results in the facade's merge.
         g = len(self.growing)
         if g:
-            g_payloads = np.asarray(self.growing.payloads, dtype=np.int64)
-            if filter_fn is not None:
-                from ..index.bm25index import _eval_predicate
+            from ..index.bm25index import _eval_predicate, merge_ranked
 
-                keep = _eval_predicate(filter_fn, g_payloads)
-            else:
-                keep = None
+            g_payloads = np.asarray(self.growing.payloads, dtype=np.int64)
+            keep = (
+                _eval_predicate(filter_fn, g_payloads)
+                if filter_fn is not None
+                else None
+            )
             g_base = self.n_docs
             # Growing top-k served from the device (no O(Q x G) host
             # work — see GrowingSegment.device_engine).
-            g_top, top = self.growing.topk_batch_async(queries, k, keep)()
-            all_s = np.concatenate([scores.astype(np.float64), g_top], axis=1)
-            all_g = np.concatenate(
-                [gids, np.where(top >= 0, g_base + top, -1)], axis=1
+            ids, qidx = batch_lookup(self.lookup_tokens, queries)
+            g_blocks = self.growing.topk_batch_async(ids, qidx, len(queries), k, keep)()
+            dtype = scores.dtype
+            scores, gids, payloads = merge_ranked(
+                [(scores.astype(np.float64), gids, payloads)]
+                + [
+                    (s, np.where(i >= 0, g_base + i, -1), g_payloads[np.maximum(i, 0)])
+                    for s, i in g_blocks
+                ],
+                k,
             )
-            all_p = np.concatenate(
-                [payloads, g_payloads[np.maximum(top, 0)]], axis=1
-            )
-            # Invalid sealed slots carry gid -1: push them after real ids
-            # at equal (-inf) score by sorting on id with -1 mapped last.
-            order_key = np.where(all_g < 0, np.iinfo(np.int64).max, all_g)
-            pick = np.lexsort((order_key, -all_s), axis=-1)[:, :k]
-            scores = np.take_along_axis(all_s, pick, axis=1).astype(
-                scores.dtype
-            )
-            gids = np.take_along_axis(all_g, pick, axis=1)
-            payloads = np.take_along_axis(all_p, pick, axis=1)
+            scores = scores.astype(dtype)
         return scores, gids, payloads
 
     # ------------------------------------------------------------------

@@ -28,7 +28,10 @@ one sync a round.  The scoring kernel depends on the posting form
 ``_rangescan_kernel``): every range in chunks through P1, written straight
 into a ``[Q, n_chunks*C*RS]`` accumulator, then the exact top-k of
 ``ops/topk.py`` (S2).  The numpy host planning (``_prepare``) is a copy of
-the reference's.
+the reference's, on a batch already looked up in the segment's token table
+(``utils/batchkeys.py::batch_lookup``): the ``*_ids_async`` entries serve
+that form, and ``search_async`` and ``search_rangescan_async`` look
+``Query`` objects up and call them.
 """
 
 from __future__ import annotations
@@ -395,12 +398,11 @@ class BlockMaxEngine:
             / max(1, ri.post_local.size - ri.range_size),
         }
 
-    def _prepare(self, queries: Sequence[Query]):
-        """Host prep: only term-id lookup (one vectorized searchsorted
-        over the concatenated batch keys); everything else is on device."""
+    def _prepare(self, ids: np.ndarray, qidx: np.ndarray, qn: int):
+        """Host prep of a looked-up batch of ``qn`` queries: only the
+        padded ``[Q, T]`` term-id matrix and the lmax bucket; everything
+        else is on device."""
         seg = self.segment
-        qn = len(queries)
-        ids, qidx = batch_lookup(seg.lookup_tokens, queries)
         if ids.size == 0:
             # Match the non-empty path's minimum buckets so the jit
             # cache is shared with normal batches.
@@ -418,7 +420,6 @@ class BlockMaxEngine:
             fm[: self.dev.n_docs] = np.asarray(filter_mask, dtype=np.float32)
         return _upload(fm, self.device)
 
-    @tracing.traced("vcbm25.blockmax.dispatch")
     def search_async(
         self,
         queries: Sequence[Query],
@@ -426,15 +427,33 @@ class BlockMaxEngine:
         filter_mask: Optional[np.ndarray] = None,
         chunk: Optional[int] = None,
     ):
-        """Run the pruning rounds and return finalize() -> (scores, ids,
-        payloads); the last round's device work may still be queued."""
+        """``search_ids_async`` on the batch looked up in this engine's
+        token table."""
+        queries = list(queries)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        return self.search_ids_async(ids, qidx, len(queries), k, filter_mask, chunk)
+
+    @tracing.traced("vcbm25.blockmax.dispatch")
+    def search_ids_async(
+        self,
+        ids: np.ndarray,
+        qidx: np.ndarray,
+        qn: int,
+        k: int,
+        filter_mask: Optional[np.ndarray] = None,
+        chunk: Optional[int] = None,
+    ):
+        """Run the pruning rounds over a batch of ``qn`` queries looked up
+        in this engine's token table (``ids``, ``qidx`` as ``batch_lookup``
+        gives them) and return finalize() -> (scores, ids, payloads); the
+        last round's device work may still be queued."""
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
         chunk = self.chunk if chunk is None else chunk
         dev = self.dev
         ri = self.ranges
         with tracing.span("vcbm25.blockmax.lookup"):
-            q_tid, lmax = self._prepare(queries)
+            q_tid, lmax = self._prepare(ids, qidx, qn)
         with tracing.span("vcbm25.blockmax.upload"):
             tf_args = ()
             if self.posting_mode == "tf":
@@ -449,7 +468,7 @@ class BlockMaxEngine:
             d_tid = _upload(q_tid, self.device)
 
         kk = min(_bucket(k, 1), max(dev.n_docs, 1))
-        scores, ids, rounds = _blockmax_kernel(
+        top_s, top_i, rounds = _blockmax_kernel(
             self.dev_post_impact,
             self.dev_post_local,
             dev.doc_live,
@@ -473,20 +492,34 @@ class BlockMaxEngine:
 
         @tracing.traced("vcbm25.blockmax.finalize")
         def finalize():
-            return _finish(self.segment, _host(scores, _WAIT), _host(ids, _WAIT), k)
+            return _finish(self.segment, _host(top_s, _WAIT), _host(top_i, _WAIT), k)
 
         return finalize
 
-    @tracing.traced("vcbm25.blockmax.dispatch")
     def search_rangescan_async(
         self,
         queries: Sequence[Query],
         k: int,
         filter_mask: Optional[np.ndarray] = None,
     ):
-        """Exhaustive range-sweep scoring (no pruning, no scatter): see
-        ``_rangescan_kernel``.  Exact results, the contract of
-        ``search_async``."""
+        """``search_rangescan_ids_async`` on the batch looked up in this
+        engine's token table."""
+        queries = list(queries)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        return self.search_rangescan_ids_async(ids, qidx, len(queries), k, filter_mask)
+
+    @tracing.traced("vcbm25.blockmax.dispatch")
+    def search_rangescan_ids_async(
+        self,
+        ids: np.ndarray,
+        qidx: np.ndarray,
+        qn: int,
+        k: int,
+        filter_mask: Optional[np.ndarray] = None,
+    ):
+        """Exhaustive range-sweep scoring (no pruning, no scatter) of a
+        looked-up batch: see ``_rangescan_kernel``.  Exact results, the
+        contract of ``search_async``."""
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
         if self.posting_mode != "impact":
@@ -496,16 +529,16 @@ class BlockMaxEngine:
             )
         dev = self.dev
         ri = self.ranges
-        q_tid, lmax = self._prepare(queries)
+        q_tid, lmax = self._prepare(ids, qidx, qn)
         kk = min(_bucket(k, 1), max(dev.n_docs, 1))
         # The reference's chunk rule (search/blockmax.py:637-644), copied
         # for parity: one chunk's XLA working set (~12 B a lane) stays
         # near 128 MB, rounded down to a power of two.
-        qn, t = q_tid.shape
+        t = q_tid.shape[1]
         budget = max(64, (128 << 20) // max(1, qn * t * ri.range_size * 12))
         chunk = 1 << (int(budget).bit_length() - 1)
         chunk = int(min(chunk, ri.n_ranges))
-        scores, ids = _rangescan_kernel(
+        top_s, top_i = _rangescan_kernel(
             self.dev_post_impact,
             self.dev_post_local,
             dev.doc_live,
@@ -524,7 +557,7 @@ class BlockMaxEngine:
 
         @tracing.traced("vcbm25.blockmax.finalize")
         def finalize():
-            return _finish(self.segment, _host(scores, _WAIT), _host(ids, _WAIT), k)
+            return _finish(self.segment, _host(top_s, _WAIT), _host(top_i, _WAIT), k)
 
         return finalize
 

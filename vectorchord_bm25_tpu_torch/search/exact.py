@@ -20,7 +20,10 @@ Semantics pinned to the reference:
   the reference's heap leaves ties unspecified).
 
 The host planning (``_win_lists``, ``_grp_lists``, the assembly, cost
-buckets and caps of ``search_async``) is a copy of the reference's numpy;
+buckets and caps of ``search_ids_async``) is a copy of the reference's
+numpy, on a batch already looked up in the segment's token table
+(``utils/batchkeys.py::batch_lookup``; ``search_async`` looks ``Query``
+objects up);
 the three jitted functions it dispatched to are ``ops/exact_kernel.py``
 (E1-E3: CUDA kernels on a CUDA device, their plain versions on the CPU)
 followed by ``ops/topk.py`` or the sparse reduction of
@@ -57,6 +60,7 @@ from ..utils.buckets import bucket_pow2 as _bucket
 from ..utils.device import as_device
 from ..utils.scorepack import pack_score
 from .device import DeviceSegment
+from .stream import StreamEngine
 
 __all__ = ["ExactEngine", "oracle_scores", "oracle_topk"]
 
@@ -240,20 +244,18 @@ class ExactEngine:
             "bytes_per_posting": postings / n_post,
         }
 
-    def _grp_lists(self, queries: Sequence[Query]):
+    def _grp_lists(self, ids: np.ndarray, qidx: np.ndarray, qn: int):
         """Batch-vectorized per-query (term, range) group ids (CSR slices
-        of the range index, the compact analog of block lists).
+        of the range index, the compact analog of block lists) of a
+        looked-up batch of ``qn`` queries.
 
         Returns (grps, starts, sizes, ords): flat group ids grouped by query
         (query q owns [starts[q], starts[q+1])) and, one more array than
         the reference returns, each group's term ordinal inside its query
         (derived from ``cnt`` with ``np.repeat``): E3 adds one ordinal at a
         time to keep the reference's sum order."""
-        seg = self.segment
         tts = self._ranges.token_tr_start
-        qn = len(queries)
         empty = np.zeros(0, dtype=np.int64)
-        ids, qidx = batch_lookup(seg.lookup_tokens, queries)
         if ids.size == 0:
             sizes = np.zeros(qn, dtype=np.int64)
             return empty, np.zeros(qn + 1, dtype=np.int64), sizes, empty
@@ -292,22 +294,23 @@ class ExactEngine:
             grp_ord[dst_q, pos] = ords[src]
         return grp_ids, grp_ord
 
-    def _prepare_compact(self, queries: Sequence[Query]):
-        """Host-side batch assembly (single bucket): padded per-query
-        group-id lists and their term ordinals."""
+    def _prepare_compact(self, ids: np.ndarray, qidx: np.ndarray, qn: int):
+        """Host-side batch assembly (single bucket) of a looked-up batch:
+        padded per-query group-id lists and their term ordinals."""
         return self._assemble_compact(
-            self._grp_lists(queries), np.arange(len(queries))
+            self._grp_lists(ids, qidx, qn), np.arange(qn)
         )
 
     #: "auto" strategy switches to the sparse sort path at this corpus
-    #: size (the reference's crossover, copied for parity; to be measured
-    #: again on the card, ROADMAP.md "Open metrics").
-    SPARSE_MIN_DOCS = 1 << 21
+    #: size: the stream engine's crossover (the reference's, copied for
+    #: parity; to be measured again on the card, ROADMAP.md "Open
+    #: metrics").
+    SPARSE_MIN_DOCS = StreamEngine.SPARSE_MIN_DOCS
 
-    def _win_lists(self, queries: Sequence[Query]):
-        """Batch-vectorized window computation: one searchsorted over the
-        concatenated query keys, then a repeat/cumsum CSR expansion of
-        every term span into 128-lane row windows — no per-query Python.
+    def _win_lists(self, ids: np.ndarray, qidx: np.ndarray, qn: int):
+        """Batch-vectorized window computation of a looked-up batch of
+        ``qn`` queries: a repeat/cumsum CSR expansion of every term span
+        into 128-lane row windows — no per-query Python.
 
         Returns ((rows, lo, hi, starts, sizes, ords), n_terms): flat window
         arrays grouped by query (query q owns [starts[q], starts[q+1])),
@@ -316,11 +319,8 @@ class ExactEngine:
         ordinal inside its query (derived from ``cnt`` with ``np.repeat``);
         E1 adds one ordinal at a time to keep the reference's sum order.
         """
-        seg = self.segment
         csr = self.dev.token_flat_start
-        qn = len(queries)
         empty = np.zeros(0, dtype=np.int64)
-        ids, qidx = batch_lookup(seg.lookup_tokens, queries)
         if ids.size == 0:
             sizes = np.zeros(qn, dtype=np.int64)
             starts = np.zeros(qn + 1, dtype=np.int64)
@@ -373,14 +373,16 @@ class ExactEngine:
             win_ord[dst_q, pos] = ords[src]
         return win_row, win_lo, win_hi, win_ord
 
-    def _prepare(self, queries: Sequence[Query], with_terms: bool = False):
-        """Host-side batch assembly (single bucket): padded per-query
-        posting-row windows and their term ordinals.
+    def _prepare(
+        self, ids: np.ndarray, qidx: np.ndarray, qn: int, with_terms: bool = False
+    ):
+        """Host-side batch assembly (single bucket) of a looked-up batch:
+        padded per-query posting-row windows and their term ordinals.
 
         with_terms=True additionally returns the max matched-term count
         in the batch (bounds the sparse path's segment lengths)."""
-        wins, n_terms = self._win_lists(queries)
-        out = self._assemble_windows(wins, np.arange(len(queries)))
+        wins, n_terms = self._win_lists(ids, qidx, qn)
+        out = self._assemble_windows(wins, np.arange(qn))
         if with_terms:
             return (*out, int(max(1, n_terms.max(initial=1))))
         return out
@@ -391,7 +393,23 @@ class ExactEngine:
         k: int,
         filter_mask: Optional[np.ndarray] = None,
     ):
-        """Dispatch a batch and return finalize() -> (scores, ids, payloads).
+        """``search_ids_async`` on the batch looked up in this engine's
+        token table."""
+        queries = list(queries)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        return self.search_ids_async(ids, qidx, len(queries), k, filter_mask)
+
+    def search_ids_async(
+        self,
+        ids: np.ndarray,
+        qidx: np.ndarray,
+        qn: int,
+        k: int,
+        filter_mask: Optional[np.ndarray] = None,
+    ):
+        """Dispatch a batch of ``qn`` queries looked up in this engine's
+        token table (``ids``, ``qidx`` as ``batch_lookup`` gives them) and
+        return finalize() -> (scores, ids, payloads).
 
         The kernels are enqueued on the current stream and return
         immediately; deferring the host sync to finalize() lets callers
@@ -409,8 +427,6 @@ class ExactEngine:
             raise ValueError("number of needed rows is set to 0")
         dev = self.dev
         device = self.device
-        queries = list(queries)
-        qn = len(queries)
         use_sparse = not self.compact and (
             self.strategy == "sparse"
             or (
@@ -428,10 +444,10 @@ class ExactEngine:
 
         n_terms = np.ones(qn, dtype=np.int64)
         if self.compact:
-            lists = self._grp_lists(queries)
+            lists = self._grp_lists(ids, qidx, qn)
             sizes = lists[2]
         else:
-            lists, n_terms = self._win_lists(queries)
+            lists, n_terms = self._win_lists(ids, qidx, qn)
             sizes = lists[4]
 
         # Bucket only when padding waste is material: splitting costs a

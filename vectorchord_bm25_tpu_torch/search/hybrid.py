@@ -22,7 +22,9 @@ one query per backend and adapts naturally; SURVEY.md §2.8).
 It holds no kernel of its own: the one-shot and ``pruned`` groups run P1
 through the port's ``BlockMaxEngine``, the ``rangescan`` group P1 into one
 accumulator and then S2, and everything else the port's ``ExactEngine``
-(E1, or E3 with ``memory_mode="compact"``).
+(E1, or E3 with ``memory_mode="compact"``).  A batch is looked up once
+(``utils/batchkeys.py::batch_lookup``): the router reads that lookup, and
+each group is its rows of it, served through the engines' ids entries.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 from ..index.ranges import RangeIndex, build_range_index, ranges_from_reference
 from ..index.sealed import SealedSegment, segment_from_reference
 from ..text.intern import Query
-from ..utils.batchkeys import batch_lookup
+from ..utils.batchkeys import batch_lookup, select_rows
 from .blockmax import BlockMaxEngine
 from .exact import ExactEngine
 
@@ -221,17 +223,17 @@ class HybridEngine:
             "projected": True,  # would-be upload; nothing resident yet
         }
 
-    def _route(self, queries: Sequence[Query]) -> Tuple[np.ndarray, np.ndarray]:
+    def _route(
+        self, ids: np.ndarray, qidx: np.ndarray, qn: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (strategy [Q] in {0: one-shot, 1: dense, 2: iterative},
-        total_ranges [Q]).  One vectorized lookup over the concatenated
-        batch keys — no per-query Python."""
+        total_ranges [Q]) of a looked-up batch of ``qn`` queries — no
+        per-query Python."""
         seg = self.segment
         term_l = self._term_l
         df_budget = max(1.0, self.route_threshold * seg.n_docs)
-        qn = len(queries)
         ranges = np.zeros(qn, dtype=np.int64)
         dfs = np.zeros(qn, dtype=np.int64)
-        ids, qidx = batch_lookup(seg.lookup_tokens, queries)
         if ids.size:
             np.add.at(ranges, qidx, term_l[ids])
             np.add.at(dfs, qidx, seg.token_df[ids])
@@ -251,20 +253,34 @@ class HybridEngine:
         k: int,
         filter_mask: Optional[np.ndarray] = None,
     ):
-        """Dispatch all strategy groups and return finalize() ->
-        (scores, ids, payloads) — groups and successive batches pipeline
-        (their device work is enqueued, the host sync waits in finalize)."""
+        """``search_ids_async`` on the batch looked up in this engine's
+        token table."""
+        queries = list(queries)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        return self.search_ids_async(ids, qidx, len(queries), k, filter_mask)
+
+    def search_ids_async(
+        self,
+        ids: np.ndarray,
+        qidx: np.ndarray,
+        qn: int,
+        k: int,
+        filter_mask: Optional[np.ndarray] = None,
+    ):
+        """Dispatch all strategy groups of a batch of ``qn`` queries looked
+        up in this engine's token table (``ids``, ``qidx`` as
+        ``batch_lookup`` gives them) and return finalize() -> (scores, ids,
+        payloads) — groups and successive batches pipeline (their device
+        work is enqueued, the host sync waits in finalize)."""
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
-        queries = list(queries)
-        strategy, ranges = self._route(queries)
-        qn = len(queries)
+        strategy, ranges = self._route(ids, qidx, qn)
 
         pending = []  # (index array, finalize fn)
 
         def submit(idx, fn):
             if idx.size:
-                pending.append((idx, fn([queries[j] for j in idx])))
+                pending.append((idx, fn(*select_rows(ids, qidx, qn, idx), idx.size)))
 
         oneshot = np.flatnonzero(strategy == 0)
         if oneshot.size:
@@ -284,26 +300,26 @@ class HybridEngine:
                 chunk = 8 * (4 ** int(bu))
                 submit(
                     group,
-                    lambda qs, c=chunk: self.blockmax.search_async(
-                        qs, k, filter_mask, chunk=c
+                    lambda *b, c=chunk: self.blockmax.search_ids_async(
+                        *b, k, filter_mask, chunk=c
                     ),
                 )
         submit(
             np.flatnonzero(strategy == 1),
-            lambda qs: self.exact.search_async(qs, k, filter_mask),
+            lambda *b: self.exact.search_ids_async(*b, k, filter_mask),
         )
         heavy = self.heavy_mode
         if heavy == "auto":
             heavy = "exact"
         heavy_fn = {
-            "pruned": lambda qs: self.blockmax.search_async(
-                qs, k, filter_mask
+            "pruned": lambda *b: self.blockmax.search_ids_async(
+                *b, k, filter_mask
             ),
-            "exact": lambda qs: self.exact.search_async(
-                qs, k, filter_mask
+            "exact": lambda *b: self.exact.search_ids_async(
+                *b, k, filter_mask
             ),
-            "rangescan": lambda qs: self.blockmax.search_rangescan_async(
-                qs, k, filter_mask
+            "rangescan": lambda *b: self.blockmax.search_rangescan_ids_async(
+                *b, k, filter_mask
             ),
         }[heavy]
         submit(np.flatnonzero(strategy == 2), heavy_fn)

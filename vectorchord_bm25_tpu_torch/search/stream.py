@@ -20,12 +20,16 @@ query MaxScore cannot certify.  The reductions, per dispatch:
   impact-ordered window prefix into a candidate pool, then
   ``ops/stream_rescore.py`` (S5) rescores the candidates exactly.
 
-The numpy planning (``_win_lists``, ``_assemble``, ``_ms_route``,
+The numpy planning (``_layout``, ``_assemble``, ``_ms_route``,
 ``_maxscore_phase``, ``_maxscore_tables``, ``_s1_by_doc_host``, and the
 helpers ``_ms_prefix_prep`` and ``_ms_certify``), ``set_deleted``,
 ``memory_report`` and ``search`` are copies of the reference's, running on
 the torch tensors uploaded here; the methods that reach jax there are
-rewritten.  The reference's ``_throttle_large`` (a jax-only guard against a
+rewritten.  A batch is planned from its lookup in the segment's token
+table, ``(ids, qidx)`` as ``utils/batchkeys.py::batch_lookup`` gives it:
+``search_ids_async`` serves that form (the facade looks a batch up once
+and hands it here), ``search_async`` looks ``Query`` objects up and calls
+it.  The reference's ``_throttle_large`` (a jax-only guard against a
 TPU dispatch pile-up) has no counterpart: each dispatch's lanes or
 accumulator are freed before the next is allocated, and only the
 ``[q, k]`` results wait for ``finalize``.
@@ -45,12 +49,12 @@ from ..ops.stream_rescore import rescore_topk
 from ..ops.stream_sparse import doc_ordered, segment_offsets, stream_sparse_topk
 from ..ops.topk import dense_topk
 from ..text.intern import Query
-from ..utils.batchkeys import batch_lookup, group_positions
+from ..utils.batchkeys import batch_lookup, group_positions, select_rows
 from ..utils import tracing
 from ..utils.buckets import bucket_pow2 as _bucket
 from ..utils.device import as_device
 
-__all__ = ["StreamEngine", "window_ordinals"]
+__all__ = ["StreamEngine", "routes_maxscore", "window_ordinals"]
 
 # Lanes a sparse dispatch may hold (the reference's cap, search/stream.py
 # :797, :882, :1081): 512 MB of (doc, score) before the sort's copy.
@@ -136,9 +140,26 @@ def _ms_certify(kth_exact, last, s_rem):
 
 
 
+def routes_maxscore(strategy: str, n_docs: int, k: int) -> bool:
+    """Whether a batch at ``k`` goes to MaxScore, wholly or by the router
+    (``StreamEngine._ms_route``): 'maxscore' sends every query through the
+    pruned path (k above ``MS_MAX_K`` serves exhaustively); from
+    ``SPARSE_MIN_DOCS`` docs on, 'auto' routes per query (k <=
+    ``MS_ROUTE_MAX_K``), all three ``StreamEngine``'s.  The single engine
+    and the sharded index (``n_docs``: its largest shard) both gate on
+    it."""
+    if k > StreamEngine.MS_MAX_K:
+        return False
+    return strategy == "maxscore" or (
+        strategy == "auto"
+        and n_docs >= StreamEngine.SPARSE_MIN_DOCS
+        and k <= StreamEngine.MS_ROUTE_MAX_K
+    )
+
+
 def window_ordinals(stream: StreamIndex, wsrc, starts, sizes) -> np.ndarray:
-    """Each window's term ordinal inside its query, from ``_win_lists``'
-    output: a query's windows are term-major, and a new term entry starts
+    """Each window's term ordinal inside its query, from ``_layout``'s
+    lists: a query's windows are term-major, and a new term entry starts
     where the window ids stop being consecutive or the token changes (a
     term repeated in a query restarts its span, so it counts twice)."""
     t = wsrc.size
@@ -161,7 +182,8 @@ class StreamEngine:
     S1-S5, on the CPU their plain PyTorch versions."""
 
     #: "auto" strategy switches to the sparse sort path at this corpus
-    #: size (same measured crossover as ExactEngine, DESIGN.md).
+    #: size (the reference's measured crossover, DESIGN.md; ExactEngine
+    #: takes the same value).
     SPARSE_MIN_DOCS = 1 << 21
 
     def __init__(
@@ -271,23 +293,14 @@ class StreamEngine:
             / max(1, self.stream.n_postings),
         }
 
-    def _win_lists(self, queries: Sequence[Query]):
-        """Vectorized per-query window-id lists (CSR slices of the
-        stream's window table) + per-query matched-term counts."""
-        lists, n_terms, _ = self._term_windows(queries)
-        return lists, n_terms
-
     @tracing.traced("vcbm25.stream.lookup")
-    def _term_windows(self, queries: Sequence[Query]):
-        """``_win_lists``' output and the sparse kernels' segments: (lists,
-        n_terms, (cnt, qidx)), each (query, term occurrence)'s window count
-        and query, in the lists' order."""
-        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
-        return self._layout(ids, qidx, len(queries))
-
     def _layout(self, ids: np.ndarray, qidx: np.ndarray, qn: int):
-        """``_term_windows`` of a batch already looked up: ``ids`` (token
-        ids) and ``qidx`` (their queries) as ``batch_lookup`` gives them."""
+        """The window layout of a looked-up batch of ``qn`` queries:
+        (lists, n_terms, (cnt, qidx)).  ``lists`` = (wsrc, starts, sizes),
+        the vectorized per-query window-id lists (CSR slices of the
+        stream's window table); ``n_terms``, each query's matched-term
+        count; (cnt, qidx), the sparse kernels' segments: each (query, term
+        occurrence)'s window count and query, in the lists' order."""
         tws = self.stream.token_w_start
         empty = np.zeros(0, dtype=np.int64)
         if ids.size == 0:
@@ -378,7 +391,7 @@ class StreamEngine:
     MS_POOL_CAP = 16384
 
     @tracing.traced("vcbm25.stream.route")
-    def _ms_route(self, queries):
+    def _ms_route(self, ids, qidx, qn):
         """Predicted-work router for strategy='auto' at scale: True for
         queries the pruned path should serve.
 
@@ -391,8 +404,6 @@ class StreamEngine:
         (small window sets) and flat-impact informative queries route
         to the exhaustive sparse scan, which is already near the HBM
         roofline for them."""
-        qn = len(queries)
-        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
         if ids.size == 0:
             return np.zeros(qn, dtype=bool)
         order, bounds = self._maxscore_tables()
@@ -414,7 +425,7 @@ class StreamEngine:
         )
 
     @tracing.traced("vcbm25.stream.maxscore")
-    def _maxscore_phase(self, queries, k, s1_eff, n_terms):
+    def _maxscore_phase(self, ids, qidx, qn, k, s1_eff, n_terms):
         """Tiered two-phase pruned exact top-k (strategy='maxscore').
 
         Each tier scores only each term's highest-bound windows
@@ -427,25 +438,14 @@ class StreamEngine:
 
         Returns (pending entries for finalize, fallback query indices).
         """
-        qn = len(queries)
-        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
         if ids.size == 0:
             return [], np.zeros(0, dtype=np.int64)
         pending = []
         active = np.arange(qn, dtype=np.int64)
         tiers = []
         for tau_frac, pool_min, excl_over in self.MS_TIERS:
-            if active.size == qn:
-                t_ids, t_qidx, t_n = ids, qidx, n_terms
-            else:
-                amask = np.zeros(qn, dtype=bool)
-                amask[active] = True
-                sel = amask[qidx]
-                remap = np.full(qn, -1, dtype=np.int64)
-                remap[active] = np.arange(active.size)
-                t_ids = ids[sel]
-                t_qidx = remap[qidx[sel]]
-                t_n = n_terms[active]
+            t_ids, t_qidx = select_rows(ids, qidx, qn, active)
+            t_n = n_terms[active]
             tier_pending, tier_fb, tstats = self._ms_tier(
                 t_ids, t_qidx, active.size, k, s1_eff, t_n,
                 tau_frac, pool_min,
@@ -485,7 +485,7 @@ class StreamEngine:
 
     def _dispatches(self, lists):
         """The reference's dense chunking (search/stream.py:1016-1047) of
-        ``_win_lists``' output: yields (query rows, wsrc [tb] int32, q_start
+        ``_layout``'s lists: yields (query rows, wsrc [tb] int32, q_start
         [n_qb + 1] int32, w_ord [tb] int32, n_qb) per dispatch: windows in
         the reference's order with pad windows (len 0, ordinal -1, outside
         every span) up to the bucketed tb, and each query's span of them
@@ -663,20 +663,6 @@ class StreamEngine:
             )
         return pending, fallback, stats
 
-    def _routes_maxscore(self, k: int) -> bool:
-        """Whether a batch at ``k`` goes to MaxScore, wholly or by
-        ``_ms_route``: 'maxscore' sends every query through the pruned path
-        (k above MS_MAX_K serves exhaustively); at scale 'auto' routes per
-        query (k <= MS_ROUTE_MAX_K)."""
-        if k > self.MS_MAX_K:
-            return False
-        return self.strategy == "maxscore" or (
-            self.strategy == "auto"
-            and self.n_docs >= self.SPARSE_MIN_DOCS
-            and k <= self.MS_ROUTE_MAX_K
-        )
-
-    @tracing.traced("vcbm25.stream.dispatch")
     def search_async(
         self,
         queries: Sequence[Query],
@@ -684,10 +670,11 @@ class StreamEngine:
         filter_mask: Optional[np.ndarray] = None,
     ):
         """Dispatch a batch and return finalize() -> (scores, ids,
-        payloads): the reference's routing (search/stream.py:939-1014), its
-        dense and sparse branches (:1016-1103) and finalize (:1105-1127)."""
+        payloads): ``search_ids_async`` on the batch looked up in this
+        engine's token table."""
         queries = list(queries)
-        return self._search(queries, len(queries), k, filter_mask, None)
+        ids, qidx = batch_lookup(self.segment.lookup_tokens, queries)
+        return self.search_ids_async(ids, qidx, len(queries), k, filter_mask)
 
     @tracing.traced("vcbm25.stream.dispatch")
     def search_ids_async(
@@ -698,39 +685,28 @@ class StreamEngine:
         k: int,
         filter_mask: Optional[np.ndarray] = None,
     ):
-        """``search_async`` on a batch of ``qn`` queries already looked up
-        in this engine's token table: ``ids`` (token ids) and ``qidx``
-        (their queries), query-ascending and token-ascending within a query,
-        as ``batch_lookup`` gives them for ``Query`` objects.  The same
-        routing, dispatches and results; MaxScore reads ``Query`` objects,
-        so a batch it takes has them made from the ids (the token keys)."""
-        queries = None
-        if self._routes_maxscore(k):
-            counts = np.bincount(qidx, minlength=qn)
-            keys = self.segment.token_keys[ids]
-            queries = [Query(keys=a) for a in np.split(keys, np.cumsum(counts)[:-1])][:qn]
-        return self._search(queries, qn, k, filter_mask, (ids, qidx))
-
-    def _search(self, queries, qn: int, k: int, filter_mask, looked_up):
-        """The body of both entries: ``looked_up`` is None (look ``queries``
-        up) or the batch's (ids, qidx); ``queries`` is read only by
-        MaxScore's routing and tiers."""
+        """Dispatch a batch of ``qn`` queries looked up in this engine's
+        token table, ``ids`` (token ids) and ``qidx`` (their queries) as
+        ``batch_lookup`` gives them, and return finalize() -> (scores, ids,
+        payloads): the reference's routing (search/stream.py:939-1014),
+        its dense and sparse branches (:1016-1103) and finalize
+        (:1105-1127)."""
         if k <= 0:
             raise ValueError("number of needed rows is set to 0")
         # Per-dispatch profile: cleared up front so a reader after this call
         # never sees a previous dispatch's stats.
         self.last_ms_stats = None
         n_docs = self.n_docs
-        # At scale the queries MaxScore does not take (_routes_maxscore,
+        # At scale the queries MaxScore does not take (routes_maxscore,
         # _ms_route), and every query no tier certifies, take the exhaustive
         # sparse reduction.
         at_scale = n_docs >= self.SPARSE_MIN_DOCS
         ms_sel = None
-        if self._routes_maxscore(k):
+        if routes_maxscore(self.strategy, n_docs, k):
             if self.strategy == "maxscore":
                 ms_sel = np.arange(qn, dtype=np.int64)
             else:
-                ms_sel = np.flatnonzero(self._ms_route(queries))
+                ms_sel = np.flatnonzero(self._ms_route(ids, qidx, qn))
         use_sparse = ms_sel is None and (
             self.strategy in ("sparse", "maxscore")
             or (self.strategy == "auto" and at_scale)
@@ -738,25 +714,16 @@ class StreamEngine:
 
         s1_eff = self._s1_eff(filter_mask)
         kk = min(_bucket(k, 1), max(n_docs, 1))
-        if looked_up is None:
-            lists, n_terms, segs = self._term_windows(queries)
-        else:
-            # The lookup's span, so the engine's planning keeps one shape.
-            with tracing.span("vcbm25.stream.lookup"):
-                lists, n_terms, segs = self._layout(*looked_up, qn)
+        lists, n_terms, segs = self._layout(ids, qidx, qn)
         sizes = lists[2]
 
         pending = []
         sparse_sel = np.arange(qn, dtype=np.int64)
         if ms_sel is not None:
             if ms_sel.size:
-                sub_q = (
-                    queries
-                    if ms_sel.size == qn
-                    else [queries[i] for i in ms_sel]
-                )
                 ms_pending, fb_local = self._maxscore_phase(
-                    sub_q, k, s1_eff, n_terms[ms_sel]
+                    *select_rows(ids, qidx, qn, ms_sel), ms_sel.size, k,
+                    s1_eff, n_terms[ms_sel],
                 )
                 for qs_local, data in ms_pending:
                     pending.append((ms_sel[qs_local], data))

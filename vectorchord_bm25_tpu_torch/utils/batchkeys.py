@@ -16,7 +16,7 @@ import numpy as np
 
 from ..text.intern import WIDTH
 
-__all__ = ["batch_lookup", "group_positions"]
+__all__ = ["batch_lookup", "group_positions", "select_rows"]
 
 _KEY_DT = f"S{WIDTH}"
 
@@ -45,6 +45,22 @@ def batch_lookup(
     qidx = np.repeat(np.arange(qn, dtype=np.int64), kcounts)
     keep = ids >= 0
     return ids[keep], qidx[keep]
+
+
+def select_rows(
+    ids: np.ndarray, qidx: np.ndarray, qn: int, rows: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The looked-up batch ``(ids, qidx)`` of ``qn`` queries cut to the
+    queries ``rows`` (ascending): their ids, in order, and their query
+    indices renumbered ``0..rows.size`` — what ``batch_lookup`` gives for
+    that sub-batch."""
+    if rows.size == qn:
+        return ids, qidx
+    remap = np.full(qn, -1, dtype=np.int64)
+    remap[rows] = np.arange(rows.size)
+    sub = remap[qidx]
+    sel = sub >= 0
+    return ids[sel], sub[sel]
 
 
 def group_positions(sizes: np.ndarray) -> np.ndarray:
